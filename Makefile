@@ -5,7 +5,7 @@
 PYTHON ?= python3
 DATA := stringdecomposer_tpu/test_data
 
-.PHONY: all test test_tpu test_launch install uninstall clean
+.PHONY: all test test_tpu test_gpu test_launch install uninstall clean
 
 all:
 	$(MAKE) -C stringdecomposer_tpu/runtime/native
@@ -18,6 +18,11 @@ test:
 test_tpu:
 	SDTPU_TESTS_ON_TPU=1 $(PYTHON) -m pytest tests/ -q -m tpu
 	$(PYTHON) bench.py
+
+# the PyTorch / CUDA port on one GPU: builds the kernels, checks them against
+# their plain twins and the fixtures, and runs the golden and 1.6 Mbp paths
+test_gpu:
+	$(PYTHON) chip_smoke.py
 
 test_launch:
 	rm -rf /tmp/sd_tpu_test && \
@@ -35,4 +40,5 @@ uninstall:
 
 clean:
 	rm -f stringdecomposer_tpu/runtime/native/libsdnative.so
+	rm -rf stringdecomposer_tpu_torch/build
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true
