@@ -4,8 +4,10 @@
 Builds the hand-written kernels from csrc/, checks each against its plain
 PyTorch twin on the card (bit-equal: all outputs are integers) and against
 the reference fixtures, drives the golden CLI run through the kernels and
-a 1.6 Mbp synthetic assembly through both routes, then times each kernel
-beside its plain version at the golden shapes.
+a 1.6 Mbp synthetic assembly through both routes, drives the --ed_thr
+pre-filter (K3) and a HOR-scale monomer library (`hor_library`, 264
+monomers with RC, which takes K1's large route unfiltered), then times each
+kernel beside its plain version at the main path's shapes.
 
 Usage: python3 chip_smoke.py        (needs one CUDA device; exits non-zero
 without one, and prints no result)
@@ -26,12 +28,57 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "stringdecomposer_tpu", "test_data")
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
+KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "hw_filter")
+
+
+def hor_library(records, rng):
+    """A HOR-scale monomer library from a monomer set: each monomer, in file
+    order, then 10 variants v = 0..9 with max(1, int(len * (0.02 + 0.01 v)))
+    random edits each (substitution p 0.8, deletion 0.1, insertion 0.1),
+    named `<first word of name>_v<v>`. From the 12 DXZ1 monomers and
+    numpy.random.default_rng(0): 132 monomers, 264 with RC, padded to 192."""
+    from stringdecomposer_tpu.io.fasta import Record
+
+    out = []
+    for r in records:
+        out.append(Record(r.name, r.seq))
+        head = r.name.split()[0]
+        for v in range(10):
+            seq = list(r.seq)
+            for _ in range(max(1, int(len(r.seq) * (0.02 + 0.01 * v)))):
+                pos = int(rng.integers(len(seq)))
+                kind = rng.random()
+                if kind < 0.8:
+                    seq[pos] = "ACGT".replace(seq[pos], "")[int(rng.integers(3))]
+                elif kind < 0.9:
+                    if len(seq) > 1:
+                        del seq[pos]
+                else:
+                    seq.insert(pos, "ACGT"[int(rng.integers(4))])
+            out.append(Record(f"{head}_v{v}", "".join(seq)))
+    return out
+
+
+def hw_brute(q: str, t: str) -> int:
+    """Infix (HW) edit distance by the full DP, one row at a time in numpy."""
+    import numpy as np
+
+    qa = np.frombuffer(q.encode(), dtype=np.uint8)
+    ta = np.frombuffer(t.encode(), dtype=np.uint8)
+    j = np.arange(len(ta) + 1)
+    row = np.zeros(len(ta) + 1, dtype=np.int64)  # D[0][j] = 0
+    for i in range(1, len(qa) + 1):
+        cand = np.empty_like(row)
+        cand[0] = i
+        cand[1:] = np.minimum(row[1:] + 1, row[:-1] + (ta != qa[i - 1]))
+        row = np.minimum.accumulate(cand - j) + j  # the left chain
+    return int(row.min())
 
 
 class Smoke:
     def __init__(self):
         self.failed: list[str] = []
-        self.max_err: dict[str, int] = {"chain_dp": 0, "block_walk": 0, "nw_identity": 0}
+        self.max_err: dict[str, int] = {k: 0 for k in KERNELS}
 
     def phase(self, name, fn):
         print(f"== phase {name}", flush=True)
@@ -95,17 +142,19 @@ def main() -> int:
         return 2
 
     from stringdecomposer_tpu.io.fasta import (
-        Record, add_reverse_complement, encode, load_fasta, pad_monomers,
+        Record, add_reverse_complement, encode, load_fasta, pad_monomers, write_fasta,
     )
     from stringdecomposer_tpu.ops.oracle import Scoring, make_windows
     from stringdecomposer_tpu.report import format_raw_rows
     from stringdecomposer_tpu_torch import cli, pipeline
     from stringdecomposer_tpu_torch.finishing import homo_compress
     from stringdecomposer_tpu_torch.ops import chain_dp as k1_plain
+    from stringdecomposer_tpu_torch.ops import hw_filter as k3_plain
     from stringdecomposer_tpu_torch.ops import identity as k2_plain
     from stringdecomposer_tpu_torch.ops.chain_dp_cuda import (
-        block_walk_cuda, chain_dp_forward_cuda,
+        block_walk_cuda, chain_dp_forward_cuda, chain_dp_large_cuda, route,
     )
+    from stringdecomposer_tpu_torch.ops.hw_filter_cuda import hw_distance_batch_cuda
     from stringdecomposer_tpu_torch.ops.identity_cuda import (
         nw_identity_batch_cuda, nw_identity_packed_both,
     )
@@ -116,6 +165,56 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     timing: dict[str, tuple[float, float]] = {}
     launches: dict[str, int] = {}
+    counters = {"chain_dp": chain_dp_forward_cuda, "chain_dp_large": chain_dp_large_cuda,
+                "block_walk": block_walk_cuda, "nw_identity": nw_identity_batch_cuda,
+                "hw_filter": hw_distance_batch_cuda}
+    dxz1 = os.path.join(DATA, "DXZ1_star_monomers.fa")
+    read_fa = os.path.join(DATA, "read.fa")
+    plain_route = dict(forward_fn=k1_plain.chain_dp_forward,
+                       identity_fn=k2_plain.nw_identity_batch,
+                       packed_fn=k2_plain.nw_identity_packed_both_plain,
+                       hw_fn=k3_plain.hw_distance_batch)
+    tsvs = ("final_decomposition_raw.tsv", "final_decomposition.tsv",
+            "final_decomposition_alt.tsv")
+    work = tempfile.TemporaryDirectory()
+    library = hor_library(load_fasta(dxz1), np.random.default_rng(0))
+    library_fa = os.path.join(work.name, "hor_library.fa")
+    write_fasta(library_fa, library)
+    cache: dict[str, object] = {}
+
+    def assembly_fa() -> str:
+        """The 1.6 Mbp synthetic DXZ1 assembly (seed 0), written once."""
+        if "asm" not in cache:
+            sys.path.insert(0, os.path.join(HERE, "scripts"))
+            from scale_smoke import synthesize
+
+            asm = synthesize(1_600_000, load_fasta(dxz1), np.random.default_rng(0))
+            cache["asm"] = os.path.join(work.name, "asm.fa")
+            with open(cache["asm"], "w") as f:
+                f.write(f">asm\n{asm}\n")
+        return cache["asm"]
+
+    def drive(what: str, fn) -> dict[str, int]:
+        """One run of a main path with every launch counter set to 0 just
+        before it and read just after; fails unless each of the path's
+        kernels launched."""
+        for c in counters.values():
+            c.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        print(f"{what}: launches {got}")
+        return got
+
+    def same_files(d1: str, d2: str, what: str) -> None:
+        for name in tsvs:
+            with open(os.path.join(d1, name), "rb") as f1, open(os.path.join(d2, name), "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"{what}: {name} differs")
+
+    def n_rows(d: str) -> int:
+        with open(os.path.join(d, tsvs[0])) as f:
+            return sum(1 for _ in f)
 
     def setup():
         smi = subprocess.run(
@@ -147,19 +246,25 @@ def main() -> int:
         L = (max(len(m.seq) for m in monos) + 7) // 8 * 8
         return monos, pad_monomers(monos, pad_to=L)
 
-    def k1_case(windows_np, wlens_np, mono_np, lens_np, sc, what, max_blocks=0):
+    def k1_case(windows_np, wlens_np, mono_np, lens_np, sc, what, max_blocks=0,
+                fn=chain_dp_forward_cuda, kernel="chain_dp", want=None):
+        """One K1 route (`fn`, whose errors count under `kernel`) against
+        the plain twin, or against `want` when given (another route's
+        outputs on the same inputs). Returns the kernel's outputs."""
         args = [torch.from_numpy(a).to(dev) for a in (windows_np, wlens_np, mono_np, lens_np)]
         kw = dict(ins=sc[0], dele=sc[1], mismatch=sc[2], match=sc[3],
                   max_blocks=max_blocks, return_debug=True)
-        bk, ck, (chk, ek, sk) = chain_dp_forward_cuda(*args, **kw)
-        bp, cp, (chp, ep, spp) = k1_plain.chain_dp_forward(*args, **kw)
+        got = fn(*args, **kw)
+        if want is None:
+            want = k1_plain.chain_dp_forward(*args, **kw)
         torch.cuda.synchronize()
-        smoke.same("chain_dp", f"{what} end", ek, ep)
-        smoke.same("chain_dp", f"{what} spend", sk, spp)
-        smoke.same("chain_dp", f"{what} chain", chk, chp)
+        (bk, ck, (chk, ek, sk)), (bp, cp, (chp, ep, spp)) = got, want
+        smoke.same(kernel, f"{what} end", ek, ep)
+        smoke.same(kernel, f"{what} spend", sk, spp)
+        smoke.same(kernel, f"{what} chain", chk, chp)
         smoke.same("block_walk", f"{what} blocks", bk, bp)
         smoke.same("block_walk", f"{what} counts", ck, cp)
-        return ck
+        return got
 
     def k1_checks():
         import numpy.random as npr
@@ -218,11 +323,31 @@ def main() -> int:
             mono_w, lens_w = mono[perm], lens[perm].copy()
             lens_w[:, -2:] = 0
             k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), what + " per-window")
-            counts = k1_case(wb, wl, mono, lens, (-1, -2, -1, 1), what + " max_blocks=1", max_blocks=1)
+            counts = k1_case(wb, wl, mono, lens, (-1, -2, -1, 1), what + " max_blocks=1",
+                             max_blocks=1)[1]
             if int(counts.max()) <= 1:
                 raise AssertionError(f"{what}: the overflow case did not overflow")
+            # the large route on a set that fits, against the shared route
+            for mw, lw, sc in ((mono, lens, (-1, -1, -1, 1)), (mono_w, lens_w, (-2, -1, -1, 2))):
+                shared = k1_case(wb, wl, mw, lw, sc, what + " shared route")
+                k1_case(wb, wl, mw, lw, sc, what + " large route vs shared", fn=chain_dp_large_cuda,
+                        kernel="chain_dp_large", want=shared)
         print("K1: random shapes (shared and per-window monomers, M=128, max_blocks=1 "
-              "overflow) bit-equal to the plain twin")
+              "overflow) bit-equal to the plain twin; the large route bit-equal to the "
+              "shared route on each")
+        # the HOR-scale library: M = 264 at L = 192 takes the large route
+        monos, (mono, lens) = mono_set(library)
+        if mono.shape != (264, 192) or route(*mono.shape) != "large":
+            raise AssertionError(f"library: shape {mono.shape}, route {route(*mono.shape)}")
+        wb, wl = rand_windows(library, 3, 320)
+        k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), "library M=264", kernel="chain_dp_large")
+        perm = np.stack([rng.permutation(len(lens)) for _ in range(3)])
+        mono_w, lens_w = mono[perm], lens[perm].copy()
+        lens_w[:, -5:] = 0
+        k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), "library M=264 per-window",
+                kernel="chain_dp_large")
+        print("K1: the 264-monomer library (large route, shared and per-window monomers) "
+              "bit-equal to the plain twin")
 
     def k2_checks():
         cases = []
@@ -364,6 +489,154 @@ def main() -> int:
               f"kernel route {secs['kernel']:.3f} s ({n_rows / secs['kernel']:.1f}/s), "
               f"plain route {secs['plain']:.3f} s ({n_rows / secs['plain']:.1f}/s)")
 
+    def k3_checks():
+        rng = np.random.default_rng(11)
+
+        def rand_case(B, W, M, L, alphabet=5):
+            """Random codes (N included) with ragged lengths: the first
+            window and monomer at full width, the last monomer of length 1."""
+            win = np.full((B, W), k1_plain.READ_PAD, dtype=np.int8)
+            wl = rng.integers(1, W + 1, B).astype(np.int32)
+            wl[0] = W
+            for b in range(B):
+                win[b, : wl[b]] = rng.integers(0, alphabet, wl[b])
+            mono = np.full((M, L), 5, dtype=np.int8)
+            ml = rng.integers(1, L + 1, M).astype(np.int32)
+            ml[0], ml[-1] = L, 1
+            for m in range(M):
+                mono[m, : ml[m]] = rng.integers(0, alphabet, ml[m])
+            return [torch.from_numpy(a).to(dev) for a in (win, wl, mono, ml)]
+
+        shapes = [(3, 70, 5, 24), (4, 1, 6, 9), (2, 333, 17, 1), (5, 401, 24, 192),
+                  (3, 257, 11, 512), (2, 150, 4, 700), (8, 1000, 13, 130)]
+        for B, W, M, L in shapes:
+            args = rand_case(B, W, M, L)
+            smoke.same("hw_filter", f"random B={B} W={W} M={M} L={L}",
+                       hw_distance_batch_cuda(*args), k3_plain.hw_distance_batch(*args))
+        print(f"K3: {len(shapes)} random shapes (window length 1, monomer length 1, N codes, "
+              "L = 512 and 700 through the segmented column) bit-equal to the plain twin")
+        cases = []
+        for name in ("edlib_cases.json", "edlib_cases_b.json"):
+            with open(os.path.join(FIXTURES, name)) as f:
+                cases.extend(json.load(f))
+        qs, ts = [c["q"] for c in cases], [c["t"] for c in cases]
+        wb, wl = k1_plain.build_window_batch([encode(t) for t in ts], max(map(len, ts)))
+        mono, lens = pad_monomers([Record(f"q{i}", q) for i, q in enumerate(qs)])
+        args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
+        got = hw_distance_batch_cuda(*args)
+        smoke.same("hw_filter", "edlib cases all pairs", got, k3_plain.hw_distance_batch(*args))
+        diag = got.diagonal().cpu().numpy()
+        for i, (q, t) in enumerate(zip(qs, ts)):
+            if int(diag[i]) != hw_brute(q, t):
+                raise AssertionError(f"edlib case {i}: K3 {int(diag[i])}, brute force {hw_brute(q, t)}")
+        print(f"K3: {len(cases)} x {len(cases)} edlib fixture pairs bit-equal to the plain twin, "
+              "the matching pairs equal to a brute-force infix DP")
+        codes = encode(load_fasta(assembly_fa())[0].seq)
+        wins = [codes[o : o + n] for o, n in make_windows(len(codes), 5000, 500)][:64]
+        wb, wl = k1_plain.build_window_batch(wins, 5500)
+        _, (mono, lens) = mono_set(library)
+        args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
+        dist = hw_distance_batch_cuda(*args)
+        smoke.same("hw_filter", "64 windows x 5500 x library", dist, k3_plain.hw_distance_batch(*args))
+        dist_np = dist.cpu().numpy()
+        for thr in (0, 3, 10, 1000):
+            mono_w, lens_w, perm = k3_plain.filter_monomers_device(dist, args[2], args[3], thr)
+            mono_w, lens_w, perm = (x.cpu().numpy() for x in (mono_w, lens_w, perm))
+            kept = []
+            for b in range(len(wins)):
+                keep = k3_plain.filter_monomers(dist_np[b], thr)
+                n = len(keep)
+                kept.append(n)
+                if not (np.array_equal(perm[b, :n], keep) and np.array_equal(lens_w[b, :n], lens[keep])
+                        and not lens_w[b, n:].any() and np.array_equal(mono_w[b, :n], mono[keep])):
+                    raise AssertionError(f"filter_monomers_device, ed_thr {thr}, window {b}")
+            print(f"filter on the card == host filter at ed_thr {thr}: rows kept per window "
+                  f"{min(kept)}-{max(kept)} of {len(lens)}")
+        print("K3: 64 windows x 5500 x the 264-monomer library bit-equal to the plain twin")
+
+    def ed_thr_run():
+        cases = []
+        for name in ("ed_thr_cases.json", "ed_thr_cases_b.json"):
+            with open(os.path.join(FIXTURES, name)) as f:
+                cases.extend(json.load(f))
+        for idx, case in enumerate(cases):
+            monos = add_reverse_complement([Record(n, q) for n, q in case["monomers"]])
+            cfg = pipeline.PipelineConfig(scoring=Scoring(*case["scoring"]),
+                                          part_size=case["part_size"], overlap=case["overlap"],
+                                          device_batch=3, ed_thr=case["ed_thr"])
+            res = pipeline.decompose_reads([Record("read0", case["read"])], monos, cfg, "cuda")
+            names = [m.name for m in monos]
+            raw = "".join(r + "\n" for rn, b in res for r in format_raw_rows(rn, b, names))
+            if raw != case["raw"]:
+                raise AssertionError(f"ed_thr fixture {idx}: raw TSV differs from the reference binary")
+        print(f"ed_thr: {len(cases)} fixture cases on cuda equal to the reference binary's raw TSV")
+        out = work.name
+        secs = {}
+
+        def cli_run():
+            t0 = time.perf_counter()
+            rc = cli.main([read_fa, dxz1, "-o", os.path.join(out, "i_kernel"), "--second-best",
+                           "--ed_thr", "10"])
+            secs["i"] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"CLI --ed_thr 10 exit code {rc}")
+
+        got = drive("run (i) golden x DXZ1 --ed_thr 10 (CLI, kernel route)", cli_run)
+        bad = [k for k in ("hw_filter", "chain_dp", "block_walk", "nw_identity") if got[k] <= 0]
+        if bad:
+            raise AssertionError(f"run (i): kernels of the path not launched: {bad}")
+        launches["hw_filter"] = got["hw_filter"]
+        t0 = time.perf_counter()
+        pipeline.run(read_fa, dxz1, out_dir=os.path.join(out, "i_plain"), second_best=True,
+                     device="cuda", ed_thr=10, **plain_route)
+        torch.cuda.synchronize()
+        same_files(os.path.join(out, "i_kernel"), os.path.join(out, "i_plain"), "run (i)")
+        print(f"run (i): three TSVs equal between routes; {n_rows(os.path.join(out, 'i_kernel'))} "
+              f"assignments; kernel route {secs['i']:.3f} s, plain route "
+              f"{time.perf_counter() - t0:.3f} s")
+        for ed in (10, -1):
+            for name, kw in (("kernel", {}), ("plain", plain_route)):
+                d = os.path.join(out, f"ii_{ed}_{name}")
+                t0 = time.perf_counter()
+                pipeline.run(read_fa, library_fa, out_dir=d, second_best=True, device="cuda",
+                             ed_thr=ed, **kw)
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+            same_files(os.path.join(out, f"ii_{ed}_kernel"), os.path.join(out, f"ii_{ed}_plain"),
+                       f"run (ii) ed_thr {ed}")
+            print(f"run (ii) golden x library --ed_thr {ed}: three TSVs equal between routes; "
+                  f"{n_rows(os.path.join(out, f'ii_{ed}_kernel'))} assignments; kernel route "
+                  f"{secs['kernel']:.3f} s, plain route {secs['plain']:.3f} s")
+
+    def library_run():
+        fa = assembly_fa()
+        for ed in (10, -1):
+            d = os.path.join(work.name, f"iii_{ed}")
+            secs = {}
+
+            def run_iii(d=d, ed=ed):
+                t0 = time.perf_counter()
+                pipeline.run(fa, library_fa, out_dir=d, second_best=True, device="cuda", ed_thr=ed)
+                torch.cuda.synchronize()
+                secs["e2e"] = time.perf_counter() - t0
+
+            got = drive(f"run (iii) 1.6 Mbp x library --ed_thr {ed}", run_iii)
+            path = ("hw_filter", "chain_dp") if ed >= 0 else ("chain_dp_large",)
+            bad = [k for k in path + ("block_walk", "nw_identity") if got[k] <= 0]
+            if bad:
+                raise AssertionError(f"run (iii) ed_thr {ed}: kernels of the path not launched: {bad}")
+            if ed < 0:
+                launches["chain_dp_large"] = got["chain_dp_large"]
+            rows = n_rows(d)
+            names = {r.name for r in library} | {r.name + "'" for r in library}
+            with open(os.path.join(d, tsvs[0])) as f:
+                used = {ln.split("\t")[1] for ln in f}
+            # the assembly is ~9,400 monomer copies (1.6 Mbp / ~171 bp)
+            if rows < 8000 or not used <= names:
+                raise AssertionError(f"run (iii) ed_thr {ed}: {rows} rows, monomers {sorted(used - names)[:3]}")
+            print(f"run (iii) 1.6 Mbp x library --ed_thr {ed} --second-best: e2e {secs['e2e']:.3f} s, "
+                  f"{rows} assignments, {rows / secs['e2e']:.1f}/s, {len(used)} monomers used")
+
     def kernel_times():
         reads = load_fasta(os.path.join(DATA, "read.fa"))
         monos, (mono, lens) = mono_set(load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa")))
@@ -405,6 +678,22 @@ def main() -> int:
         timing["nw_identity"] = (statistics.median(k), statistics.median(p))
         print(f"K2 packed_both, {len(starts)} blocks x {st.t_raw.shape[0]} monomers x 2 variants: "
               f"kernel {spread(k)}; plain {spread(p)}")
+        # K3 and K1's large route at the golden windows x the library
+        _, (mono, lens) = mono_set(library)
+        args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
+        k, got = timed(lambda: hw_distance_batch_cuda(*args), 5)
+        p, want = timed(lambda: k3_plain.hw_distance_batch(*args), 1)
+        smoke.same("hw_filter", "golden windows x library", got, want)
+        timing["hw_filter"] = (statistics.median(k), statistics.median(p))
+        print(f"K3 hw_distance, {len(wins)} windows x 5500 x M={mono.shape[0]}, L={mono.shape[1]}: "
+              f"kernel {spread(k)}; plain {spread(p)}")
+        k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 3)
+        p, want = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap), 1)
+        smoke.same("chain_dp_large", "golden windows x library blocks", got[0], want[0])
+        smoke.same("chain_dp_large", "golden windows x library counts", got[1], want[1])
+        timing["chain_dp_large"] = (statistics.median(k), statistics.median(p))
+        print(f"K1 large route + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, "
+              f"L={mono.shape[1]}: kernel {spread(k)}; plain {spread(p)}")
         print("times: every timed kernel output bit-equal to its plain version's")
 
     smoke.phase("setup", setup)
@@ -412,14 +701,20 @@ def main() -> int:
     smoke.phase("k2", k2_checks)
     smoke.phase("golden", golden_run)
     smoke.phase("scale", scale_run)
+    smoke.phase("k3", k3_checks)
+    smoke.phase("ed_thr", ed_thr_run)
+    smoke.phase("library", library_run)
     smoke.phase("times", kernel_times)
+    work.cleanup()
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {', '.join(smoke.failed)}")
         return 1
     src = "stringdecomposer_tpu_torch/csrc/"
     meta = [("chain_dp", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
+            ("chain_dp_large", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
             ("block_walk", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp.py:165"),
-            ("nw_identity", src + "nw_identity.cu", "stringdecomposer_tpu/ops/identity_pallas.py:63")]
+            ("nw_identity", src + "nw_identity.cu", "stringdecomposer_tpu/ops/identity_pallas.py:63"),
+            ("hw_filter", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80")]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": launches[n],
          "max_abs_err": smoke.max_err[n], "ms": timing[n][0], "plain_ms": timing[n][1]}

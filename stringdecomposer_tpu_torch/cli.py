@@ -46,8 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--second-best", dest="second_best", action="store_true",
                    help="generate second best monomer and homopolymer scores")
     p.add_argument("--ed_thr", type=int, default=-1, required=False,
-                   help="align only monomers with edit distance less than ed_thr "
-                   f"(by default align all monomers); values >= 0 are {NOT_PORTED}")
+                   help="align only monomers with edit distance less than ed_thr for "
+                   "each segment (by default align all monomers)")
     p.add_argument("-v", "--overlap", type=str, default="500", required=False,
                    help="window overlap (halo) size (by default 500)")
     p.add_argument("--device-batch", type=int, default=64,
@@ -67,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported_flags(args) -> list[str]:
     checks = [
-        ("--ed_thr", args.ed_thr >= 0), ("--stream-reads", args.stream_reads > 0),
+        ("--stream-reads", args.stream_reads > 0),
         ("--serve", args.serve), ("--precompile", args.precompile is not None),
         ("--resume", args.resume), ("--data-parallel", args.data_parallel),
         ("--profile-dir", args.profile_dir is not None),
@@ -110,6 +110,7 @@ def _execute(args) -> int:
             device_batch=args.device_batch,
             device=args.device,
             threads=max(1, int(args.threads)),
+            ed_thr=args.ed_thr,
         )
     except InvalidSymbolError as e:
         logger.error("ERROR: %s", e)

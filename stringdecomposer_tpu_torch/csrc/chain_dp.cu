@@ -20,9 +20,18 @@
 // each warp whole monomer rows so that the prefix max along k is a warp
 // shuffle scan carried across 32-cell chunks, and runs one window per
 // block so that the windows of a batch fill the SMs. Shared memory bounds
-// the monomer set: 9 bytes per cell plus 8 per monomer row must fit the
+// this route: 9 bytes per cell plus 8 per monomer row must fit the
 // 232,448-byte opt-in limit of one block (M * L <= ~25,000 cells, e.g.
-// M = 128 at L = 192). The wrapper raises beyond it.
+// M = 128 at L = 192).
+//
+// Large monomer sets (HOR libraries, M = 264 at L = 192 and beyond) take the
+// large route: the same kernel body, instantiated with the score and pointer
+// columns in a per-window device-memory scratch (8 bytes per cell, the
+// wrapper bounds one launch's scratch so that it stays in the 50 MB L2) and
+// the monomer codes read from device memory. Only the M end scores and
+// lengths stay in shared memory (8 bytes per row). Each warp owns the same
+// rows at every position, so its scratch rows are private to it; the
+// barriers order the shared end scores exactly as in the shared route.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,6 +47,10 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
+// kLarge = false: the shared route, the column in shared memory (dp0 is
+// only read). kLarge = true: the large route, the scores updated in place in
+// dp0 and the pointers in sp_scratch (both [B, M, L] in device memory).
+template <bool kLarge>
 __global__ void __launch_bounds__(1024)
 chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
                 int W,
@@ -45,39 +58,57 @@ chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
                 long long mono_bstride,
                 const int* __restrict__ mono_lens,  // [M] or [B, M]
                 long long lens_bstride,
-                const int* __restrict__ dp0,  // [B, M, L] column i = 0
-                int* __restrict__ end,        // [B, W, M]
-                int* __restrict__ spend,      // [B, W, M]
+                int* dp0,         // [B, M, L] column i = 0
+                int* sp_scratch,  // [B, M, L] (large route only)
+                int* __restrict__ end,    // [B, W, M]
+                int* __restrict__ spend,  // [B, W, M]
                 int M, int L, int ins, int dele, int mismatch, int match) {
   extern __shared__ int smem[];
   const int ML = M * L;
-  int* dp = smem;          // [M * L] scores of the current column
-  int* sp = dp + ML;       // [M * L] block-start pointers
-  int* ends = sp + ML;     // [M] end-cell scores of the current column
-  int* lens = ends + M;    // [M]
-  int8_t* mc = reinterpret_cast<int8_t*>(lens + M);  // [M * L] monomer codes
-
   const int b = blockIdx.x;
+  const int8_t* mono_b = mono + b * mono_bstride;
+  int* dp0_b = dp0 + (long long)b * ML;
+  int* dp;           // [M * L] scores of the current column
+  int* sp;           // [M * L] block-start pointers
+  int* ends;         // [M] end-cell scores of the current column
+  int* lens;         // [M]
+  const int8_t* mc;  // [M * L] monomer codes
+  int8_t* mc_copy = nullptr;  // shared route: the codes copied to shared memory
+  if (kLarge) {
+    dp = dp0_b;
+    sp = sp_scratch + (long long)b * ML;
+    ends = smem;
+    lens = ends + M;
+    mc = mono_b;
+  } else {
+    dp = smem;
+    sp = dp + ML;
+    ends = sp + ML;
+    lens = ends + M;
+    mc_copy = reinterpret_cast<int8_t*>(lens + M);
+    mc = mc_copy;
+  }
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int8_t* win = windows + (long long)b * W;
-  const int8_t* mono_b = mono + b * mono_bstride;
   const int* lens_b = mono_lens + b * lens_bstride;
-  const int* dp0_b = dp0 + (long long)b * ML;
   int* end_b = end + (long long)b * W * M;
   int* spend_b = spend + (long long)b * W * M;
 
   for (int x = threadIdx.x; x < ML; x += blockDim.x) {
-    dp[x] = dp0_b[x];
+    if (!kLarge) {
+      dp[x] = dp0_b[x];
+      mc_copy[x] = mono_b[x];
+    }
     sp[x] = 0;
-    mc[x] = mono_b[x];
   }
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
     int n = lens_b[m];
     n = n < 0 ? 0 : (n > L ? L : n);
     lens[m] = n;
-    const int e = n > 0 ? dp0_b[m * L + n - 1] : SD_NEG;
+    const int e = n > 0 ? dp0_b[m * L + n - 1] : SD_NEG;  // read before any update
     ends[m] = e;
     end_b[m] = e;
     spend_b[m] = 0;
@@ -214,10 +245,33 @@ __global__ void block_walk_kernel(const int* __restrict__ end,    // [B, W, M]
   counts[b] = cnt;
 }
 
-// Same formula as ops/chain_dp_cuda.smem_bytes, which checks it before launch.
+// Same formulas as ops/chain_dp_cuda.smem_bytes and large_smem_bytes, which
+// the wrapper checks before launch.
 long long chain_dp_smem_bytes(int M, int L) {
   const long long ml = (long long)M * L;
   return (2 * ml + 2LL * M) * 4 + ml;
+}
+
+long long chain_dp_large_smem_bytes(int M) { return 2LL * M * 4; }
+
+template <bool kLarge>
+int launch_chain_dp(const void* windows, const void* mono,
+                    long long mono_bstride, const void* mono_lens,
+                    long long lens_bstride, void* dp0, void* sp_scratch,
+                    void* end, void* spend, int B, int W, int M, int L, int ins,
+                    int dele, int mismatch, int match, void* stream) {
+  const long long smem =
+      kLarge ? chain_dp_large_smem_bytes(M) : chain_dp_smem_bytes(M, L);
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_dp_kernel<kLarge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 32 * (M < 32 ? M : 32);
+  chain_dp_kernel<kLarge><<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
+      (const int8_t*)windows, W, (const int8_t*)mono, mono_bstride,
+      (const int*)mono_lens, lens_bstride, (int*)dp0, (int*)sp_scratch,
+      (int*)end, (int*)spend, M, L, ins, dele, mismatch, match);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -227,16 +281,23 @@ extern "C" int sd_chain_dp(const void* windows, const void* mono,
                            long long lens_bstride, const void* dp0, void* end,
                            void* spend, int B, int W, int M, int L, int ins,
                            int dele, int mismatch, int match, void* stream) {
-  const long long smem = chain_dp_smem_bytes(M, L);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 32 * (M < 32 ? M : 32);
-  chain_dp_kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const int8_t*)windows, W, (const int8_t*)mono, mono_bstride,
-      (const int*)mono_lens, lens_bstride, (const int*)dp0, (int*)end,
-      (int*)spend, M, L, ins, dele, mismatch, match);
-  return (int)cudaGetLastError();
+  return launch_chain_dp<false>(windows, mono, mono_bstride, mono_lens,
+                                lens_bstride, const_cast<void*>(dp0), nullptr,
+                                end, spend, B, W, M, L, ins, dele, mismatch,
+                                match, stream);
+}
+
+// The large route: dp0 is overwritten (it becomes the score column), and
+// sp_scratch holds B * M * L int32 start pointers.
+extern "C" int sd_chain_dp_large(const void* windows, const void* mono,
+                                 long long mono_bstride, const void* mono_lens,
+                                 long long lens_bstride, void* dp0,
+                                 void* sp_scratch, void* end, void* spend,
+                                 int B, int W, int M, int L, int ins, int dele,
+                                 int mismatch, int match, void* stream) {
+  return launch_chain_dp<true>(windows, mono, mono_bstride, mono_lens,
+                               lens_bstride, dp0, sp_scratch, end, spend, B, W,
+                               M, L, ins, dele, mismatch, match, stream);
 }
 
 extern "C" int sd_block_walk(const void* end, const void* spend,

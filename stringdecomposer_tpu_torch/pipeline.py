@@ -3,7 +3,8 @@
 Stages:
   1. FASTA load + validation + RC monomer doubling    (stringdecomposer_tpu.io.fasta)
   2. halo windowing of every read                      (ops/oracle.make_windows)
-  3. batched chain DP + block walk on the device       (ops/chain_dp_cuda.py, K1)
+  3. with --ed_thr: per-window monomer pre-filter      (ops/hw_filter_cuda.py, K3)
+     batched chain DP + block walk on the device       (ops/chain_dp_cuda.py, K1)
   4. host replay of block records, merge to global coordinates, halo dedup
   5. raw TSV                                           (report.py)
   6. rescoring (--second-best or light)                (finishing.py, K2)
@@ -32,6 +33,8 @@ from stringdecomposer_tpu.utils.stagetimer import stage
 from .convert import DeviceState, numpy_state, state_from_numpy
 from .ops.chain_dp import build_window_batch
 from .ops.chain_dp_cuda import chain_dp_forward_cuda
+from .ops.hw_filter import filter_monomers_device
+from .ops.hw_filter_cuda import hw_distance_batch_cuda
 from .ops.identity_cuda import nw_identity_batch_cuda, nw_identity_packed_both
 
 logger = logging.getLogger("SD-TPU")
@@ -54,6 +57,7 @@ class PipelineConfig:
     part_size: int = 5000
     overlap: int = 500
     device_batch: int = 64  # windows per kernel launch
+    ed_thr: int = -1  # > -1: per-window monomer pre-filter (src/main.cpp:128-149)
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -87,6 +91,7 @@ def decompose_stream(
     device: str | torch.device = "cuda",
     forward_fn=chain_dp_forward_cuda,
     state: DeviceState | None = None,
+    hw_fn=hw_distance_batch_cuda,
 ):
     """Generator over finalized block chunks in strict (read, window) order.
 
@@ -122,19 +127,37 @@ def decompose_stream(
             wbatch, wlens = build_window_batch(wins, W_b)
             wb = torch.from_numpy(wbatch).to(dev)
             wl = torch.from_numpy(wlens).to(dev)
+        perm_np = None
+        fwd_mono, fwd_lens = mono, mono_lens
+        if cfg.ed_thr > -1:
+            # per-window monomer subset in (distance, index) order: both
+            # decide the DP's ties. Rows past a window's kept count have
+            # length 0 (end score NEG, never picked), so K1 runs only the
+            # first max(kept) rows of the per-window set.
+            with stage("dp.filter"):
+                dist = hw_fn(wb, wl, mono, mono_lens)
+                mono_w, lens_w, perm = filter_monomers_device(dist, mono, mono_lens, cfg.ed_thr)
+                n_keep = (dist <= cfg.ed_thr).sum(dim=1).clamp(min=1)
+                perm_np = perm.cpu().numpy()
+                m_eff = int(n_keep.max())
+                fwd_mono = mono_w[:, :m_eff].contiguous()
+                fwd_lens = lens_w[:, :m_eff].contiguous()
         # cap the block records brought back: real windows hold ~W/170
         # blocks; an overflow is detected below and recomputed uncapped
         cap = min(W_b, max(256, W_b // 8))
         with stage("dp.dispatch"):
-            blocks, counts = forward_fn(wb, wl, mono, mono_lens, max_blocks=cap, **kw)
+            blocks, counts = forward_fn(wb, wl, fwd_mono, fwd_lens, max_blocks=cap, **kw)
         with stage("dp.gather"):
             blocks_np, counts_np = blocks.cpu().numpy(), counts.cpu().numpy()
             if counts_np.max() > blocks_np.shape[1]:
-                blocks, counts = forward_fn(wb, wl, mono, mono_lens, **kw)
+                blocks, counts = forward_fn(wb, wl, fwd_mono, fwd_lens, **kw)
                 blocks_np, counts_np = blocks.cpu().numpy(), counts.cpu().numpy()
         with stage("dp.replay"):
             for b, t in enumerate(tidxs):
                 per_window[t] = blocks_from_device(blocks_np[b], int(counts_np[b]))
+                if perm_np is not None:  # filtered DP row -> input monomer index
+                    for blk in per_window[t]:
+                        blk.monomer = int(perm_np[b][blk.monomer])
                 done[t] = True
 
     cursor = 0
@@ -190,18 +213,20 @@ def decompose_reads(
     cfg: PipelineConfig = PipelineConfig(),
     device: str | torch.device = "cuda",
     forward_fn=chain_dp_forward_cuda,
+    hw_fn=hw_distance_batch_cuda,
 ) -> list[tuple[str, list[Block]]]:
     """Raw decomposition of all reads: [(read_name, blocks)] in input order,
     blocks in global coordinates, halo-deduplicated."""
     acc: list[list[Block]] = [[] for _ in reads]
-    for ridx, blocks, final in decompose_stream(reads, monomers, cfg, device, forward_fn):
+    for ridx, blocks, final in decompose_stream(reads, monomers, cfg, device, forward_fn,
+                                                hw_fn=hw_fn):
         acc[ridx].extend(blocks)
         if final:
             logger.info("%d%%: Aligned %s", (ridx + 1) * 100 // len(reads), reads[ridx].name)
     return [(r.name, acc[i]) for i, r in enumerate(reads)]
 
 
-def _pump_reads(reads, monomers_dp, cfg, device, forward_fn, state, finisher,
+def _pump_reads(reads, monomers_dp, cfg, device, forward_fn, hw_fn, state, finisher,
                 fraw, fout, falt, dp_names, min_identity) -> int:
     """DP and finishing interleaved over one read list: raw rows stream out
     as window chunks finalize, finishing groups are submitted as they fill
@@ -216,7 +241,7 @@ def _pump_reads(reads, monomers_dp, cfg, device, forward_fn, state, finisher,
     prev_end = 0
     pend: list[dict] = []
     for ridx, blocks, final in decompose_stream(reads, monomers_dp, cfg, device,
-                                                forward_fn, state):
+                                                forward_fn, state, hw_fn):
         if ridx != cur_ridx:
             cur_ridx, prev_end = ridx, 0
         name = reads[ridx].name
@@ -267,15 +292,18 @@ def run(
     device_batch: int = 64,
     device: str | torch.device = "cuda",
     threads: int = 1,
+    ed_thr: int = -1,
     forward_fn=chain_dp_forward_cuda,
     identity_fn=nw_identity_batch_cuda,
     packed_fn=nw_identity_packed_both,
+    hw_fn=hw_distance_batch_cuda,
 ) -> str:
     """Full pipeline: FASTA -> raw TSV -> rescoring -> final + alt TSVs
     (<out_file>_raw.tsv, <out_file>.tsv, <out_file>_alt.tsv in out_dir),
     byte-compatible with the reference. Returns the final TSV path.
-    forward_fn / identity_fn / packed_fn default to the kernel wrappers;
-    passing the plain twins runs the plain route on the same device."""
+    ed_thr > -1 turns on the per-window monomer pre-filter. forward_fn /
+    identity_fn / packed_fn / hw_fn default to the kernel wrappers; passing
+    the plain twins runs the plain route on the same device."""
     from stringdecomposer_tpu.io.fasta import (
         add_rc_interleaved, add_reverse_complement, load_fasta, validate_acgtn,
     )
@@ -290,7 +318,7 @@ def run(
     validate_acgtn(monomers_fwd, monomers_path)
     ins, dele, mm, match = (int(x) for x in scoring.split(","))
     cfg = PipelineConfig(scoring=Scoring(ins, dele, mm, match), part_size=batch_size,
-                         overlap=overlap, device_batch=device_batch)
+                         overlap=overlap, device_batch=device_batch, ed_thr=ed_thr)
     monomers_dp = add_reverse_complement(monomers_fwd)  # DP stage order
     monomers_fin = add_rc_interleaved(load_fasta(monomers_path, upper=True))
     state = state_from_numpy(*numpy_state(monomers_dp, monomers_fin), dev)
@@ -298,7 +326,7 @@ def run(
     final_path = os.path.join(out_dir, out_file + ".tsv")
     alt_path = os.path.join(out_dir, out_file + "_alt.tsv")
     stamp_path = raw_path + ".stamp"
-    fp = stage_fingerprint(sequences_path, monomers_path, scoring, batch_size, overlap, -1)
+    fp = stage_fingerprint(sequences_path, monomers_path, scoring, batch_size, overlap, ed_thr)
     # drop any old stamp before touching the raw TSV: a crash mid-write must
     # not leave a truncated TSV beside a matching stamp
     try:
@@ -317,8 +345,8 @@ def run(
         with open(raw_path + ".tmp", "w") as fraw, \
                 open(final_path + ".tmp", "w") as fout, \
                 open(alt_path + ".tmp", "w") as falt:
-            n_blocks = _pump_reads(reads, monomers_dp, cfg, dev, forward_fn, state, finisher,
-                                   fraw, fout, falt, dp_names, min_identity)
+            n_blocks = _pump_reads(reads, monomers_dp, cfg, dev, forward_fn, hw_fn, state,
+                                   finisher, fraw, fout, falt, dp_names, min_identity)
             tail = finisher.drain()
             with stage("fin.write"):
                 write_final_rows(fout, falt, tail, identity_th=min_identity)

@@ -34,7 +34,10 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "sd_chain_dp": (_I, [_P, _P, _LL, _P, _LL, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_chain_dp_large": (_I, [_P, _P, _LL, _P, _LL, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_block_walk": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "sd_hw_distance": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "sd_nw_identity": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "sd_error_string": (ctypes.c_char_p, [_I]),
 }

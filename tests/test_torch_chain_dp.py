@@ -103,7 +103,38 @@ def test_cpu_dispatch_launches_nothing():
     assert after == before
 
 
+def test_hor_library_matches_jax_m264(test_data_dir):
+    """The 264-monomer HOR library (chip_smoke.hor_library, the set that
+    takes K1's large route on the card) at B = 3, W = 320."""
+    from chip_smoke import hor_library
+    from stringdecomposer_tpu.io.fasta import load_fasta
+
+    lib = hor_library(load_fasta(test_data_dir / "DXZ1_star_monomers.fa"),
+                      np.random.default_rng(0))
+    mono, lens = _mono(lib)
+    assert mono.shape == (264, 192)
+    rng = np.random.default_rng(3)
+    wins = []
+    for b in range(3):
+        unit = "".join(lib[int(rng.integers(len(lib)))].seq for _ in range(2))
+        wins.append(encode(unit[: 320 - 40 * b]))
+    wb, wl = plain.build_window_batch(wins, 320)
+    counts = _both(wb, wl, mono, lens)
+    assert counts.min() >= 1
+    # the large route's entry point runs the same twin on CPU tensors
+    got = chain_dp_cuda.chain_dp_large_cuda(*(torch.from_numpy(a) for a in (wb, wl, mono, lens)))
+    np.testing.assert_array_equal(got[1].numpy(), counts)
+
+
 def test_monomer_set_limit_is_named():
-    chain_dp_cuda.check_monomer_set(128, 192)  # the largest documented set fits
+    """Route choice: sets whose column fits one block's shared memory take
+    the shared route, larger ones the large route; only the large route's
+    per-row bound (8 * M bytes) is left, and it raises naming the limit."""
+    assert chain_dp_cuda.route(24, 192) == "shared"  # DXZ1 with RC
+    assert chain_dp_cuda.route(133, 192) == "shared"  # the largest that fits at L = 192
+    assert chain_dp_cuda.route(134, 192) == "large"
+    assert chain_dp_cuda.route(264, 192) == "large"  # the HOR library
+    for M, L in ((24, 192), (264, 192), (4096, 192), (29_056, 8)):
+        chain_dp_cuda.check_monomer_set(M, L)  # nothing raises
     with pytest.raises(ValueError, match="232448-byte limit"):
-        chain_dp_cuda.check_monomer_set(256, 192)
+        chain_dp_cuda.check_monomer_set(29_057, 8)

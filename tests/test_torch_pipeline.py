@@ -72,6 +72,34 @@ def test_run_matches_jax_run(golden_prefix, second_best):
     assert (out / TSVS[0]).stat().st_size > 0 and (out / TSVS[1]).stat().st_size > 0
 
 
+def test_run_ed_thr_matches_jax_run(golden_prefix):
+    """--ed_thr 10 --second-best: the three TSVs and the raw-stage stamp
+    (which carries ed_thr) equal the JAX package's."""
+    from stringdecomposer_tpu.pipeline import run as jax_run
+
+    fa, mono, d = golden_prefix
+    jax_run(str(fa), mono, out_dir=str(d / "jax_ed10"), second_best=True, ed_thr=10)
+    out = d / "torch_ed10"
+    pipeline.run(str(fa), mono, out_dir=str(out), second_best=True, ed_thr=10, device="cpu")
+    for f in TSVS + (TSVS[0] + ".stamp",):
+        assert filecmp.cmp(out / f, d / "jax_ed10" / f, shallow=False), f
+    assert (out / TSVS[0]).stat().st_size > 0
+
+
+def test_raw_stamp_carries_ed_thr(tmp_path):
+    from stringdecomposer_tpu.pipeline import stage_fingerprint as jax_fingerprint
+
+    fa, mono = _small_inputs(tmp_path, "ACGTTGCAAGGTTTGACCATGCAG" * 3)
+    stamps = []
+    for ed_thr in (-1, 5):
+        out = tmp_path / f"o{ed_thr}"
+        pipeline.run(str(fa), str(mono), out_dir=str(out), ed_thr=ed_thr, device="cpu")
+        stamp = (out / (TSVS[0] + ".stamp")).read_text().strip()
+        assert stamp == jax_fingerprint(str(fa), str(mono), "-1,-1,-1,1", 5000, 500, ed_thr)
+        stamps.append(stamp)
+    assert stamps[0] != stamps[1]
+
+
 @pytest.mark.parametrize("second_best", [False, True])
 def test_finish_reads_matches_jax(golden_prefix, second_best):
     """finish_reads with positional keys: two entries share a read name but
@@ -158,7 +186,7 @@ def test_cli_lowercase_input_exits_255(tmp_path):
     assert res.returncode == 255
 
 
-@pytest.mark.parametrize("flags", [["--ed_thr", "5"], ["--resume"], ["--serve"],
+@pytest.mark.parametrize("flags", [["--data-parallel"], ["--resume"], ["--serve"],
                                    ["--stream-reads", "4"], ["--num-hosts", "2"]])
 def test_cli_unported_flag_is_refused(tmp_path, flags):
     fa, mono = _small_inputs(tmp_path, "ACGT")
@@ -175,7 +203,7 @@ def test_port_never_imports_jax(tmp_path):
         "import stringdecomposer_tpu_torch as p\n"
         "from stringdecomposer_tpu_torch import cli\n"
         f"assert cli.main([{str(fa)!r}, {str(mono)!r}, '-o', {str(tmp_path / 'o')!r},"
-        " '--second-best', '--device', 'cpu']) == 0\n"
+        " '--second-best', '--device', 'cpu', '--ed_thr', '5']) == 0\n"
         "p.decompose_reads\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
