@@ -6,8 +6,11 @@ PyTorch twin on the card (bit-equal: all outputs are integers) and against
 the reference fixtures, drives the golden CLI run through the kernels and
 a 1.6 Mbp synthetic assembly through both routes, drives the --ed_thr
 pre-filter (K3) and a HOR-scale monomer library (`hor_library`, 264
-monomers with RC, which takes K1's large route unfiltered), then times each
-kernel beside its plain version at the main path's shapes.
+monomers with RC, which takes K1's large route unfiltered), drives the
+general alignment API through K4, K5 and K6 (the reference edlib fixtures,
+a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
+cut sizes against the scan route), then times each kernel beside its plain
+version at the main path's shapes.
 
 Usage: python3 chip_smoke.py        (needs one CUDA device; exits non-zero
 without one, and prints no result)
@@ -28,7 +31,8 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "stringdecomposer_tpu", "test_data")
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
-KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "hw_filter")
+KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "hw_filter",
+           "banded_final_column", "banded_myers", "semi_ends")
 
 
 def hor_library(records, rng):
@@ -73,6 +77,51 @@ def hw_brute(q: str, t: str) -> int:
         cand[1:] = np.minimum(row[1:] + 1, row[:-1] + (ta != qa[i - 1]))
         row = np.minimum.accumulate(cand - j) + j  # the left chain
     return int(row.min())
+
+
+def synth_pair(n: int, divergence: float, rng) -> tuple[str, str]:
+    """A random ACGT query of n bp and a copy with int(n * divergence)
+    edits at distinct positions (substitution, deletion, insertion, one
+    third each), as scripts/bench_align.py synthesizes its pairs."""
+    import numpy as np
+
+    q = rng.integers(0, 4, n, dtype=np.int8)
+    t = q.tolist()
+    n_mut = int(n * divergence)
+    idx = np.sort(rng.choice(n, n_mut, replace=False))
+    kinds = rng.integers(0, 3, n_mut)
+    for i, kind in zip(idx[::-1].tolist(), kinds[::-1].tolist()):
+        if kind == 0:
+            t[i] = (t[i] + 1 + int(rng.integers(3))) % 4
+        elif kind == 1:
+            del t[i]
+        else:
+            t.insert(i, int(rng.integers(4)))
+    alpha = np.array(list("ACGT"))
+    return "".join(alpha[q]), "".join(alpha[np.array(t)])
+
+
+def cigar_cost(cigar: str, q: str, t: str) -> int:
+    """The cost of an extended CIGAR as an alignment of q to t; raises
+    unless it consumes both exactly and every '=' / 'X' run agrees with the
+    characters."""
+    import numpy as np
+
+    qa = np.frombuffer(q.encode(), dtype=np.uint8)
+    ta = np.frombuffer(t.encode(), dtype=np.uint8)
+    i = j = cost = 0
+    for num, op in re.findall(r"(\d+)([=XID])", cigar):
+        n = int(num)
+        if op in "=X":
+            same = qa[i : i + n] == ta[j : j + n]
+            if len(same) != n or not (same.all() if op == "=" else not same.any()):
+                raise AssertionError(f"CIGAR run {num}{op} at q {i}, t {j} disagrees")
+            i, j, cost = i + n, j + n, cost + (n if op == "X" else 0)
+        else:
+            i, j, cost = (i + n, j, cost + n) if op == "I" else (i, j + n, cost + n)
+    if (i, j) != (len(qa), len(ta)):
+        raise AssertionError(f"CIGAR consumes ({i}, {j}) of ({len(qa)}, {len(ta)})")
+    return cost
 
 
 class Smoke:
@@ -150,7 +199,12 @@ def main() -> int:
     from stringdecomposer_tpu_torch.finishing import homo_compress
     from stringdecomposer_tpu_torch.ops import chain_dp as k1_plain
     from stringdecomposer_tpu_torch.ops import hw_filter as k3_plain
+    from stringdecomposer_tpu_torch.ops import align as al
+    from stringdecomposer_tpu_torch.ops import banded
     from stringdecomposer_tpu_torch.ops import identity as k2_plain
+    from stringdecomposer_tpu_torch.ops.banded_cuda import (
+        banded_final_column_cuda, banded_myers_cuda, semi_ends_cuda,
+    )
     from stringdecomposer_tpu_torch.ops.chain_dp_cuda import (
         block_walk_cuda, chain_dp_forward_cuda, chain_dp_large_cuda, route,
     )
@@ -167,7 +221,9 @@ def main() -> int:
     launches: dict[str, int] = {}
     counters = {"chain_dp": chain_dp_forward_cuda, "chain_dp_large": chain_dp_large_cuda,
                 "block_walk": block_walk_cuda, "nw_identity": nw_identity_batch_cuda,
-                "hw_filter": hw_distance_batch_cuda}
+                "hw_filter": hw_distance_batch_cuda,
+                "banded_final_column": banded_final_column_cuda,
+                "banded_myers": banded_myers_cuda, "semi_ends": semi_ends_cuda}
     dxz1 = os.path.join(DATA, "DXZ1_star_monomers.fa")
     read_fa = os.path.join(DATA, "read.fa")
     plain_route = dict(forward_fn=k1_plain.chain_dp_forward,
@@ -696,6 +752,284 @@ def main() -> int:
               f"L={mono.shape[1]}: kernel {spread(k)}; plain {spread(p)}")
         print("times: every timed kernel output bit-equal to its plain version's")
 
+    banded_kernels = ("banded_final_column", "banded_myers", "semi_ends")
+
+    def rand_pairs(P, Lq, Lt, seed, alpha=4, t_neg=False):
+        """Random codes on the card with ragged lengths: pair 0 at full
+        width, pair 1 with an empty query, pair 2 with an empty target."""
+        r = np.random.default_rng(seed)
+        q = r.integers(0, alpha, (P, Lq)).astype(np.int32)
+        t = r.integers(-1 if t_neg else 0, alpha, (P, Lt)).astype(np.int32)
+        ql = r.integers(0, Lq + 1, P).astype(np.int32)
+        tl = r.integers(0, Lt + 1, P).astype(np.int32)
+        ql[0], tl[0] = Lq, Lt
+        if P > 2:
+            ql[1], tl[2] = 0, 0
+        return [torch.from_numpy(a).to(dev) for a in (q, ql, t, tl)]
+
+    shapes = ((7, 300, 333), (3, 1000, 900), (5, 17, 40))
+
+    def k4_checks():
+        for k in (1, 8, 64, 255):
+            for P, Lq, Lt in shapes:
+                a = rand_pairs(P, Lq, Lt, seed=k * P)
+                smoke.same("banded_final_column", f"K4 k={k} P={P} Lq={Lq} Lt={Lt}",
+                           banded_final_column_cuda(*a, k=k), banded.banded_final_column(*a, k=k))
+        r = np.random.default_rng(1)
+        for k in (2, 8, 33):  # equality bitmasks over a 7-symbol alphabet, 2 bits a row
+            a = rand_pairs(5, 256, 256, seed=k, alpha=7)
+            a[0] = torch.from_numpy(((1 << r.integers(0, 7, (5, 256)))
+                                     | (1 << r.integers(0, 7, (5, 256)))).astype(np.int32)).to(dev)
+            smoke.same("banded_final_column", f"K4 mask mode k={k}",
+                       banded_final_column_cuda(*a, k=k, use_mask=True),
+                       banded.banded_final_column(*a, k=k, use_mask=True))
+        a = rand_pairs(2, 3000, 1500, seed=5)
+        smoke.same("banded_final_column", "K4 k=40000 (band in device memory)",
+                   banded_final_column_cuda(*a, k=40000), banded.banded_final_column(*a, k=40000))
+        print("K4: k in {1, 8, 64, 255} on ragged shapes (P = 7, 3, 5; empty query and target "
+              "rows), mask mode k in {2, 8, 33}, and k = 40000 past shared memory, every lane "
+              "bit-equal to the plain twin")
+
+    def k5_checks():
+        for k in (8, 31, 256, 300, 1000):
+            for P, Lq, Lt in ((7, 700, 650), (3, 1300, 1200), (4, 50, 40)):
+                a = rand_pairs(P, Lq, Lt, seed=k + P, t_neg=True)
+                smoke.same("banded_myers", f"K5 k={k} P={P} Lq={Lq} Lt={Lt}",
+                           banded_myers_cuda(*a, k=k), banded.banded_final_column_myers(*a, k=k))
+        a = rand_pairs(2, 45000, 120, seed=9, t_neg=True)
+        smoke.same("banded_myers", "K5 k=20000 (2 words a thread)",
+                   banded_myers_cuda(*a, k=20000), banded.banded_final_column_myers(*a, k=20000))
+        print("K5: k in {256, 300, 1000}, k in {8, 31} (below MYERS_MIN_K, which the routers "
+              "patch down to reach them) and k = 20000, every lane bit-equal to the plain twin")
+
+    def k6_checks():
+        for Lq in (1, 31, 32, 33, 700, 4096):
+            for hw in (True, False):
+                a = rand_pairs(5, Lq, 600, seed=Lq, t_neg=True)
+                smoke.same("semi_ends", f"K6 Lq={Lq} {'HW' if hw else 'SHW'}",
+                           semi_ends_cuda(*a, free_target_prefix=hw),
+                           banded.semi_ends_myers(*a, free_target_prefix=hw))
+        a = rand_pairs(3, 40000, 80, seed=3, t_neg=True)
+        smoke.same("semi_ends", "K6 Lq=40000 HW (2 words a thread)",
+                   semi_ends_cuda(*a), banded.semi_ends_myers(*a))
+        print("K6: Lq in {1, 31, 32, 33, 700, 4096, 40000}, HW and SHW, bit-equal to the plain twin")
+
+    def fixtures(*names):
+        out = []
+        for name in names:
+            with open(os.path.join(FIXTURES, name)) as f:
+                out.extend(json.load(f))
+        return out
+
+    def same_result(r, c, what):
+        """An align_batch result against a reference fixture."""
+        if r["editDistance"] != c["ed"]:
+            raise AssertionError(f"{what}: editDistance {r['editDistance']} != {c['ed']}")
+        if c["ed"] < 0:
+            return
+        for key in ("endLocations", "startLocations", "cigar"):
+            if key in c and (c[key] or key == "cigar") and r[key] != c[key]:
+                raise AssertionError(f"{what}: {key} {r[key]!r} != {c[key]!r}")
+
+    def align_fixture_runs(what, equalities=True):
+        cases = fixtures("align_cases.json", "align_cases_b.json")
+        for mode in ("NW", "SHW", "HW"):
+            sub = [c for c in cases if c["mode"] == mode]
+            res = al.align_batch([c["q"] for c in sub], [c["t"] for c in sub], mode=mode,
+                                 task="path", device="cuda")
+            for i, (c, r) in enumerate(zip(sub, res)):
+                if c["k"] >= 0:
+                    r = al.align_batch([c["q"]], [c["t"]], mode=mode, task="path", k=c["k"],
+                                       device="cuda")[0]
+                same_result(r, c, f"align case {mode} {i} ({what})")
+        hb = fixtures("hirschberg_cases.json")
+        for bound in (512, 2048):
+            al.HB_MEM_BOUND = bound
+            for mode in ("NW", "SHW", "HW"):
+                sub = [c for c in hb if c["bound"] == bound and c["mode"] == mode]
+                res = al.align_batch([c["q"] for c in sub], [c["t"] for c in sub], mode=mode,
+                                     task="path", device="cuda")
+                for i, (c, r) in enumerate(zip(sub, res)):
+                    same_result(r, c, f"hirschberg case {bound} {mode} {i}")
+        al.HB_MEM_BOUND = 1 << 20
+        if not equalities:
+            return
+        iupac = [("N", "A"), ("N", "C"), ("N", "G"), ("N", "T"),
+                 ("R", "A"), ("R", "G"), ("Y", "C"), ("Y", "T")]
+        wide = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789"
+        wide_pairs = [(wide[i], wide[26 + i]) for i in range(26)] + \
+                     [(chr(ord("0") + i), chr(ord("A") + (i % 5))) for i in range(10)]
+        for name, pairs in (("edlib_eq_cases.json", iupac), ("edlib_wide_eq_cases.json", wide_pairs)):
+            for i, c in enumerate(fixtures(name)):
+                r = al.align_batch([c["q"]], [c["t"]], mode=c["mode"], task="path", k=c["k"],
+                                   additional_equalities=pairs[: c["npairs"]], device="cuda")[0]
+                same_result(r, c, f"{name} {i}")
+
+    def align_checks():
+        def runs():
+            myers_min_k, hb_bound = banded.MYERS_MIN_K, al.HB_MEM_BOUND
+            try:
+                align_fixture_runs("auto")
+                # K5 serves the small fixtures too; equality bitmasks and the
+                # lut gather never take it
+                banded.MYERS_MIN_K = 8
+                align_fixture_runs("auto, MYERS_MIN_K 8", equalities=False)
+            finally:
+                banded.MYERS_MIN_K, al.HB_MEM_BOUND = myers_min_k, hb_bound
+
+        got = drive("align: the reference fixtures on cuda (auto)", runs)
+        bad = [k for k in banded_kernels if got[k] <= 0]
+        if bad:
+            raise AssertionError(f"align: kernels of the path not launched: {bad}")
+        print("align: 420 align cases (path, per-case k), 180 Hirschberg cases (bound 512 and "
+              "2048), 60 + 36 equality cases equal to the reference edlib on cuda; the align "
+              "and Hirschberg cases again with MYERS_MIN_K = 8")
+
+    scale_inputs = {}
+
+    def scale_pairs():
+        """The pairs of scripts/bench_align.py's workloads, from one
+        numpy.random.default_rng(0): 262,144 bp at 1 % divergence, then a
+        4,096 bp query whose copy repeated to 1,048,576 bp is the target,
+        then an 8,192 bp pair for the cut comparison."""
+        if not scale_inputs:
+            rng = np.random.default_rng(0)
+            q, t = synth_pair(262_144, 0.01, rng)
+            tq, tt = synth_pair(4096, 0.01, rng)
+            q8, t8 = synth_pair(8192, 0.01, rng)
+            scale_inputs.update(q=q, t=t, tq=tq, big_t=(tt * 256)[: 1 << 20], q8=q8, t8=t8)
+        return scale_inputs
+
+    def walls(what, fn, reps=3):
+        secs, res = [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        print(f"{what}: wall min {min(secs):.3f} / median {statistics.median(secs):.3f} / "
+              f"max {max(secs):.3f} s over {reps}", flush=True)
+        return res
+
+    def semi_runs(tq, target, route, reps):
+        """SHW and HW x distance and locations x k in {64, 256, -1};
+        wherever a banded run finds the pair, its result equals k = -1's."""
+        out = {}
+        for mode in ("SHW", "HW"):
+            for task in ("distance", "locations"):
+                res = {k: walls(f"{mode} {task} {len(tq)} bp x {len(target)} bp k={k} [{route}]",
+                                lambda k=k: al.align_batch([tq], [target], mode=mode, task=task,
+                                                           k=k, device="cuda")[0], reps)
+                       for k in (64, 256, -1)}
+                full = res[-1]
+                for k in (64, 256):
+                    want = full if full["editDistance"] <= k else {
+                        "editDistance": -1, "endLocations": [], "startLocations": None,
+                        "cigar": None}
+                    if res[k] != want:
+                        raise AssertionError(f"{mode} {task} k={k}: {res[k]} != {want}")
+                print(f"{mode} {task}: d={full['editDistance']}, {len(full['endLocations'])} "
+                      f"end locations; k=64 and k=256 equal to k=-1")
+                out[(mode, task)] = res
+        return out
+
+    def align_scale():
+        s = scale_pairs()
+        q, t = s["q"], s["t"]
+
+        def main_runs():
+            path = walls("NW path 262,144 bp (Hirschberg, banded sweeps)",
+                         lambda: al.align(q, t, mode="NW", task="path", device="cuda"))
+            dist = walls("NW distance 262,144 bp k=-1 (k-doubling)",
+                         lambda: al.align(q, t, mode="NW", task="distance", device="cuda"))
+            cost = cigar_cost(path["cigar"], q, t)
+            if not cost == path["editDistance"] == dist["editDistance"]:
+                raise AssertionError(f"path cost {cost}, path d {path['editDistance']}, "
+                                     f"distance {dist['editDistance']}")
+            print(f"NW 262,144 bp x {len(t)} bp: d={cost}; the CIGAR is a valid alignment of "
+                  "cost d, equal to the k=-1 distance")
+            semi_runs(s["tq"], s["big_t"], "auto", 3)
+
+        got = drive("align_scale: 262,144 bp NW path and distance; 4 kbp x 1 Mbp SHW/HW", main_runs)
+        bad = [k for k in banded_kernels if got[k] <= 0]
+        if bad:
+            raise AssertionError(f"align_scale: kernels of the path not launched: {bad}")
+        launches.update({k: got[k] for k in banded_kernels})
+        # the same workloads cut to sizes the scan route finishes: identical results
+        try:
+            al.MOVES_CELL_LIMIT = 1 << 12
+            got = {}
+            for route in ("auto", "scan"):
+                banded.DEFAULT_BACKEND = route
+                got[route] = walls(f"NW path 8,192 bp, MOVES_CELL_LIMIT 2^12 [{route}]",
+                                   lambda: al.align(s["q8"], s["t8"], mode="NW", task="path",
+                                                    device="cuda"), 1)
+            al.MOVES_CELL_LIMIT = 1 << 22
+            for route in ("auto", "scan"):
+                banded.DEFAULT_BACKEND = route
+                got[route] = (got[route], semi_runs(s["tq"], s["big_t"][: 1 << 13], route, 1))
+        finally:
+            banded.DEFAULT_BACKEND = "auto"
+            al.MOVES_CELL_LIMIT = 1 << 22
+        if got["auto"] != got["scan"]:
+            raise AssertionError("cut sizes: the kernel and scan routes differ")
+        print("align_scale: 8,192 bp path and 4 kbp x 8 kbp SHW/HW identical on the kernel "
+              "and scan routes")
+
+    def banded_times():
+        s = scale_pairs()
+
+        def codes(x):
+            return torch.from_numpy(encode(x).astype(np.int32)[None, :]).to(dev)
+
+        def lens(*n):
+            return torch.tensor(n, dtype=torch.int32, device=dev)
+
+        def pair(qs, ts):
+            return [codes(qs), lens(len(qs)), codes(ts), lens(len(ts))]
+
+        # K4: the transposed SHW k=64 sweep of the 4 kbp x 1 Mbp run
+        cases = [("banded_final_column", "K4 SHW k=64 transposed: q 4161 bp x t 4096 bp",
+                  pair(s["big_t"][:4161], s["tq"]), dict(k=64),
+                  banded_final_column_cuda, banded.banded_final_column),
+                 # K5: the Hirschberg top level's band (kb = 4096), cut to 1024 target columns
+                 ("banded_myers", "K5 k=4096: q 5121 bp x t 1024 bp (the 262,144 bp path's "
+                  "top-level band, cut)", pair(s["q"][:5121], s["t"][:1024]), dict(k=4096),
+                  banded_myers_cuda, banded.banded_final_column_myers),
+                 # K6: the HW 4 kbp query, cut to 2048 target columns
+                 ("semi_ends", "K6 HW: q 4096 bp x t 2048 bp (the 4 kbp x 1 Mbp HW run, cut)",
+                  pair(s["tq"], s["big_t"][:2048]), dict(free_target_prefix=True),
+                  semi_ends_cuda, banded.semi_ends_myers)]
+        for name, what, args, kw, kern, plain in cases:
+            k, got = timed(lambda: kern(*args, **kw), 5)
+            p, want = timed(lambda: plain(*args, **kw), 1)
+            smoke.same(name, what, got, want)
+            timing[name] = (statistics.median(k), statistics.median(p))
+            print(f"{what}: kernel {spread(k)}; plain {spread(p)}")
+        # the one-pair sweeps of the uncut runs, kernel only
+        k4_full = pair(s["q"], s["t"])
+        k, _ = timed(lambda: banded_final_column_cuda(*k4_full, k=128), 2)
+        print(f"K4 k=128, q {len(s['q'])} bp x t {len(s['t'])} bp (the k-doubling's first band): "
+              f"kernel {spread(k)}")
+        k, _ = timed(lambda: banded_myers_cuda(*k4_full, k=4096), 2)
+        print(f"K5 k=4096, q {len(s['q'])} bp x t {len(s['t'])} bp: kernel {spread(k)}")
+        k6_full = pair(s["tq"], s["big_t"])
+        k, _ = timed(lambda: semi_ends_cuda(*k6_full), 2)
+        print(f"K6 HW, q 4096 bp x t {len(s['big_t'])} bp: kernel {spread(k)}")
+        # the path task's plain scans at its base-case size: 16 pairs of ~1600 bp
+        r = np.random.default_rng(2)
+        b = [torch.from_numpy(r.integers(0, 4, (16, 1600)).astype(np.int32)).to(dev)
+             for _ in range(2)]
+        n16 = torch.full((16,), 1600, dtype=torch.int32, device=dev)
+        p, _ = timed(lambda: al.dp_moves_batch(b[0], n16, b[1], n16), 3)
+        print(f"dp_moves_batch (plain, no kernel) 16 pairs x 1600 x 1600: {spread(p)}")
+        p, _ = timed(lambda: al.dp_lastrow_batch(b[0], n16, b[1], n16), 3)
+        print(f"dp_lastrow_batch (plain, no kernel) 16 pairs x 1600 x 1600: {spread(p)}")
+
+    def all_times():
+        kernel_times()
+        banded_times()
+
     smoke.phase("setup", setup)
     smoke.phase("k1", k1_checks)
     smoke.phase("k2", k2_checks)
@@ -704,7 +1038,12 @@ def main() -> int:
     smoke.phase("k3", k3_checks)
     smoke.phase("ed_thr", ed_thr_run)
     smoke.phase("library", library_run)
-    smoke.phase("times", kernel_times)
+    smoke.phase("k4", k4_checks)
+    smoke.phase("k5", k5_checks)
+    smoke.phase("k6", k6_checks)
+    smoke.phase("align", align_checks)
+    smoke.phase("align_scale", align_scale)
+    smoke.phase("times", all_times)
     work.cleanup()
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {', '.join(smoke.failed)}")
@@ -714,7 +1053,10 @@ def main() -> int:
             ("chain_dp_large", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
             ("block_walk", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp.py:165"),
             ("nw_identity", src + "nw_identity.cu", "stringdecomposer_tpu/ops/identity_pallas.py:63"),
-            ("hw_filter", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80")]
+            ("hw_filter", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
+            ("banded_final_column", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:59"),
+            ("banded_myers", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),
+            ("semi_ends", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:510")]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": launches[n],
          "max_abs_err": smoke.max_err[n], "ms": timing[n][0], "plain_ms": timing[n][1]}

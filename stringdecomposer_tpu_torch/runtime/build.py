@@ -39,6 +39,9 @@ _SIGNATURES = {
     "sd_block_walk": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sd_hw_distance": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "sd_nw_identity": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "sd_banded_column": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_banded_myers": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_semi_ends": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -205,6 +205,12 @@ def test_port_never_imports_jax(tmp_path):
         f"assert cli.main([{str(fa)!r}, {str(mono)!r}, '-o', {str(tmp_path / 'o')!r},"
         " '--second-best', '--device', 'cpu', '--ed_thr', '5']) == 0\n"
         "p.decompose_reads\n"
+        "from stringdecomposer_tpu_torch.ops import align, banded, banded_cuda\n"
+        "for backend in ('scan', 'kernel'):\n"
+        "    banded.DEFAULT_BACKEND = backend\n"
+        "    r = align.align('ACGTTGCA' * 30, 'ACGTTCA' * 30, mode='HW', task='path', k=40,"
+        " device='cpu')\n"
+        "    assert r['editDistance'] == 30, r\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
