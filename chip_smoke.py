@@ -9,8 +9,11 @@ pre-filter (K3) and a HOR-scale monomer library (`hor_library`, 264
 monomers with RC, which takes K1's large route unfiltered), drives the
 general alignment API through K4, K5 and K6 (the reference edlib fixtures,
 a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
-cut sizes against the scan route), then times each kernel beside its plain
-version at the main path's shapes.
+cut sizes against the scan route), checks P (the int16 probe) and K1's
+int16 state on both routes against the int16 twin and the int32 kernel and
+drives that path, checks K1's ablation kernels (A) against their plain
+versions and runs the ablation bench, then times each kernel beside its
+plain version at the main path's shapes and prints each one's bound.
 
 Usage: python3 chip_smoke.py        (needs one CUDA device; exits non-zero
 without one, and prints no result)
@@ -31,8 +34,38 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "stringdecomposer_tpu", "test_data")
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
+VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")  # ops/chain_dp.VARIANTS
+ABLATE = tuple(f"ablate_{'large_' if large else ''}{v}" for large in (False, True) for v in VARIANTS)
 KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "hw_filter",
-           "banded_final_column", "banded_myers", "semi_ends")
+           "banded_final_column", "banded_myers", "semi_ends", "int16_probe", "chain_dp_int16",
+           "chain_dp_large_int16") + ABLATE
+# The card's peak rates for the bounds (H100 SXM datasheet, 700 W): HBM at
+# 3.35 TB/s; int32 at 64 INT32 lanes per SM per clock (half the 128 FP32
+# lanes behind the datasheet's 67 TFLOP/s float32, which counts an FMA as 2)
+# x 132 SMs x 1.98 GHz = 16.73 T int32 ops/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# int32 operations per DP cell (or per 32-row word of a bit-parallel
+# column), counted from each recurrence itself, not from a kernel's own
+# formulation of it (no fold offsets, nothing that depends only on k):
+#   K1 and its ablations, 15: match test and select 2; the diag, ins, del
+#     and enter adds 4; three maxima 3; the start pointer's three compares
+#     and three selects 6;
+#   K2, 12: match test 1, three candidates 3, two min 2, the column count's
+#     preference 2 compares + 2 selects + 1 add, matches 1;
+#   K3 and K4, 6: match test 1, three candidates 3, two min 2;
+#   K5 and K6, 17 per word: one Myers step (Eq lookup, Xv, Xh, Ph, Mh, the
+#     add's carry, shifts);
+#   the walk and P, 2 per element: compare, select.
+OPS_PER_CELL = {"k1": 15, "k2": 12, "hw": 6, "myers_word": 17, "scan": 2}
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take for the work: the larger of the
+    bytes over the memory rate and the int32 ops over the int32 rate, in
+    ms, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def hor_library(records, rng):
@@ -41,7 +74,7 @@ def hor_library(records, rng):
     random edits each (substitution p 0.8, deletion 0.1, insertion 0.1),
     named `<first word of name>_v<v>`. From the 12 DXZ1 monomers and
     numpy.random.default_rng(0): 132 monomers, 264 with RC, padded to 192."""
-    from stringdecomposer_tpu.io.fasta import Record
+    from stringdecomposer_tpu_torch.io.fasta import Record
 
     out = []
     for r in records:
@@ -61,6 +94,31 @@ def hor_library(records, rng):
                     seq.insert(pos, "ACGT"[int(rng.integers(4))])
             out.append(Record(f"{head}_v{v}", "".join(seq)))
     return out
+
+
+def synthesize(n_bp: int, monomers, rng) -> str:
+    """A centromere-like assembly of n_bp: tandem copies of monomers drawn
+    at random, each with ~5 % edits (substitution p 0.6, deletion 0.2,
+    insertion 0.2). The same draws as scripts/scale_smoke.synthesize, so
+    seed 0 gives the same 1.6 Mbp assembly."""
+    units = [m.seq for m in monomers]
+    out = []
+    total = 0
+    while total < n_bp:
+        u = list(units[rng.integers(len(units))])
+        for _ in range(max(1, len(u) // 20)):
+            p = int(rng.integers(len(u)))
+            r = rng.random()
+            if r < 0.6:
+                u[p] = "ACGT"[rng.integers(4)]
+            elif r < 0.8 and len(u) > 2:
+                del u[p]
+            else:
+                u.insert(p, "ACGT"[rng.integers(4)])
+        s = "".join(u)
+        out.append(s)
+        total += len(s)
+    return "".join(out)[:n_bp]
 
 
 def hw_brute(q: str, t: str) -> int:
@@ -156,9 +214,17 @@ class Smoke:
 
 def timed(fn, reps: int) -> tuple[list[float], object]:
     """Milliseconds per call, from CUDA events around each call, and the
-    result of the warm-up call."""
+    result of the warm-up call; reps = 0 times the one call itself."""
     import torch
 
+    if reps == 0:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        res = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b)], res
     res = fn()  # warm-up
     out = []
     for _ in range(reps):
@@ -190,13 +256,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from stringdecomposer_tpu.io.fasta import (
-        Record, add_reverse_complement, encode, load_fasta, pad_monomers, write_fasta,
-    )
-    from stringdecomposer_tpu.ops.oracle import Scoring, make_windows
-    from stringdecomposer_tpu.report import format_raw_rows
     from stringdecomposer_tpu_torch import cli, pipeline
     from stringdecomposer_tpu_torch.finishing import homo_compress
+    from stringdecomposer_tpu_torch.io.fasta import (
+        Record, add_rc_interleaved, add_reverse_complement, encode, load_fasta, pad_monomers,
+        write_fasta,
+    )
     from stringdecomposer_tpu_torch.ops import chain_dp as k1_plain
     from stringdecomposer_tpu_torch.ops import hw_filter as k3_plain
     from stringdecomposer_tpu_torch.ops import align as al
@@ -205,25 +270,40 @@ def main() -> int:
     from stringdecomposer_tpu_torch.ops.banded_cuda import (
         banded_final_column_cuda, banded_myers_cuda, semi_ends_cuda,
     )
+    from stringdecomposer_tpu_torch.ops import chain_dp_cuda as k1
     from stringdecomposer_tpu_torch.ops.chain_dp_cuda import (
-        block_walk_cuda, chain_dp_forward_cuda, chain_dp_large_cuda, route,
+        block_walk_cuda, chain_dp_ablate_cuda, chain_dp_forward_cuda, chain_dp_large_cuda,
+        int16_probe_cuda, int16_probe_plain, int16_state_supported, route,
     )
     from stringdecomposer_tpu_torch.ops.hw_filter_cuda import hw_distance_batch_cuda
     from stringdecomposer_tpu_torch.ops.identity_cuda import (
         nw_identity_batch_cuda, nw_identity_packed_both,
     )
+    from stringdecomposer_tpu_torch.ops.oracle import Scoring, make_windows
+    from stringdecomposer_tpu_torch.report import format_raw_rows
     from stringdecomposer_tpu_torch.runtime import build
 
     dev = torch.device("cuda")
     smoke = Smoke()
     kind = torch.cuda.get_device_name(0)
     timing: dict[str, tuple[float, float]] = {}
+    bounds: dict[str, tuple[float, str]] = {}
     launches: dict[str, int] = {}
-    counters = {"chain_dp": chain_dp_forward_cuda, "chain_dp_large": chain_dp_large_cuda,
-                "block_walk": block_walk_cuda, "nw_identity": nw_identity_batch_cuda,
-                "hw_filter": hw_distance_batch_cuda,
-                "banded_final_column": banded_final_column_cuda,
-                "banded_myers": banded_myers_cuda, "semi_ends": semi_ends_cuda}
+    # kernel -> (wrapper, counter attribute)
+    counters = {"chain_dp": (chain_dp_forward_cuda, "launches"),
+                "chain_dp_large": (chain_dp_large_cuda, "launches"),
+                "block_walk": (block_walk_cuda, "launches"),
+                "nw_identity": (nw_identity_batch_cuda, "launches"),
+                "hw_filter": (hw_distance_batch_cuda, "launches"),
+                "banded_final_column": (banded_final_column_cuda, "launches"),
+                "banded_myers": (banded_myers_cuda, "launches"),
+                "semi_ends": (semi_ends_cuda, "launches"),
+                "int16_probe": (int16_probe_cuda, "launches"),
+                "chain_dp_int16": (chain_dp_forward_cuda, "launches_int16"),
+                "chain_dp_large_int16": (chain_dp_large_cuda, "launches_int16")}
+    counters.update({f"ablate_{'large_' if large else ''}{v}":
+                     (chain_dp_ablate_cuda, k1.ablate_counter(v, large))
+                     for large in (False, True) for v in VARIANTS})
     dxz1 = os.path.join(DATA, "DXZ1_star_monomers.fa")
     read_fa = os.path.join(DATA, "read.fa")
     plain_route = dict(forward_fn=k1_plain.chain_dp_forward,
@@ -241,9 +321,6 @@ def main() -> int:
     def assembly_fa() -> str:
         """The 1.6 Mbp synthetic DXZ1 assembly (seed 0), written once."""
         if "asm" not in cache:
-            sys.path.insert(0, os.path.join(HERE, "scripts"))
-            from scale_smoke import synthesize
-
             asm = synthesize(1_600_000, load_fasta(dxz1), np.random.default_rng(0))
             cache["asm"] = os.path.join(work.name, "asm.fa")
             with open(cache["asm"], "w") as f:
@@ -254,11 +331,11 @@ def main() -> int:
         """One run of a main path with every launch counter set to 0 just
         before it and read just after; fails unless each of the path's
         kernels launched."""
-        for c in counters.values():
-            c.launches = 0
+        for fn_, attr in counters.values():
+            setattr(fn_, attr, 0)
         fn()
         torch.cuda.synchronize()
-        got = {k: c.launches for k, c in counters.items()}
+        got = {k: getattr(fn_, attr) for k, (fn_, attr) in counters.items()}
         print(f"{what}: launches {got}")
         return got
 
@@ -285,12 +362,16 @@ def main() -> int:
         build.library()
         print(f"kernel build: {time.perf_counter() - t0:.2f} s ({'built' if fresh else 'cached'}) -> "
               f"{os.path.relpath(path, HERE)}")
+        entry = "?"
         for ln in (path.parent / "build.log").read_text().splitlines():
-            if "registers" in ln or "spill" in ln or "error" in ln:
-                print("  ptxas:", ln.strip())
+            m = re.search(r"Compiling entry function '_ZN\w*?_cu_\w{8}\d+([a-z_0-9]+)(I\w*?EE)?", ln)
+            if m:
+                entry = m.group(1) + (m.group(2) or "")
+            elif "registers" in ln or "spill" in ln or "error" in ln:
+                print(f"  ptxas: {entry}: {ln.strip()}")
         # the reused host formatter builds on first use too; build it here so
         # that the golden timing below measures the run, not g++
-        from stringdecomposer_tpu.runtime.native import load_native
+        from stringdecomposer_tpu_torch.runtime.native import load_native
 
         t0 = time.perf_counter()
         native = load_native() is not None
@@ -302,14 +383,43 @@ def main() -> int:
         L = (max(len(m.seq) for m in monos) + 7) // 8 * 8
         return monos, pad_monomers(monos, pad_to=L)
 
+    def k1_int16_case(args, kw, lens_np, what):
+        """K1's int16 state on both routes against the int16 twin (every
+        output, the debug arrays too) and against the int32 kernel (blocks,
+        counts, and end / spend on the rows of nonzero length)."""
+        M, L = args[2].shape[-2], args[2].shape[-1]
+        shared16 = "chain_dp_int16" if route(M, L, 2) == "shared" else "chain_dp_large_int16"
+        b32, c32, (_, e32, s32) = chain_dp_forward_cuda(*args, **kw)
+        want = k1_plain.chain_dp_forward(*args, state_dtype="int16", **kw)
+        real = torch.from_numpy(lens_np > 0).to(dev)
+        real = real[None, None, :] if real.dim() == 1 else real[:, None, :]
+        got = None
+        for fn, kernel in ((chain_dp_forward_cuda, shared16),
+                           (chain_dp_large_cuda, "chain_dp_large_int16")):
+            got = fn(*args, state_dtype="int16", **kw)
+            torch.cuda.synchronize()
+            bk, ck, (chk, ek, sk) = got
+            for nm, g, w in zip(("blocks", "counts", "chain", "end", "spend"),
+                                (bk, ck, chk, ek, sk), want[:2] + want[2]):
+                smoke.same(kernel, f"{what} int16 {nm} vs the int16 twin", g, w)
+            smoke.same(kernel, f"{what} int16 blocks vs the int32 kernel", bk, b32)
+            smoke.same(kernel, f"{what} int16 counts vs the int32 kernel", ck, c32)
+            smoke.same(kernel, f"{what} int16 end (real rows) vs int32", torch.where(real, ek, e32), e32)
+            smoke.same(kernel, f"{what} int16 spend (real rows) vs int32",
+                       torch.where(real, sk, s32), s32)
+        return got
+
     def k1_case(windows_np, wlens_np, mono_np, lens_np, sc, what, max_blocks=0,
-                fn=chain_dp_forward_cuda, kernel="chain_dp", want=None):
+                fn=chain_dp_forward_cuda, kernel="chain_dp", want=None, int16=False):
         """One K1 route (`fn`, whose errors count under `kernel`) against
         the plain twin, or against `want` when given (another route's
-        outputs on the same inputs). Returns the kernel's outputs."""
+        outputs on the same inputs). Returns the kernel's outputs. With
+        int16, both routes' int16 state instead (k1_int16_case)."""
         args = [torch.from_numpy(a).to(dev) for a in (windows_np, wlens_np, mono_np, lens_np)]
         kw = dict(ins=sc[0], dele=sc[1], mismatch=sc[2], match=sc[3],
                   max_blocks=max_blocks, return_debug=True)
+        if int16:
+            return k1_int16_case(args, kw, lens_np, what)
         got = fn(*args, **kw)
         if want is None:
             want = k1_plain.chain_dp_forward(*args, **kw)
@@ -322,9 +432,12 @@ def main() -> int:
         smoke.same("block_walk", f"{what} counts", ck, cp)
         return got
 
-    def k1_checks():
+    def k1_checks(int16=False):
+        """K1 on the fixtures, random shapes and the library; int16 runs the
+        same cases through the int16 state of both routes."""
         import numpy.random as npr
 
+        mode = "int16" if int16 else "int32"
         cases = []
         for name in ("random_cases.json", "random_cases_b.json"):
             with open(os.path.join(FIXTURES, name)) as f:
@@ -336,8 +449,10 @@ def main() -> int:
             wins = [encode(seq[o : o + ln]) for _, seq in reads
                     for o, ln in make_windows(len(seq), case["part_size"], case["overlap"])]
             wb, wl = k1_plain.build_window_batch(wins, max(len(w) for w in wins))
-            k1_case(wb, wl, mono, lens, case["scoring"], f"fixture {idx}")
+            k1_case(wb, wl, mono, lens, case["scoring"], f"fixture {idx}", int16=int16)
             n_win += len(wins)
+            if int16:
+                continue
             cfg = pipeline.PipelineConfig(scoring=Scoring(*case["scoring"]),
                                           part_size=case["part_size"],
                                           overlap=case["overlap"], device_batch=3)
@@ -346,8 +461,8 @@ def main() -> int:
             raw = "".join(r + "\n" for rn, b in res for r in format_raw_rows(rn, b, names))
             if raw != case["raw"]:
                 raise AssertionError(f"fixture {idx}: raw TSV differs from the reference binary")
-        print(f"K1: {len(cases)} fixture cases ({n_win} windows) bit-equal to the plain twin; "
-              f"raw strings equal to the reference binary's")
+        print(f"K1 {mode}: {len(cases)} fixture cases ({n_win} windows) bit-equal to the plain "
+              f"twin{'' if int16 else '; raw strings equal to the reference binary' + chr(39) + 's'}")
         rng = npr.default_rng(7)
         alpha = np.array(list("ACGT"))
 
@@ -368,27 +483,31 @@ def main() -> int:
         shapes = [("golden-like M=24 L=192", 12, 150, 187, 6, 1200),
                   ("M=128 L=40 W=96", 64, 20, 40, 4, 96),
                   ("M=128 L=192", 64, 150, 190, 3, 600)]
+        if int16:  # shared route in int16, large route in int32
+            shapes.append(("M=200 L=192", 100, 150, 190, 3, 400))
         for what, nf, lo, hi, B, W in shapes:
             fwd = rand_monos(nf, lo, hi)
             _, (mono, lens) = mono_set(fwd)
             wb, wl = rand_windows(fwd, B, W)
-            k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), what)
+            k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), what, int16=int16)
             # per-window [B, M, L] form: a different monomer order per
             # window, and the last rows masked to length 0
             perm = np.stack([rng.permutation(len(lens)) for _ in range(B)])
             mono_w, lens_w = mono[perm], lens[perm].copy()
             lens_w[:, -2:] = 0
-            k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), what + " per-window")
+            k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), what + " per-window", int16=int16)
             counts = k1_case(wb, wl, mono, lens, (-1, -2, -1, 1), what + " max_blocks=1",
-                             max_blocks=1)[1]
+                             max_blocks=1, int16=int16)[1]
             if int(counts.max()) <= 1:
                 raise AssertionError(f"{what}: the overflow case did not overflow")
+            if int16:
+                continue
             # the large route on a set that fits, against the shared route
             for mw, lw, sc in ((mono, lens, (-1, -1, -1, 1)), (mono_w, lens_w, (-2, -1, -1, 2))):
                 shared = k1_case(wb, wl, mw, lw, sc, what + " shared route")
                 k1_case(wb, wl, mw, lw, sc, what + " large route vs shared", fn=chain_dp_large_cuda,
                         kernel="chain_dp_large", want=shared)
-        print("K1: random shapes (shared and per-window monomers, M=128, max_blocks=1 "
+        print(f"K1 {mode}: random shapes (shared and per-window monomers, M=128, max_blocks=1 "
               "overflow) bit-equal to the plain twin; the large route bit-equal to the "
               "shared route on each")
         # the HOR-scale library: M = 264 at L = 192 takes the large route
@@ -396,14 +515,15 @@ def main() -> int:
         if mono.shape != (264, 192) or route(*mono.shape) != "large":
             raise AssertionError(f"library: shape {mono.shape}, route {route(*mono.shape)}")
         wb, wl = rand_windows(library, 3, 320)
-        k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), "library M=264", kernel="chain_dp_large")
+        k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), "library M=264", kernel="chain_dp_large",
+                int16=int16)
         perm = np.stack([rng.permutation(len(lens)) for _ in range(3)])
         mono_w, lens_w = mono[perm], lens[perm].copy()
         lens_w[:, -5:] = 0
         k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), "library M=264 per-window",
-                kernel="chain_dp_large")
-        print("K1: the 264-monomer library (large route, shared and per-window monomers) "
-              "bit-equal to the plain twin")
+                kernel="chain_dp_large", int16=int16)
+        print(f"K1 {mode}: the 264-monomer library (large route, shared and per-window "
+              "monomers) bit-equal to the plain twin")
 
     def k2_checks():
         cases = []
@@ -514,9 +634,6 @@ def main() -> int:
               f"(first run in this process, kernels already built)")
 
     def scale_run():
-        sys.path.insert(0, os.path.join(HERE, "scripts"))
-        from scale_smoke import synthesize
-
         monomers_fwd = load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"))
         asm = synthesize(1_600_000, monomers_fwd, np.random.default_rng(0))
         plain_route = dict(forward_fn=k1_plain.chain_dp_forward,
@@ -693,6 +810,137 @@ def main() -> int:
             print(f"run (iii) 1.6 Mbp x library --ed_thr {ed} --second-best: e2e {secs['e2e']:.3f} s, "
                   f"{rows} assignments, {rows / secs['e2e']:.1f}/s, {len(used)} monomers used")
 
+    def k1_bound(wb_t, mono_t, lens_t, state_bytes, variant="base", blocks_out=0):
+        """K1's bound at these inputs: windows, monomers, lengths and column
+        0 read once; end and spend written once (noemit: one position);
+        `blocks_out` bytes of walk records; OPS_PER_CELL["k1"] int32 ops per
+        cell for every window at every position."""
+        B, W = wb_t.shape
+        M, L = mono_t.shape[-2], mono_t.shape[-1]
+        lens_sum = int(lens_t.clamp(0, L).sum()) * (B if lens_t.dim() == 1 else 1)
+        emitted = 1 if variant == "noemit" else W
+        nbytes = (B * W + mono_t.numel() + 4 * lens_t.numel() + B * M * L * state_bytes
+                  + 2 * B * emitted * M * state_bytes + blocks_out)
+        return bound(nbytes, (W - 1) * lens_sum * OPS_PER_CELL["k1"])
+
+    def probe_checks():
+        """P against its plain version on seeded random int16 data and on
+        the edge values (the lane wrap, -2^15 and 2^15 - 1), and the probe
+        of a fresh process says the int16 state may run."""
+        for seed in range(4):
+            v = torch.from_numpy(np.random.default_rng(seed).integers(
+                -(1 << 15), 1 << 15, (8, 256), dtype=np.int16)).to(dev)
+            smoke.same("int16_probe", f"P seed {seed}", int16_probe_cuda(v), int16_probe_plain(v))
+        edge = torch.zeros((8, 256), dtype=torch.int16)
+        edge[:, -1], edge[:, 0], edge[1, 5], edge[2, 7] = 32767, -32768, -32768, 32767
+        edge = edge.to(dev)
+        smoke.same("int16_probe", "P edge values", int16_probe_cuda(edge), int16_probe_plain(edge))
+        k1._INT16_PROBE.clear()
+        if int16_state_supported("cuda") is not True:
+            raise AssertionError("int16_state_supported('cuda') is not True")
+        k, got = timed(lambda: int16_probe_cuda(edge), 20)
+        p, want = timed(lambda: int16_probe_plain(edge), 20)
+        smoke.same("int16_probe", "P timed", got, want)
+        timing["int16_probe"] = (statistics.median(k), statistics.median(p))
+        bounds["int16_probe"] = bound(2 * edge.numel() * 2, OPS_PER_CELL["scan"] * edge.numel())
+        print(f"P [8, 256] int16: kernel {spread(k)}; plain {spread(p)}; "
+              "int16_state_supported('cuda') is True")
+
+    def int16_shapes():
+        """The three timed shapes: the golden windows x DXZ1 (M = 24), x the
+        264-monomer library, x its first 200 rows (int16: shared route,
+        int32: large route)."""
+        reads = load_fasta(read_fa)
+        codes = encode(reads[0].seq)
+        wins = [codes[o : o + n] for o, n in make_windows(len(codes), 5000, 500)]
+        wb, wl = k1_plain.build_window_batch(wins, 5500)
+        _, (m24, l24) = mono_set(load_fasta(dxz1))
+        _, (mlib, llib) = mono_set(library)
+        return [("golden x DXZ1 M=24", wb, wl, m24, l24),
+                ("golden x library M=264", wb, wl, mlib, llib),
+                ("golden x library[:200] M=200", wb, wl, mlib[:200], llib[:200])]
+
+    def k1_int16_run():
+        k1_checks(int16=True)
+        shapes = int16_shapes()
+        cap = 5500 // 8
+
+        def path():
+            k1._INT16_PROBE.clear()  # as in a fresh process: the first int16 call probes
+            for _, wb, wl, mono, lens in shapes:
+                args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
+                chain_dp_forward_cuda(*args, max_blocks=cap, state_dtype="int16")
+
+        got = drive("int16 K1 path: golden windows x DXZ1, x library, x library[:200], "
+                    "state_dtype='int16'", path)
+        need = ("int16_probe", "chain_dp_int16", "chain_dp_large_int16", "block_walk")
+        bad = [k for k in need if got[k] <= 0]
+        if bad:
+            raise AssertionError(f"int16 K1 path: kernels not launched: {bad}")
+        launches.update({k: got[k] for k in need[:3]})
+        for what, wb, wl, mono, lens in shapes:
+            args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
+            M, L = mono.shape
+            name = "chain_dp_int16" if route(M, L, 2) == "shared" else "chain_dp_large_int16"
+            b32, c32, (_, e32, s32) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
+            b16, c16, (_, e16, s16) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True,
+                                                            state_dtype="int16")
+            real = torch.from_numpy(lens > 0).to(dev)[None, None, :]
+            for nm, g, w in (("blocks", b16, b32), ("counts", c16, c32),
+                             ("end (real rows)", torch.where(real, e16, e32), e32),
+                             ("spend (real rows)", torch.where(real, s16, s32), s32)):
+                smoke.same(name, f"{what}: int16 {nm} vs the int32 kernel", g, w)
+            del e32, s32, e16, s16
+            k32, _ = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 5)
+            k16, got16 = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap,
+                                                             state_dtype="int16"), 5)
+            p16, want16 = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap,
+                                                                  state_dtype="int16"), 0)
+            smoke.same(name, f"{what}: int16 blocks vs the int16 twin", got16[0], want16[0])
+            smoke.same(name, f"{what}: int16 counts vs the int16 twin", got16[1], want16[1])
+            blocks_out = args[0].shape[0] * (cap * 16 + 4)
+            bd16 = k1_bound(args[0], args[2], args[3], 2, blocks_out=blocks_out)
+            bd32 = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
+            if what.startswith("golden x DXZ1") or what.startswith("golden x library M"):
+                timing[name] = (statistics.median(k16), statistics.median(p16))
+                bounds[name] = bd16
+            print(f"K1 + walk, {what} ({len(wb)} windows x 5500, L={L}; int16 route "
+                  f"{route(M, L, 2)}, int32 route {route(M, L, 4)}): int32 kernel {spread(k32)} "
+                  f"(bound {bd32[0]:.3f} ms, {bd32[1]}); int16 kernel {spread(k16)} (bound "
+                  f"{bd16[0]:.3f} ms, {bd16[1]}); int16 plain {spread(p16)}")
+
+    def ablate_run():
+        from stringdecomposer_tpu_torch.scripts import ablate_chain as ab
+
+        err = ab.check(list(VARIANTS), "cuda")
+        for v, e in err.items():
+            for large in (False, True):
+                name = f"ablate_{'large_' if large else ''}{v}"
+                smoke.max_err[name] = max(smoke.max_err[name], e)
+        print(f"ablation: every variant bit-equal to its plain version on both routes at "
+              f"B=5 x W=300, M=40 (max abs errors {err})")
+        res = {}
+        got = drive("ablation bench (python -m stringdecomposer_tpu_torch.scripts.ablate_chain)",
+                    lambda: res.update(ab.bench(list(VARIANTS), reps=3)))
+        bad = [k for k in ABLATE if got[k] <= 0]
+        if bad:
+            raise AssertionError(f"ablation bench: kernels not launched: {bad}")
+        launches.update({k: got[k] for k in ABLATE})
+        for shape, B, W, M, large in ab.SHAPES:
+            inputs = ab.make_inputs(B, W, M, 0, dev)
+            for v in VARIANTS:
+                name = f"ablate_{'large_' if large else ''}{v}"
+                p, want = timed(lambda: k1_plain.chain_dp_ablate(*inputs, v), 0)
+                out = chain_dp_ablate_cuda(*inputs[:3], inputs[3].clone(), v, large)
+                smoke.same(name, f"ablation {v}, {shape} end", out[0], want[0])
+                smoke.same(name, f"ablation {v}, {shape} spend", out[1], want[1])
+                del out, want
+                timing[name] = (statistics.median(res[(shape, v)]), p[0])
+                bounds[name] = k1_bound(inputs[0], inputs[1], inputs[2], 4, variant=v)
+                print(f"ablation {v}, {shape}: kernel {spread(res[(shape, v)])}, plain "
+                      f"{p[0]:.3f} ms (1 run), bound {bounds[name][0]:.3f} ms ({bounds[name][1]}); "
+                      "outputs bit-equal")
+
     def kernel_times():
         reads = load_fasta(os.path.join(DATA, "read.fa"))
         monos, (mono, lens) = mono_set(load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa")))
@@ -706,21 +954,31 @@ def main() -> int:
         smoke.same("chain_dp", "golden shape blocks", got[0], want[0])
         smoke.same("chain_dp", "golden shape counts", got[1], want[1])
         timing["chain_dp"] = (statistics.median(k), statistics.median(p))
+        blocks_out = len(wins) * (cap * 16 + 4)
+        bounds["chain_dp"] = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
         print(f"K1 chain_dp + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, L={mono.shape[1]}: "
-              f"kernel {spread(k)}; plain {spread(p)}")
+              f"kernel {spread(k)}; plain {spread(p)}; bound {bounds['chain_dp'][0]:.3f} ms "
+              f"({bounds['chain_dp'][1]})")
         _, _, (_, end, spend) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
         k, got = timed(lambda: block_walk_cuda(end, spend, args[1], cap), 10)
         p, want = timed(lambda: k1_plain.block_walk(end, spend, args[1], cap), 3)
         smoke.same("block_walk", "golden shape blocks", got[0], want[0])
         smoke.same("block_walk", "golden shape counts", got[1], want[1])
         timing["block_walk"] = (statistics.median(k), statistics.median(p))
-        print(f"walk alone on the same end/spend: kernel {spread(k)}; plain {spread(p)}")
+        # the columns the walk reads: the last one, then the one before each
+        # block start (M end scores each), plus an end and a start per block
+        cols = len(wins) + int(got[1].sum())
+        M = end.shape[2]
+        bounds["block_walk"] = bound(4 * (cols * M + 2 * int(got[1].sum()) + len(wins))
+                                     + got[0].numel() * 4 + 4 * len(wins),
+                                     OPS_PER_CELL["scan"] * cols * M)
+        print(f"walk alone on the same end/spend: kernel {spread(k)}; plain {spread(p)}; bound "
+              f"{bounds['block_walk'][0]:.6f} ms ({bounds['block_walk'][1]})")
         # K2 at the golden finishing shape: every raw block x 24 monomers x 2 variants
         with open(os.path.join(DATA, "raw_decomposition_oracle.tsv")) as f:
             rows = [ln.split("\t") for ln in f.read().splitlines()]
         starts = np.array([int(r[2]) for r in rows], dtype=np.int64)
         blens = np.array([int(r[3]) - int(r[2]) + 1 for r in rows], dtype=np.int32)
-        from stringdecomposer_tpu.io.fasta import add_rc_interleaved
         from stringdecomposer_tpu_torch.convert import numpy_state, state_from_numpy
 
         fin = add_rc_interleaved(load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"), upper=True))
@@ -732,6 +990,12 @@ def main() -> int:
         p, want = timed(lambda: k2_plain.nw_identity_packed_both_plain(*pargs, **kw), 3)
         smoke.same("nw_identity", "golden shape packed_both", got, want)
         timing["nw_identity"] = (statistics.median(k), statistics.median(p))
+        # cells: every block against every monomer, raw and homopolymer-compressed
+        hlens = np.array([len(homo_compress(reads[0].seq[a : a + n])) for a, n in zip(starts, blens)])
+        cells = (int(blens.sum()) * int(st.tl_raw.sum()) + int(hlens.sum()) * int(st.tl_homo.sum()))
+        pairs = 2 * len(starts) * st.t_raw.shape[0]
+        bounds["nw_identity"] = bound(int(blens.sum()) + st.t_raw.numel() + st.t_homo.numel()
+                                      + 12 * pairs, OPS_PER_CELL["k2"] * cells)
         print(f"K2 packed_both, {len(starts)} blocks x {st.t_raw.shape[0]} monomers x 2 variants: "
               f"kernel {spread(k)}; plain {spread(p)}")
         # K3 and K1's large route at the golden windows x the library
@@ -741,6 +1005,9 @@ def main() -> int:
         p, want = timed(lambda: k3_plain.hw_distance_batch(*args), 1)
         smoke.same("hw_filter", "golden windows x library", got, want)
         timing["hw_filter"] = (statistics.median(k), statistics.median(p))
+        cells = int(args[1].sum()) * int(args[3].sum())
+        bounds["hw_filter"] = bound(args[0].numel() + args[2].numel() + 4 * got.numel(),
+                                    OPS_PER_CELL["hw"] * cells)
         print(f"K3 hw_distance, {len(wins)} windows x 5500 x M={mono.shape[0]}, L={mono.shape[1]}: "
               f"kernel {spread(k)}; plain {spread(p)}")
         k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 3)
@@ -748,6 +1015,7 @@ def main() -> int:
         smoke.same("chain_dp_large", "golden windows x library blocks", got[0], want[0])
         smoke.same("chain_dp_large", "golden windows x library counts", got[1], want[1])
         timing["chain_dp_large"] = (statistics.median(k), statistics.median(p))
+        bounds["chain_dp_large"] = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
         print(f"K1 large route + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, "
               f"L={mono.shape[1]}: kernel {spread(k)}; plain {spread(p)}")
         print("times: every timed kernel output bit-equal to its plain version's")
@@ -1000,12 +1268,26 @@ def main() -> int:
                  ("semi_ends", "K6 HW: q 4096 bp x t 2048 bp (the 4 kbp x 1 Mbp HW run, cut)",
                   pair(s["tq"], s["big_t"][:2048]), dict(free_target_prefix=True),
                   semi_ends_cuda, banded.semi_ends_myers)]
+        def out_bytes(x):
+            if isinstance(x, (tuple, list)):
+                return sum(out_bytes(y) for y in x)
+            return x.numel() * x.element_size() if torch.is_tensor(x) else 0
+
         for name, what, args, kw, kern, plain in cases:
             k, got = timed(lambda: kern(*args, **kw), 5)
             p, want = timed(lambda: plain(*args, **kw), 1)
             smoke.same(name, what, got, want)
             timing[name] = (statistics.median(k), statistics.median(p))
-            print(f"{what}: kernel {spread(k)}; plain {spread(p)}")
+            q_len, t_len = int(args[1][0]), int(args[3][0])
+            if name == "banded_final_column":  # band lanes x target columns
+                ops = OPS_PER_CELL["hw"] * (2 * kw["k"] + 1) * t_len
+            elif name == "banded_myers":  # 32-row band words x target columns
+                ops = OPS_PER_CELL["myers_word"] * -(-(2 * kw["k"] + 1) // 32) * t_len
+            else:  # full-height words x target columns
+                ops = OPS_PER_CELL["myers_word"] * -(-q_len // 32) * t_len
+            bounds[name] = bound(4 * (q_len + t_len + 2) + out_bytes(got), ops)
+            print(f"{what}: kernel {spread(k)}; plain {spread(p)}; bound {bounds[name][0]:.4f} ms "
+                  f"({bounds[name][1]})")
         # the one-pair sweeps of the uncut runs, kernel only
         k4_full = pair(s["q"], s["t"])
         k, _ = timed(lambda: banded_final_column_cuda(*k4_full, k=128), 2)
@@ -1043,23 +1325,33 @@ def main() -> int:
     smoke.phase("k6", k6_checks)
     smoke.phase("align", align_checks)
     smoke.phase("align_scale", align_scale)
+    smoke.phase("p_probe", probe_checks)
+    smoke.phase("k1_int16", k1_int16_run)
+    smoke.phase("ablate", ablate_run)
     smoke.phase("times", all_times)
     work.cleanup()
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {', '.join(smoke.failed)}")
         return 1
     src = "stringdecomposer_tpu_torch/csrc/"
-    meta = [("chain_dp", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
-            ("chain_dp_large", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
+    meta = [("chain_dp", src + "chain_dp.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
+            ("chain_dp_large", src + "chain_dp.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
             ("block_walk", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp.py:165"),
             ("nw_identity", src + "nw_identity.cu", "stringdecomposer_tpu/ops/identity_pallas.py:63"),
             ("hw_filter", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
             ("banded_final_column", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:59"),
             ("banded_myers", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),
             ("semi_ends", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:510")]
+    meta += [("int16_probe", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:106"),
+             ("chain_dp_int16", src + "chain_dp.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
+             ("chain_dp_large_int16", src + "chain_dp.cuh",
+              "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")]
+    meta += [(n, src + ("chain_dp.cuh" if n.endswith("_base") else "chain_dp_ablate.cu"),
+              "scripts/ablate_chain.py:31") for n in ABLATE]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": launches[n],
-         "max_abs_err": smoke.max_err[n], "ms": timing[n][0], "plain_ms": timing[n][1]}
+         "max_abs_err": smoke.max_err[n], "ms": timing[n][0], "plain_ms": timing[n][1],
+         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": None}
         for n, s, r in meta]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

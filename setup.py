@@ -26,7 +26,12 @@ setup(
             "runtime/native/*.cpp",
             "runtime/native/Makefile",
         ],
-        "stringdecomposer_tpu_torch": ["csrc/*.cu"],
+        "stringdecomposer_tpu_torch": [
+            "csrc/*.cu",
+            "csrc/*.cuh",
+            "models/*.txt",
+            "runtime/native/*.cpp",
+        ],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

@@ -19,7 +19,7 @@ NOT_PORTED = "not yet ported to stringdecomposer_tpu_torch (see ROADMAP.md)"
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from stringdecomposer_tpu.__version__ import __version__
+    from .__version__ import __version__
 
     p = argparse.ArgumentParser(
         prog="stringdecomposer-tpu-torch",
@@ -89,10 +89,9 @@ def main(argv: list[str] | None = None) -> int:
 def _execute(args) -> int:
     pathlib.Path(args.out_dir).mkdir(parents=True, exist_ok=True)
 
-    from stringdecomposer_tpu.io.fasta import InvalidSymbolError
-    from stringdecomposer_tpu.utils.logging import get_logger
-
+    from .io.fasta import InvalidSymbolError
     from .pipeline import run
+    from .utils.logging import get_logger
 
     logger = get_logger(os.path.join(args.out_dir, "stringdecomposer.log"), logger_name="SD-TPU")
     logger.info("cmd: %s", sys.argv)

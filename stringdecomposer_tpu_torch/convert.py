@@ -4,8 +4,10 @@ The system has no trained network. Its state is the monomer set (padded
 int8 codes and lengths in DP order, from io/fasta.pad_monomers; encoded
 codes in the interleaved finishing order, raw and homopolymer-compressed)
 and the reliability coefficients (models/ont_logreg_model.txt, read by
-models/reliability.load_coefficients). Both packages build these arrays with
-the same JAX-free code, so a test can hand one set to both.
+models/reliability.load_coefficients). The port builds these arrays with
+its own copies of the JAX package's host modules (io/fasta.py,
+models/reliability.py), which give the same arrays, so a test can hand one
+set to both.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .io.fasta import encode, pad_monomers
+from .models.reliability import load_coefficients
 
 
 @dataclass
@@ -43,16 +48,13 @@ def numpy_state(monomers_dp: list, monomers_fin: list, model_file: str | None = 
     multiple of 8 in DP order (pipeline.decompose_stream), the finishing
     codes raw and homopolymer-compressed (finishing.AsyncFinisher), and the
     reliability coefficients."""
-    from stringdecomposer_tpu.io.fasta import encode, pad_monomers
-    from stringdecomposer_tpu.models.reliability import load_coefficients
+    from .finishing import _homo_codes
 
     if monomers_dp:
         L = max(len(m.seq) for m in monomers_dp)
         mono, mono_lens = pad_monomers(monomers_dp, pad_to=(L + 7) // 8 * 8)
     else:
         mono, mono_lens = np.zeros((0, 8), np.int8), np.zeros(0, np.int32)
-    from .finishing import _homo_codes
-
     fin = [encode(m.seq) for m in monomers_fin]
     return mono, mono_lens, fin, [_homo_codes(c) for c in fin], load_coefficients(model_file)
 

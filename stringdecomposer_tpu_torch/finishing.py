@@ -25,12 +25,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from stringdecomposer_tpu.io.fasta import Record, encode
-from stringdecomposer_tpu.models.reliability import classify
-from stringdecomposer_tpu.utils.stagetimer import stage
-
 from .convert import DeviceState, numpy_state, pad_codes, state_from_numpy
+from .io.fasta import Record, encode
+from .models.reliability import classify
 from .ops.identity_cuda import nw_identity_batch_cuda, nw_identity_packed_both
+from .utils.stagetimer import stage
 
 # blocks (packed route) or pairs (light mode) per K2 call
 K2_CHUNK = 4096
@@ -532,7 +531,7 @@ def write_final_rows(fout, falt, finished, identity_th: int = 0) -> None:
     """Final 12-column and alt 6-column rows (main.py:153-165), through the
     native C++ formatter when it is available (byte-identical to Python's
     "{:.2f}"), else the Python emitter below."""
-    from stringdecomposer_tpu.runtime.native import format_final_native
+    from .runtime.native import format_final_native
 
     memo: dict[float, str] = {}
 

@@ -1,4 +1,5 @@
-"""K1 on the card: chain DP (csrc/chain_dp.cu) and the block-walk kernel.
+"""K1 on the card: chain DP (csrc/chain_dp.cu), the block-walk kernel, P
+(the int16 probe) and A (K1's ablation kernels, csrc/chain_dp_ablate.cu).
 
 `chain_dp_forward_cuda` has the contract of ops/chain_dp.chain_dp_forward.
 It dispatches on the device of `windows`: a CPU tensor runs the plain
@@ -10,11 +11,19 @@ K1 has two routes with the same recurrence and tie rules. A monomer set
 whose [M, L] column fits one block's shared memory (`smem_bytes`) takes the
 shared route; a larger one takes the large route (`chain_dp_large_cuda`),
 which keeps the column in a device-memory scratch. Each route counts its
-own launches.
+own launches, int32 and int16 state apart.
+
+state_dtype="int16" (not the default: "auto" is int32) stores the column
+and emits end / spend as int16, which halves K1's output bytes and lets
+the shared route take monomer sets up to M = 240 at L = 192 (int32: 133).
+It is refused where scores could wrap or reach the int16 sentinel (at unit
+scores, W + L must stay below 8,191), and it runs only after P, launched
+once per device, has agreed with its plain version.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..runtime.build import check, count_launch, library, stream_of
@@ -22,17 +31,20 @@ from . import chain_dp as plain
 
 # Opt-in dynamic shared memory of one thread block on the H100 (sm_90).
 SMEM_LIMIT = 232_448
-# Device-memory scratch (scores and start pointers, 8 bytes per cell) that
-# one launch of the large route may touch: a batch above it is launched in
-# groups of windows, so that a launch's scratch stays in the 50 MB L2.
+# Device-memory scratch (scores and start pointers, 2 * state bytes per
+# cell) that one launch of the large route may touch: a batch above it is
+# launched in groups of windows, so that a launch's scratch stays in the
+# 50 MB L2.
 LARGE_SCRATCH_BYTES = 32 << 20
+# ablation variant -> csrc/chain_dp.cuh Variant (base is K1's own launch)
+_VARIANT_CODES = {v: i for i, v in enumerate(plain.VARIANTS)}
 
 
-def smem_bytes(M: int, L: int) -> int:
+def smem_bytes(M: int, L: int, state_bytes: int = 4) -> int:
     """Shared memory the shared route needs for one window: scores and start
-    pointers (int32), monomer codes (int8) per cell, plus two int32 per row
-    (the kernel's launch computes the same, csrc/chain_dp.cu)."""
-    return (2 * M * L + 2 * M) * 4 + M * L
+    pointers (state type), monomer codes (int8) per cell, plus two int32 per
+    row (the kernel's launch computes the same, csrc/chain_dp.cuh)."""
+    return 2 * M * 4 + 2 * M * L * state_bytes + M * L
 
 
 def large_smem_bytes(M: int) -> int:
@@ -41,10 +53,10 @@ def large_smem_bytes(M: int) -> int:
     return 2 * M * 4
 
 
-def route(M: int, L: int) -> str:
+def route(M: int, L: int, state_bytes: int = 4) -> str:
     """The K1 route a monomer set of M rows padded to L takes: "shared" or
     "large"."""
-    return "shared" if smem_bytes(M, L) <= SMEM_LIMIT else "large"
+    return "shared" if smem_bytes(M, L, state_bytes) <= SMEM_LIMIT else "large"
 
 
 def check_monomer_set(M: int, L: int) -> None:
@@ -64,16 +76,80 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _prologue(windows, window_lens, mono, mono_lens, dele, mismatch, match):
+def int16_probe_plain(v: torch.Tensor) -> torch.Tensor:
+    """P's plain version: max(roll(v, 1, axis=1), v), jnp.roll semantics
+    (lane c takes lane c - 1 mod cols)."""
+    return torch.maximum(torch.roll(v, 1, 1), v)
+
+
+def int16_probe_cuda(v: torch.Tensor) -> torch.Tensor:
+    """P: the same on the card (csrc/chain_dp.cu), for a [rows, cols] int16
+    tensor; a CPU tensor runs the plain version."""
+    if not v.is_cuda:
+        return int16_probe_plain(v)
+    _require(v.dtype == torch.int16 and v.dim() == 2, "the probe takes a 2-D int16 tensor")
+    v = v.contiguous()
+    out = torch.empty_like(v)
+    check(library().sd_int16_probe(v.data_ptr(), out.data_ptr(), v.shape[0], v.shape[1],
+                                   stream_of(v)), "int16 probe kernel")
+    count_launch(int16_probe_cuda)
+    return out
+
+
+int16_probe_cuda.launches = 0
+_INT16_PROBE: dict[int, bool] = {}  # device index -> P agreed with its plain version
+
+
+def int16_state_supported(device) -> bool:
+    """Whether K1's int16 state may run on `device`: True on the CPU without
+    launching anything (the plain twin computes in int16 tensors there); on
+    a GPU, P runs once on seeded random int16 data against its plain
+    version and the answer is cached. Build or launch errors propagate."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _INT16_PROBE:
+        rng = np.random.default_rng(0)
+        v = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, (8, 256), dtype=np.int16))
+        v = v.to(device)
+        _INT16_PROBE[idx] = bool(torch.equal(int16_probe_cuda(v), int16_probe_plain(v)))
+    return _INT16_PROBE[idx]
+
+
+def _state_dtype(state_dtype: str, windows, mono, ins, dele, mismatch, match) -> torch.dtype:
+    """The range check of ops/chain_dp.resolve_state_dtype, then, for int16,
+    the probe. A probe that fails to build or launch raises a ValueError
+    chained from its error; it never turns into a quiet int32 run."""
+    dt = plain.resolve_state_dtype(state_dtype, windows.shape[1], mono.shape[-1], ins, dele,
+                                   mismatch, match)
+    if dt == torch.int16:
+        try:
+            ok = int16_state_supported(windows.device)
+        except (RuntimeError, OSError) as e:
+            raise ValueError(
+                f"state_dtype='int16' requested, but the int16 probe kernel failed on "
+                f"{windows.device}: {e}. Use 'auto' or 'int32'."
+            ) from e
+        if not ok:
+            raise ValueError(
+                f"state_dtype='int16' requested, but the int16 probe kernel disagrees with "
+                f"its plain version on {windows.device}. Use 'auto' or 'int32'."
+            )
+    return dt
+
+
+def _prologue(windows, window_lens, mono, mono_lens, dele, mismatch, match, dt):
     """Check the inputs of a launch and build column 0 and the outputs:
-    (windows, mono, mono_lens, dp0 [B, M, L], end and spend [B, W, M])."""
+    (windows, mono, mono_lens, dp0 [B, M, L], end and spend [B, W, M]),
+    the last three in the state type `dt`."""
     B, W = windows.shape
     M, L = mono.shape[-2], mono.shape[-1]
     dev = windows.device
-    for name, x, dt in (("windows", windows, torch.int8), ("window_lens", window_lens, torch.int32),
-                        ("mono", mono, torch.int8), ("mono_lens", mono_lens, torch.int32)):
+    for name, x, t in (("windows", windows, torch.int8), ("window_lens", window_lens, torch.int32),
+                       ("mono", mono, torch.int8), ("mono_lens", mono_lens, torch.int32)):
         _require(x.device == dev, f"{name} is on {x.device}, windows on {dev}")
-        _require(x.dtype == dt, f"{name} must be {dt}, got {x.dtype}")
+        _require(x.dtype == t, f"{name} must be {t}, got {x.dtype}")
     _require(mono.dim() in (2, 3) and mono_lens.dim() == mono.dim() - 1,
              "mono must be [M, L] or [B, M, L] with lens [M] or [B, M]")
     _require(mono.dim() == 2 or mono.shape[0] == B, "per-window mono needs B rows")
@@ -83,8 +159,8 @@ def _prologue(windows, window_lens, mono, mono_lens, dele, mismatch, match):
     mono = mono.contiguous()
     mono_lens = mono_lens.contiguous()
     mono_b, lens_b = plain.broadcast_monomers(mono, mono_lens, B)
-    dp0 = plain.init_column(windows, mono_b, lens_b, dele, mismatch, match).contiguous()
-    end = torch.empty((B, W, M), dtype=torch.int32, device=dev)
+    dp0 = plain.init_column(windows, mono_b, lens_b, dele, mismatch, match, dt).contiguous()
+    end = torch.empty((B, W, M), dtype=dt, device=dev)
     return windows, mono, mono_lens, dp0, end, torch.empty_like(end)
 
 
@@ -93,9 +169,29 @@ def _epilogue(end, spend, window_lens, max_blocks, return_debug):
     if return_debug:
         B = end.shape[0]
         head = torch.full((B, 1), plain.INF, dtype=torch.int32, device=end.device)
-        chain = torch.cat([head, end[:, :-1].amax(dim=2)], dim=1)
-        return blocks, counts, (chain, end, spend)
+        chain = torch.cat([head, end[:, :-1].amax(dim=2).to(torch.int32)], dim=1)
+        return blocks, counts, (chain, end.to(torch.int32), spend.to(torch.int32))
     return blocks, counts
+
+
+def _launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, sp,
+            ins, dele, mismatch, match):
+    """One launch of a K1 entry point (`fn`, whose first int arguments are
+    `lead`) over windows [b0, b1); sp is the large route's pointer scratch."""
+    M, L = mono.shape[-2], mono.shape[-1]
+    per_window = mono.dim() == 3
+    m_w, l_w = (mono[b0:b1], mono_lens[b0:b1]) if per_window else (mono, mono_lens)
+    return fn(
+        *lead, windows[b0:b1].data_ptr(), m_w.data_ptr(), M * L if per_window else 0,
+        l_w.data_ptr(), M if per_window else 0, dp0[b0:b1].data_ptr(),
+        sp.data_ptr() if sp is not None else None,
+        end[b0:b1].data_ptr(), spend[b0:b1].data_ptr(), b1 - b0, windows.shape[1], M, L,
+        ins, dele, mismatch, match, stream_of(windows),
+    )
+
+
+def _counter(dt: torch.dtype) -> str:
+    return "launches_int16" if dt == torch.int16 else "launches"
 
 
 def chain_dp_forward_cuda(
@@ -109,32 +205,36 @@ def chain_dp_forward_cuda(
     match: int = 1,
     max_blocks: int = 0,
     return_debug: bool = False,
+    state_dtype: str = "auto",
 ):
     """Same contract and outputs as ops/chain_dp.chain_dp_forward. Monomer
-    sets too large for the shared route go to chain_dp_large_cuda."""
+    sets too large for the shared route (in the chosen state type) go to
+    chain_dp_large_cuda."""
     kw = dict(ins=ins, dele=dele, mismatch=mismatch, match=match, max_blocks=max_blocks,
-              return_debug=return_debug)
+              return_debug=return_debug, state_dtype=state_dtype)
+    dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
     if not windows.is_cuda:
         return plain.chain_dp_forward(windows, window_lens, mono, mono_lens, **kw)
-    if route(mono.shape[-2], mono.shape[-1]) == "large":
+    if route(mono.shape[-2], mono.shape[-1], dt.itemsize) == "large":
         return chain_dp_large_cuda(windows, window_lens, mono, mono_lens, **kw)
     B, W = windows.shape
-    M, L = mono.shape[-2], mono.shape[-1]
     windows, mono, mono_lens, dp0, end, spend = _prologue(
-        windows, window_lens, mono, mono_lens, dele, mismatch, match)
-    per_window = mono.dim() == 3
+        windows, window_lens, mono, mono_lens, dele, mismatch, match, dt)
     if B > 0:
-        check(library().sd_chain_dp(
-            windows.data_ptr(), mono.data_ptr(), M * L if per_window else 0,
-            mono_lens.data_ptr(), M if per_window else 0, dp0.data_ptr(),
-            end.data_ptr(), spend.data_ptr(), B, W, M, L,
-            ins, dele, mismatch, match, stream_of(windows),
-        ), "chain_dp kernel")
-        count_launch(chain_dp_forward_cuda)
+        check(_launch(library().sd_chain_dp, (0, dt.itemsize), windows, mono, mono_lens, dp0,
+                      end, spend, 0, B, None, ins, dele, mismatch, match), "chain_dp kernel")
+        count_launch(chain_dp_forward_cuda, _counter(dt))
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
 chain_dp_forward_cuda.launches = 0
+chain_dp_forward_cuda.launches_int16 = 0
+
+
+def _groups(B: int, M: int, L: int, dt: torch.dtype) -> int:
+    """Windows per large-route launch: the scratch of one launch (2 * state
+    bytes per cell) stays under LARGE_SCRATCH_BYTES."""
+    return max(1, min(B, LARGE_SCRATCH_BYTES // (2 * dt.itemsize * M * L)))
 
 
 def chain_dp_large_cuda(
@@ -148,36 +248,83 @@ def chain_dp_large_cuda(
     match: int = 1,
     max_blocks: int = 0,
     return_debug: bool = False,
+    state_dtype: str = "auto",
 ):
     """K1's large route, for any monomer-set size (chain_dp_forward_cuda
     takes it when the shared route does not fit; it is called directly only
     to check it against the shared route). Same contract and outputs."""
+    dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
     if not windows.is_cuda:
         return plain.chain_dp_forward(
             windows, window_lens, mono, mono_lens, ins=ins, dele=dele, mismatch=mismatch,
-            match=match, max_blocks=max_blocks, return_debug=return_debug)
+            match=match, max_blocks=max_blocks, return_debug=return_debug,
+            state_dtype=state_dtype)
     B, W = windows.shape
     M, L = mono.shape[-2], mono.shape[-1]
     windows, mono, mono_lens, dp0, end, spend = _prologue(
-        windows, window_lens, mono, mono_lens, dele, mismatch, match)
-    per_window = mono.dim() == 3
-    group = max(1, min(B, LARGE_SCRATCH_BYTES // (8 * M * L)))
-    sp = torch.empty((group, M, L), dtype=torch.int32, device=windows.device)
+        windows, window_lens, mono, mono_lens, dele, mismatch, match, dt)
+    group = _groups(B, M, L, dt)
+    sp = torch.empty((group, M, L), dtype=dt, device=windows.device)
     lib = library()
     for b0 in range(0, B, group):  # one launch per group; sp is reused in stream order
-        b1 = min(B, b0 + group)
-        m_w, l_w = (mono[b0:b1], mono_lens[b0:b1]) if per_window else (mono, mono_lens)
-        check(lib.sd_chain_dp_large(
-            windows[b0:b1].data_ptr(), m_w.data_ptr(), M * L if per_window else 0,
-            l_w.data_ptr(), M if per_window else 0, dp0[b0:b1].data_ptr(), sp.data_ptr(),
-            end[b0:b1].data_ptr(), spend[b0:b1].data_ptr(), b1 - b0, W, M, L,
-            ins, dele, mismatch, match, stream_of(windows),
-        ), "chain_dp large-route kernel")
-        count_launch(chain_dp_large_cuda)
+        check(_launch(lib.sd_chain_dp, (1, dt.itemsize), windows, mono, mono_lens, dp0, end,
+                      spend, b0, min(B, b0 + group), sp, ins, dele, mismatch, match),
+              "chain_dp large-route kernel")
+        count_launch(chain_dp_large_cuda, _counter(dt))
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
 chain_dp_large_cuda.launches = 0
+chain_dp_large_cuda.launches_int16 = 0
+
+
+def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: bool,
+                         ins=-1, dele=-1, mismatch=-1, match=1, out=None):
+    """A: K1 with one cost centre removed (ops/chain_dp.VARIANTS; "base" is
+    K1's own production launch), on the shared or the large route, from the
+    given int32 column 0 `dp0` [B, M, L], which the large route overwrites.
+    Returns (end, spend) [B, W, M] int32, knowingly not K1's for any variant
+    but base; `out` may pass them in, zero-filled, to keep allocation out of
+    a timed call. A CPU tensor runs ops/chain_dp.chain_dp_ablate."""
+    if not windows.is_cuda:
+        return plain.chain_dp_ablate(windows, mono, mono_lens, dp0, variant, ins, dele,
+                                     mismatch, match)
+    _require(variant in _VARIANT_CODES, f"unknown ablation variant {variant!r}; known: "
+             f"{', '.join(plain.VARIANTS)}")
+    B, W = windows.shape
+    M, L = mono.shape[-2], mono.shape[-1]
+    _require(mono.dim() == 2 and windows.dtype == torch.int8 and mono.dtype == torch.int8
+             and mono_lens.dtype == torch.int32 and dp0.dtype == torch.int32
+             and dp0.shape == (B, M, L) and dp0.is_contiguous(),
+             "the ablation takes int8 windows [B, W], shared int8 mono [M, L], int32 lens "
+             "and a contiguous int32 dp0 [B, M, L]")
+    _require(large or route(M, L) == "shared", f"M={M}, L={L} does not fit the shared route")
+    check_monomer_set(M, L)
+    windows, mono, mono_lens = windows.contiguous(), mono.contiguous(), mono_lens.contiguous()
+    if out is None:
+        out = (torch.zeros((B, W, M), dtype=torch.int32, device=windows.device),
+               torch.zeros((B, W, M), dtype=torch.int32, device=windows.device))
+    end, spend = out
+    group = _groups(B, M, L, torch.int32) if large else B
+    sp = torch.empty((group, M, L), dtype=torch.int32, device=windows.device) if large else None
+    lib = library()
+    for b0 in range(0, B, group):
+        b1 = min(B, b0 + group)
+        fn, lead = ((lib.sd_chain_dp, (int(large), 4)) if variant == "base" else
+                    (lib.sd_chain_dp_ablate, (_VARIANT_CODES[variant], int(large))))
+        check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, sp,
+                      ins, dele, mismatch, match), f"chain_dp ablation kernel {variant}")
+        count_launch(chain_dp_ablate_cuda, ablate_counter(variant, large))
+    return end, spend
+
+
+def ablate_counter(variant: str, large: bool) -> str:
+    """The launch counter of one ablation kernel on chain_dp_ablate_cuda."""
+    return f"launches_{'large_' if large else ''}{variant}"
+
+
+chain_dp_ablate_cuda.__dict__.update(
+    {ablate_counter(v, large): 0 for v in plain.VARIANTS for large in (False, True)})
 
 
 def block_walk_cuda(end, spend, window_lens, max_blocks: int):
@@ -185,16 +332,18 @@ def block_walk_cuda(end, spend, window_lens, max_blocks: int):
     if not end.is_cuda:
         return plain.block_walk(end, spend, window_lens, max_blocks)
     B, W, M = end.shape
+    _require(end.dtype in (torch.int32, torch.int16) and spend.dtype == end.dtype,
+             "end and spend must both be int32 or both int16")
     for name, x in (("end", end), ("spend", spend), ("window_lens", window_lens)):
-        _require(x.device == end.device and x.dtype == torch.int32,
-                 f"{name} must be int32 on {end.device}")
+        _require(x.device == end.device, f"{name} must be on {end.device}")
+    _require(window_lens.dtype == torch.int32, "window_lens must be int32")
     _require(spend.shape == end.shape and window_lens.shape == (B,), "shape mismatch")
     end, spend, window_lens = end.contiguous(), spend.contiguous(), window_lens.contiguous()
     blocks = torch.zeros((B, max_blocks, 4), dtype=torch.int32, device=end.device)
     counts = torch.empty((B,), dtype=torch.int32, device=end.device)
     if B > 0:
         check(library().sd_block_walk(
-            end.data_ptr(), spend.data_ptr(), window_lens.data_ptr(),
+            end.dtype.itemsize, end.data_ptr(), spend.data_ptr(), window_lens.data_ptr(),
             blocks.data_ptr(), counts.data_ptr(), B, W, M, max_blocks,
             stream_of(end),
         ), "block_walk kernel")

@@ -1,7 +1,7 @@
 """End-to-end decomposition pipeline, ported from stringdecomposer_tpu/pipeline.py.
 
 Stages:
-  1. FASTA load + validation + RC monomer doubling    (stringdecomposer_tpu.io.fasta)
+  1. FASTA load + validation + RC monomer doubling    (io/fasta.py)
   2. halo windowing of every read                      (ops/oracle.make_windows)
   3. with --ed_thr: per-window monomer pre-filter      (ops/hw_filter_cuda.py, K3)
      batched chain DP + block walk on the device       (ops/chain_dp_cuda.py, K1)
@@ -25,17 +25,16 @@ from dataclasses import dataclass, field
 
 import torch
 
-from stringdecomposer_tpu.io.fasta import Record, encode
-from stringdecomposer_tpu.ops.oracle import Block, PostprocessStream, Scoring, make_windows
-from stringdecomposer_tpu.ops.traceback import blocks_from_device
-from stringdecomposer_tpu.utils.stagetimer import stage
-
 from .convert import DeviceState, numpy_state, state_from_numpy
+from .io.fasta import Record, encode
 from .ops.chain_dp import build_window_batch
 from .ops.chain_dp_cuda import chain_dp_forward_cuda
 from .ops.hw_filter import filter_monomers_device
 from .ops.hw_filter_cuda import hw_distance_batch_cuda
 from .ops.identity_cuda import nw_identity_batch_cuda, nw_identity_packed_both
+from .ops.oracle import Block, PostprocessStream, Scoring, make_windows
+from .ops.traceback import blocks_from_device
+from .utils.stagetimer import stage
 
 logger = logging.getLogger("SD-TPU")
 
@@ -232,9 +231,8 @@ def _pump_reads(reads, monomers_dp, cfg, device, forward_fn, hw_fn, state, finis
     as window chunks finalize, finishing groups are submitted as they fill
     and final/alt rows are written as groups complete. Returns the number of
     raw blocks written."""
-    from stringdecomposer_tpu.report import format_raw_rows
-
     from .finishing import write_final_rows
+    from .report import format_raw_rows
 
     n_blocks = 0
     cur_ridx = -1
@@ -304,11 +302,8 @@ def run(
     ed_thr > -1 turns on the per-window monomer pre-filter. forward_fn /
     identity_fn / packed_fn / hw_fn default to the kernel wrappers; passing
     the plain twins runs the plain route on the same device."""
-    from stringdecomposer_tpu.io.fasta import (
-        add_rc_interleaved, add_reverse_complement, load_fasta, validate_acgtn,
-    )
-
     from .finishing import AsyncFinisher, write_final_rows
+    from .io.fasta import add_rc_interleaved, add_reverse_complement, load_fasta, validate_acgtn
 
     dev = resolve_device(device)
     pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)

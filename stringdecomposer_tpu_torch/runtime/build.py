@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles every source into one shared library with a plain C
-interface, keyed by a hash of the sources and flags, under
-stringdecomposer_tpu_torch/build/; ctypes loads it. No PyTorch headers are
-involved, so a build takes seconds. Each C entry point launches on the
-stream it is given and returns cudaGetLastError(); `check` raises on a
-non-zero code.
+nvcc compiles each source into an object, all at once in parallel, and
+links them into one shared library with a plain C interface, keyed by a
+hash of the sources, headers and flags, under stringdecomposer_tpu_torch/build/;
+ctypes loads it. No PyTorch headers are involved, so a build takes seconds.
+Each C entry point launches on the stream it is given and returns
+cudaGetLastError(); `check` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -32,11 +32,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "sd_chain_dp": (_I, [_P, _P, _LL, _P, _LL, _P, _P, _P,
+    "sd_chain_dp": (_I, [_I, _I, _P, _P, _LL, _P, _LL, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "sd_chain_dp_large": (_I, [_P, _P, _LL, _P, _LL, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "sd_block_walk": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "sd_chain_dp_ablate": (_I, [_I, _I, _P, _P, _LL, _P, _LL, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_block_walk": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "sd_int16_probe": (_I, [_P, _P, _I, _I, _P]),
     "sd_hw_distance": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "sd_nw_identity": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "sd_banded_column": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -69,29 +70,43 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / "libsdtorch.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless a build of these exact sources exists.
-    The library is written under a temporary name and renamed into place,
-    so concurrent first uses never load a half-written file."""
+    """Compile the kernels unless a build of these exact sources exists:
+    one nvcc per source, all started together (so the build time stays
+    that of the slowest source as sources are added), then one link. The
+    library is written under a temporary name and renamed into place, so
+    concurrent first uses never load a half-written file."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+        objs = [os.path.join(work, src.stem + ".o") for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for obj, src in zip(objs, _sources())]
+        tmp = os.path.join(work, "lib.so")
+        cmds.append([nvcc, "-shared", "-o", tmp, *objs])
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds[:-1]]
+        log = [" ".join(c) + "\n" + p.communicate()[0] for c, p in zip(cmds, procs)]
+        codes = [p.returncode for p in procs]
+        if not any(codes):
+            link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            log.append(" ".join(cmds[-1]) + "\n" + link.stdout)
+            codes.append(link.returncode)
+        (out.parent / "build.log").write_text("".join(log))
+        if any(codes):
+            failed = [f"({code}) {text[-4000:]}" for text, code in zip(log, codes) if code]
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, out)
     return out
 
 
@@ -110,10 +125,11 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's `launches` counter."""
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to a kernel wrapper's launch counter (`launches`, or the
+    named counter of a wrapper that launches several kernels)."""
     with _lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def check(code: int, what: str) -> None:
