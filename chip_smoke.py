@@ -7,13 +7,16 @@ the reference fixtures, drives the golden CLI run through the kernels and
 a 1.6 Mbp synthetic assembly through both routes, drives the --ed_thr
 pre-filter (K3) and a HOR-scale monomer library (`hor_library`, 264
 monomers with RC, which takes K1's large route unfiltered), drives the
+golden read against DXZ1 dimers (`dimer_set`, L > 256, K1's chunked
+shared-route body; shorter sets take its lanes body), drives the
 general alignment API through K4, K5 and K6 (the reference edlib fixtures,
 a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
 cut sizes against the scan route), checks P (the int16 probe) and K1's
 int16 state on both routes against the int16 twin and the int32 kernel and
 drives that path, checks K1's ablation kernels (A) against their plain
-versions and runs the ablation bench, then times each kernel beside its
-plain version at the main path's shapes and prints each one's bound.
+versions and runs the ablation bench (at a quarter of its positions), then
+times each kernel beside its plain version at the main path's shapes and
+prints each one's bound.
 
 Usage: python3 chip_smoke.py        (needs one CUDA device; exits non-zero
 without one, and prints no result)
@@ -38,7 +41,11 @@ VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")  # ops
 ABLATE = tuple(f"ablate_{'large_' if large else ''}{v}" for large in (False, True) for v in VARIANTS)
 KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "hw_filter",
            "banded_final_column", "banded_myers", "semi_ends", "int16_probe", "chain_dp_int16",
-           "chain_dp_large_int16") + ABLATE
+           "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16") + ABLATE
+# K1's kernel bodies (ops/chain_dp_cuda.body) -> chip_smoke kernel names, by state type
+K1_NAMES = {("lanes", 4): "chain_dp_lanes", ("chunked", 4): "chain_dp",
+            ("large", 4): "chain_dp_large", ("lanes", 2): "chain_dp_lanes_int16",
+            ("chunked", 2): "chain_dp_int16", ("large", 2): "chain_dp_large_int16"}
 # The card's peak rates for the bounds (H100 SXM datasheet, 700 W): HBM at
 # 3.35 TB/s; int32 at 64 INT32 lanes per SM per clock (half the 128 FP32
 # lanes behind the datasheet's 67 TFLOP/s float32, which counts an FMA as 2)
@@ -94,6 +101,17 @@ def hor_library(records, rng):
                     seq.insert(pos, "ACGT"[int(rng.integers(4))])
             out.append(Record(f"{head}_v{v}", "".join(seq)))
     return out
+
+
+def dimer_set(records):
+    """Each monomer joined to the next in file order (the last to the
+    first), named `<first word>+<first word>`: from the 12 DXZ1 monomers, 12
+    dimers of ~340 bp, 24 with RC, padded to L > 256, which K1 runs on its
+    chunked shared-route body."""
+    from stringdecomposer_tpu_torch.io.fasta import Record
+
+    return [Record(f"{a.name.split()[0]}+{b.name.split()[0]}", a.seq + b.seq)
+            for a, b in zip(records, records[1:] + records[:1])]
 
 
 def synthesize(n_bp: int, monomers, rng) -> str:
@@ -275,6 +293,7 @@ def main() -> int:
         block_walk_cuda, chain_dp_ablate_cuda, chain_dp_forward_cuda, chain_dp_large_cuda,
         int16_probe_cuda, int16_probe_plain, int16_state_supported, route,
     )
+    from stringdecomposer_tpu_torch.ops.chain_dp_cuda import body as k1_body
     from stringdecomposer_tpu_torch.ops.hw_filter_cuda import hw_distance_batch_cuda
     from stringdecomposer_tpu_torch.ops.identity_cuda import (
         nw_identity_batch_cuda, nw_identity_packed_both,
@@ -300,7 +319,9 @@ def main() -> int:
                 "semi_ends": (semi_ends_cuda, "launches"),
                 "int16_probe": (int16_probe_cuda, "launches"),
                 "chain_dp_int16": (chain_dp_forward_cuda, "launches_int16"),
-                "chain_dp_large_int16": (chain_dp_large_cuda, "launches_int16")}
+                "chain_dp_large_int16": (chain_dp_large_cuda, "launches_int16"),
+                "chain_dp_lanes": (chain_dp_forward_cuda, "launches_lanes"),
+                "chain_dp_lanes_int16": (chain_dp_forward_cuda, "launches_lanes_int16")}
     counters.update({f"ablate_{'large_' if large else ''}{v}":
                      (chain_dp_ablate_cuda, k1.ablate_counter(v, large))
                      for large in (False, True) for v in VARIANTS})
@@ -316,6 +337,10 @@ def main() -> int:
     library = hor_library(load_fasta(dxz1), np.random.default_rng(0))
     library_fa = os.path.join(work.name, "hor_library.fa")
     write_fasta(library_fa, library)
+    dimers = dimer_set(load_fasta(dxz1))
+    dimers_fa = os.path.join(work.name, "dxz1_dimers.fa")
+    write_fasta(dimers_fa, dimers)
+    dimer_L = (max(len(r.seq) for r in dimers) + 7) // 8 * 8
     cache: dict[str, object] = {}
 
     def assembly_fa() -> str:
@@ -388,7 +413,7 @@ def main() -> int:
         output, the debug arrays too) and against the int32 kernel (blocks,
         counts, and end / spend on the rows of nonzero length)."""
         M, L = args[2].shape[-2], args[2].shape[-1]
-        shared16 = "chain_dp_int16" if route(M, L, 2) == "shared" else "chain_dp_large_int16"
+        shared16 = K1_NAMES[k1_body(M, L, 2), 2]
         b32, c32, (_, e32, s32) = chain_dp_forward_cuda(*args, **kw)
         want = k1_plain.chain_dp_forward(*args, state_dtype="int16", **kw)
         real = torch.from_numpy(lens_np > 0).to(dev)
@@ -410,12 +435,14 @@ def main() -> int:
         return got
 
     def k1_case(windows_np, wlens_np, mono_np, lens_np, sc, what, max_blocks=0,
-                fn=chain_dp_forward_cuda, kernel="chain_dp", want=None, int16=False):
-        """One K1 route (`fn`, whose errors count under `kernel`) against
-        the plain twin, or against `want` when given (another route's
-        outputs on the same inputs). Returns the kernel's outputs. With
-        int16, both routes' int16 state instead (k1_int16_case)."""
+                fn=chain_dp_forward_cuda, kernel=None, want=None, int16=False):
+        """One K1 route (`fn`, whose errors count under `kernel`, by default
+        the body chain_dp_forward_cuda takes) against the plain twin, or
+        against `want` when given (another route's outputs on the same
+        inputs). Returns the kernel's outputs. With int16, both routes'
+        int16 state instead (k1_int16_case)."""
         args = [torch.from_numpy(a).to(dev) for a in (windows_np, wlens_np, mono_np, lens_np)]
+        kernel = kernel or K1_NAMES[k1_body(*mono_np.shape[-2:]), 4]
         kw = dict(ins=sc[0], dele=sc[1], mismatch=sc[2], match=sc[3],
                   max_blocks=max_blocks, return_debug=True)
         if int16:
@@ -467,8 +494,9 @@ def main() -> int:
         alpha = np.array(list("ACGT"))
 
         def rand_monos(M2, lo, hi):
-            return [Record(f"m{j}", "".join(rng.choice(alpha, int(rng.integers(lo, hi)))))
-                    for j in range(M2)]
+            """M2 random monomers of lengths in [lo, hi), the first of hi - 1."""
+            return [Record(f"m{j}", "".join(rng.choice(
+                alpha, hi - 1 if j == 0 else int(rng.integers(lo, hi))))) for j in range(M2)]
 
         def rand_windows(fwd, B, W):
             wins = []
@@ -480,14 +508,29 @@ def main() -> int:
                 wins.append(encode("".join(arr)))
             return k1_plain.build_window_batch(wins, W)
 
-        shapes = [("golden-like M=24 L=192", 12, 150, 187, 6, 1200),
-                  ("M=128 L=40 W=96", 64, 20, 40, 4, 96),
-                  ("M=128 L=192", 64, 150, 190, 3, 600)]
+        # (what, forward monomers, lengths [lo, hi), rows kept, B, W): the
+        # lanes body at one row a warp (M <= 32) and several (M >= 33, with L
+        # a multiple of 32 or not), at C = 1 (L = 8) and C = 8 (L = 256), up
+        # to the int32 shared limit (M = 133 at L = 192); the chunked body at
+        # L = 320
+        shapes = [("golden-like M=24 L=192", 12, 150, 188, 24, 6, 1200),
+                  ("M=128 L=40 W=96", 64, 20, 41, 128, 4, 96),
+                  ("M=128 L=192", 64, 150, 190, 128, 3, 600),
+                  ("M=32 L=192", 16, 150, 190, 32, 3, 600),
+                  ("M=33 L=192", 17, 150, 190, 33, 3, 600),
+                  ("M=24 L=256", 12, 200, 257, 24, 3, 1000),
+                  ("M=24 L=8", 12, 3, 9, 24, 3, 300),
+                  ("M=133 L=192", 67, 150, 190, 133, 2, 600),
+                  ("M=40 L=176", 20, 150, 177, 40, 3, 600),
+                  ("M=20 L=320 (chunked body)", 10, 280, 321, 20, 3, 1300)]
+        # the shapes on which the large route is also held to the shared one
+        shapes_vs_large = [what for what, *_ in shapes[:3]]
         if int16:  # shared route in int16, large route in int32
-            shapes.append(("M=200 L=192", 100, 150, 190, 3, 400))
-        for what, nf, lo, hi, B, W in shapes:
+            shapes.append(("M=200 L=192", 100, 150, 190, 200, 3, 400))
+        for what, nf, lo, hi, rows, B, W in shapes:
             fwd = rand_monos(nf, lo, hi)
             _, (mono, lens) = mono_set(fwd)
+            mono, lens = mono[:rows], lens[:rows]
             wb, wl = rand_windows(fwd, B, W)
             k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), what, int16=int16)
             # per-window [B, M, L] form: a different monomer order per
@@ -495,6 +538,8 @@ def main() -> int:
             perm = np.stack([rng.permutation(len(lens)) for _ in range(B)])
             mono_w, lens_w = mono[perm], lens[perm].copy()
             lens_w[:, -2:] = 0
+            if int(lens.max()) != hi - 1 or mono.shape[0] != rows:
+                raise AssertionError(f"{what}: mono {mono.shape}, longest {int(lens.max())}")
             k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), what + " per-window", int16=int16)
             counts = k1_case(wb, wl, mono, lens, (-1, -2, -1, 1), what + " max_blocks=1",
                              max_blocks=1, int16=int16)[1]
@@ -502,14 +547,17 @@ def main() -> int:
                 raise AssertionError(f"{what}: the overflow case did not overflow")
             if int16:
                 continue
+            if what not in shapes_vs_large:
+                continue
             # the large route on a set that fits, against the shared route
             for mw, lw, sc in ((mono, lens, (-1, -1, -1, 1)), (mono_w, lens_w, (-2, -1, -1, 2))):
                 shared = k1_case(wb, wl, mw, lw, sc, what + " shared route")
                 k1_case(wb, wl, mw, lw, sc, what + " large route vs shared", fn=chain_dp_large_cuda,
                         kernel="chain_dp_large", want=shared)
-        print(f"K1 {mode}: random shapes (shared and per-window monomers, M=128, max_blocks=1 "
-              "overflow) bit-equal to the plain twin; the large route bit-equal to the "
-              "shared route on each")
+        print(f"K1 {mode}: random shapes (shared and per-window monomers; M = 24, 32, 33, 128, "
+              "133 at L = 192, L = 8, 40, 176, 256 on the lanes body, L = 320 on the chunked body; "
+              "max_blocks=1 overflow) bit-equal to the plain twin; the large route bit-equal to "
+              "the shared route on each")
         # the HOR-scale library: M = 264 at L = 192 takes the large route
         monos, (mono, lens) = mono_set(library)
         if mono.shape != (264, 192) or route(*mono.shape) != "large":
@@ -589,49 +637,76 @@ def main() -> int:
     golden = {}
 
     def golden_run():
-        counters = (chain_dp_forward_cuda, block_walk_cuda, nw_identity_batch_cuda)
         with tempfile.TemporaryDirectory() as out:
-            for c in counters:
-                c.launches = 0
-            t0 = time.perf_counter()
-            rc = cli.main([os.path.join(DATA, "read.fa"), os.path.join(DATA, "DXZ1_star_monomers.fa"),
-                           "-o", out, "--second-best"])
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            launches.update(chain_dp=chain_dp_forward_cuda.launches,
-                            block_walk=block_walk_cuda.launches,
-                            nw_identity=nw_identity_batch_cuda.launches)
-            if rc != 0:
-                raise AssertionError(f"CLI exit code {rc}")
-            for got, want in (("final_decomposition_raw.tsv", "raw_decomposition_oracle.tsv"),
-                              ("final_decomposition.tsv", "final_decomposition_fc89af8.tsv")):
-                with open(os.path.join(out, got), "rb") as f1, open(os.path.join(DATA, want), "rb") as f2:
+            res = {}
+
+            def cli_run():
+                t0 = time.perf_counter()
+                res["rc"] = cli.main([read_fa, dxz1, "-o", out, "--second-best"])
+                torch.cuda.synchronize()
+                res["dt"] = time.perf_counter() - t0
+
+            got = drive("golden CLI --second-best (kernel route)", cli_run)
+            dt = res["dt"]
+            if res["rc"] != 0:
+                raise AssertionError(f"CLI exit code {res['rc']}")
+            need = ("chain_dp_lanes", "block_walk", "nw_identity")
+            bad = [k for k in need if got[k] <= 0]
+            if bad:
+                raise AssertionError(f"a kernel of the path was not launched: {bad}")
+            launches.update({k: got[k] for k in need})
+            for got_f, want in (("final_decomposition_raw.tsv", "raw_decomposition_oracle.tsv"),
+                                ("final_decomposition.tsv", "final_decomposition_fc89af8.tsv")):
+                with open(os.path.join(out, got_f), "rb") as f1, open(os.path.join(DATA, want), "rb") as f2:
                     if f1.read() != f2.read():
-                        raise AssertionError(f"{got} differs from {want}")
+                        raise AssertionError(f"{got_f} differs from {want}")
             with open(os.path.join(out, "stringdecomposer.log")) as f:
                 if "Thank you for using StringDecomposer!" not in f.read():
                     raise AssertionError("log sentinel missing")
-            with open(os.path.join(out, "final_decomposition_raw.tsv")) as f:
-                n_rows = sum(1 for _ in f)
+            rows = n_rows(out)
             # the same run with four finishing threads sharing the card
             out4 = os.path.join(out, "t4")
-            rc = cli.main([os.path.join(DATA, "read.fa"), os.path.join(DATA, "DXZ1_star_monomers.fa"),
-                           "-o", out4, "--second-best", "-t", "4"])
+            rc = cli.main([read_fa, dxz1, "-o", out4, "--second-best", "-t", "4"])
             if rc != 0:
                 raise AssertionError(f"CLI -t 4 exit code {rc}")
-            for name in ("final_decomposition_raw.tsv", "final_decomposition.tsv",
-                         "final_decomposition_alt.tsv"):
-                with open(os.path.join(out, name), "rb") as f1, open(os.path.join(out4, name), "rb") as f2:
-                    if f1.read() != f2.read():
-                        raise AssertionError(f"-t 4: {name} differs from the -t 1 run")
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"a kernel of the path was not launched: {launches}")
-        golden.update(seconds=dt, rows=n_rows)
+            same_files(out, out4, "-t 4 against the -t 1 run")
+        golden.update(seconds=dt, rows=rows)
+        path = {k: launches[k] for k in need}
         print(f"golden: raw TSV == raw_decomposition_oracle.tsv, final TSV == "
-              f"final_decomposition_fc89af8.tsv (byte for byte); launches {launches}; "
-              f"-t 4 run gives the same three TSVs")
-        print(f"golden: e2e {dt:.3f} s, {n_rows} assignments, {n_rows / dt:.1f} raw assignments/s "
+              f"final_decomposition_fc89af8.tsv (byte for byte); launches {path}; -t 4 run "
+              "gives the same three TSVs")
+        print(f"golden: e2e {dt:.3f} s, {rows} assignments, {rows / dt:.1f} raw assignments/s "
               f"(first run in this process, kernels already built)")
+
+    def dimers_run():
+        """The golden read against the DXZ1 dimers (L > 256): K1's chunked
+        shared-route body on the main path, kernel route against plain."""
+        out = work.name
+        secs = {}
+
+        def cli_run():
+            t0 = time.perf_counter()
+            rc = cli.main([read_fa, dimers_fa, "-o", os.path.join(out, "dimers_kernel"),
+                           "--second-best"])
+            secs["kernel"] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"CLI golden x dimers exit code {rc}")
+
+        got = drive("golden x DXZ1 dimers (CLI, kernel route)", cli_run)
+        need = ("chain_dp", "block_walk", "nw_identity")
+        bad = [k for k in need if got[k] <= 0]
+        if bad or got["chain_dp_lanes"]:
+            raise AssertionError(f"golden x dimers: launches {got}")
+        launches["chain_dp"] = got["chain_dp"]
+        t0 = time.perf_counter()
+        pipeline.run(read_fa, dimers_fa, out_dir=os.path.join(out, "dimers_plain"),
+                     second_best=True, device="cuda", **plain_route)
+        torch.cuda.synchronize()
+        same_files(os.path.join(out, "dimers_kernel"), os.path.join(out, "dimers_plain"),
+                   "golden x dimers")
+        print(f"golden x DXZ1 dimers (M=24, L={dimer_L}): three TSVs equal between routes; "
+              f"{n_rows(os.path.join(out, 'dimers_kernel'))} assignments; kernel route "
+              f"{secs['kernel']:.3f} s, plain route {time.perf_counter() - t0:.3f} s")
 
     def scale_run():
         monomers_fwd = load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"))
@@ -755,7 +830,8 @@ def main() -> int:
                 raise AssertionError(f"CLI --ed_thr 10 exit code {rc}")
 
         got = drive("run (i) golden x DXZ1 --ed_thr 10 (CLI, kernel route)", cli_run)
-        bad = [k for k in ("hw_filter", "chain_dp", "block_walk", "nw_identity") if got[k] <= 0]
+        bad = [k for k in ("hw_filter", "chain_dp_lanes", "block_walk", "nw_identity")
+               if got[k] <= 0]
         if bad:
             raise AssertionError(f"run (i): kernels of the path not launched: {bad}")
         launches["hw_filter"] = got["hw_filter"]
@@ -794,7 +870,7 @@ def main() -> int:
                 secs["e2e"] = time.perf_counter() - t0
 
             got = drive(f"run (iii) 1.6 Mbp x library --ed_thr {ed}", run_iii)
-            path = ("hw_filter", "chain_dp") if ed >= 0 else ("chain_dp_large",)
+            path = ("hw_filter", "chain_dp_lanes") if ed >= 0 else ("chain_dp_large",)
             bad = [k for k in path + ("block_walk", "nw_identity") if got[k] <= 0]
             if bad:
                 raise AssertionError(f"run (iii) ed_thr {ed}: kernels of the path not launched: {bad}")
@@ -847,18 +923,20 @@ def main() -> int:
               "int16_state_supported('cuda') is True")
 
     def int16_shapes():
-        """The three timed shapes: the golden windows x DXZ1 (M = 24), x the
+        """The four timed shapes: the golden windows x DXZ1 (M = 24), x the
         264-monomer library, x its first 200 rows (int16: shared route,
-        int32: large route)."""
+        int32: large route), x the DXZ1 dimers (L > 256: the chunked body)."""
         reads = load_fasta(read_fa)
         codes = encode(reads[0].seq)
         wins = [codes[o : o + n] for o, n in make_windows(len(codes), 5000, 500)]
         wb, wl = k1_plain.build_window_batch(wins, 5500)
         _, (m24, l24) = mono_set(load_fasta(dxz1))
         _, (mlib, llib) = mono_set(library)
+        _, (mdim, ldim) = mono_set(dimers)
         return [("golden x DXZ1 M=24", wb, wl, m24, l24),
                 ("golden x library M=264", wb, wl, mlib, llib),
-                ("golden x library[:200] M=200", wb, wl, mlib[:200], llib[:200])]
+                ("golden x library[:200] M=200", wb, wl, mlib[:200], llib[:200]),
+                (f"golden x DXZ1 dimers M=24 L={dimer_L}", wb, wl, mdim, ldim)]
 
     def k1_int16_run():
         k1_checks(int16=True)
@@ -872,16 +950,17 @@ def main() -> int:
                 chain_dp_forward_cuda(*args, max_blocks=cap, state_dtype="int16")
 
         got = drive("int16 K1 path: golden windows x DXZ1, x library, x library[:200], "
-                    "state_dtype='int16'", path)
-        need = ("int16_probe", "chain_dp_int16", "chain_dp_large_int16", "block_walk")
+                    "x DXZ1 dimers, state_dtype='int16'", path)
+        need = ("int16_probe", "chain_dp_lanes_int16", "chain_dp_int16", "chain_dp_large_int16",
+                "block_walk")
         bad = [k for k in need if got[k] <= 0]
         if bad:
             raise AssertionError(f"int16 K1 path: kernels not launched: {bad}")
-        launches.update({k: got[k] for k in need[:3]})
+        launches.update({k: got[k] for k in need[:4]})
         for what, wb, wl, mono, lens in shapes:
             args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
             M, L = mono.shape
-            name = "chain_dp_int16" if route(M, L, 2) == "shared" else "chain_dp_large_int16"
+            name = K1_NAMES[k1_body(M, L, 2), 2]
             b32, c32, (_, e32, s32) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
             b16, c16, (_, e16, s16) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True,
                                                             state_dtype="int16")
@@ -901,11 +980,11 @@ def main() -> int:
             blocks_out = args[0].shape[0] * (cap * 16 + 4)
             bd16 = k1_bound(args[0], args[2], args[3], 2, blocks_out=blocks_out)
             bd32 = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
-            if what.startswith("golden x DXZ1") or what.startswith("golden x library M"):
+            if not what.startswith("golden x library[:200]"):
                 timing[name] = (statistics.median(k16), statistics.median(p16))
                 bounds[name] = bd16
-            print(f"K1 + walk, {what} ({len(wb)} windows x 5500, L={L}; int16 route "
-                  f"{route(M, L, 2)}, int32 route {route(M, L, 4)}): int32 kernel {spread(k32)} "
+            print(f"K1 + walk, {what} ({len(wb)} windows x 5500, L={L}; int16 body "
+                  f"{k1_body(M, L, 2)}, int32 body {k1_body(M, L, 4)}): int32 kernel {spread(k32)} "
                   f"(bound {bd32[0]:.3f} ms, {bd32[1]}); int16 kernel {spread(k16)} (bound "
                   f"{bd16[0]:.3f} ms, {bd16[1]}); int16 plain {spread(p16)}")
 
@@ -920,13 +999,16 @@ def main() -> int:
         print(f"ablation: every variant bit-equal to its plain version on both routes at "
               f"B=5 x W=300, M=40 (max abs errors {err})")
         res = {}
-        got = drive("ablation bench (python -m stringdecomposer_tpu_torch.scripts.ablate_chain)",
-                    lambda: res.update(ab.bench(list(VARIANTS), reps=3)))
+        # the bench's shapes at a quarter of their positions, for the time
+        # limit; the bench alone runs them whole
+        shapes = tuple((n, B, W // 4, M, large) for n, B, W, M, large in ab.SHAPES)
+        got = drive("ablation bench (python -m stringdecomposer_tpu_torch.scripts.ablate_chain, "
+                    "W / 4)", lambda: res.update(ab.bench(list(VARIANTS), reps=3, shapes=shapes)))
         bad = [k for k in ABLATE if got[k] <= 0]
         if bad:
             raise AssertionError(f"ablation bench: kernels not launched: {bad}")
         launches.update({k: got[k] for k in ABLATE})
-        for shape, B, W, M, large in ab.SHAPES:
+        for shape, B, W, M, large in shapes:
             inputs = ab.make_inputs(B, W, M, 0, dev)
             for v in VARIANTS:
                 name = f"ablate_{'large_' if large else ''}{v}"
@@ -949,19 +1031,46 @@ def main() -> int:
         wb, wl = k1_plain.build_window_batch(wins, 5500)
         args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
         cap = 5500 // 8
-        k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 5)
-        p, want = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap), 3)
-        smoke.same("chain_dp", "golden shape blocks", got[0], want[0])
-        smoke.same("chain_dp", "golden shape counts", got[1], want[1])
-        timing["chain_dp"] = (statistics.median(k), statistics.median(p))
         blocks_out = len(wins) * (cap * 16 + 4)
-        bounds["chain_dp"] = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
-        print(f"K1 chain_dp + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, L={mono.shape[1]}: "
-              f"kernel {spread(k)}; plain {spread(p)}; bound {bounds['chain_dp'][0]:.3f} ms "
-              f"({bounds['chain_dp'][1]})")
+        k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 10)
+        p, want = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap), 0)
+        smoke.same("chain_dp_lanes", "golden shape blocks", got[0], want[0])
+        smoke.same("chain_dp_lanes", "golden shape counts", got[1], want[1])
+        timing["chain_dp_lanes"] = (statistics.median(k), statistics.median(p))
+        bd = bounds["chain_dp_lanes"] = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
+        print(f"K1 lanes body + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, "
+              f"L={mono.shape[1]}: kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
+              f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
+        # several rows a warp: the library's first 64 and 128 rows (L = 192),
+        # held to the large route on the same inputs
+        _, (mlib, llib) = mono_set(library)
+        for M in (64, 128):
+            a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mlib[:M], llib[:M])]
+            if k1_body(M, mlib.shape[1]) != "lanes":
+                raise AssertionError(f"M={M}: body {k1_body(M, mlib.shape[1])}")
+            k, got = timed(lambda: chain_dp_forward_cuda(*a, max_blocks=cap), 5)
+            want = chain_dp_large_cuda(*a, max_blocks=cap)
+            smoke.same("chain_dp_lanes", f"M={M} blocks vs the large route", got[0], want[0])
+            smoke.same("chain_dp_lanes", f"M={M} counts vs the large route", got[1], want[1])
+            bd = k1_bound(a[0], a[2], a[3], 4, blocks_out=blocks_out)
+            print(f"K1 lanes body + walk, {len(wins)} windows x 5500, M={M}, L={mlib.shape[1]}: "
+                  f"kernel {spread(k)}; bound {bd[0]:.3f} ms ({bd[1]}), "
+                  f"{100 * bd[0] / statistics.median(k):.2f} % of it")
+        # the chunked body at L > 256: the golden windows x the DXZ1 dimers
+        _, (mdim, ldim) = mono_set(dimers)
+        a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mdim, ldim)]
+        k, got = timed(lambda: chain_dp_forward_cuda(*a, max_blocks=cap), 5)
+        p, want = timed(lambda: k1_plain.chain_dp_forward(*a, max_blocks=cap), 0)
+        smoke.same("chain_dp", "golden windows x dimers blocks", got[0], want[0])
+        smoke.same("chain_dp", "golden windows x dimers counts", got[1], want[1])
+        timing["chain_dp"] = (statistics.median(k), statistics.median(p))
+        bd = bounds["chain_dp"] = k1_bound(a[0], a[2], a[3], 4, blocks_out=blocks_out)
+        print(f"K1 chunked body + walk, {len(wins)} windows x 5500, M={mdim.shape[0]}, "
+              f"L={mdim.shape[1]}: kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
+              f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
         _, _, (_, end, spend) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
         k, got = timed(lambda: block_walk_cuda(end, spend, args[1], cap), 10)
-        p, want = timed(lambda: k1_plain.block_walk(end, spend, args[1], cap), 3)
+        p, want = timed(lambda: k1_plain.block_walk(end, spend, args[1], cap), 0)
         smoke.same("block_walk", "golden shape blocks", got[0], want[0])
         smoke.same("block_walk", "golden shape counts", got[1], want[1])
         timing["block_walk"] = (statistics.median(k), statistics.median(p))
@@ -987,7 +1096,7 @@ def main() -> int:
                  st.t_raw, st.tl_raw, st.t_homo, st.tl_homo)
         kw = dict(n_pad=len(starts), Lq=int(blens.max()))
         k, got = timed(lambda: nw_identity_packed_both(*pargs, **kw), 5)
-        p, want = timed(lambda: k2_plain.nw_identity_packed_both_plain(*pargs, **kw), 3)
+        p, want = timed(lambda: k2_plain.nw_identity_packed_both_plain(*pargs, **kw), 0)
         smoke.same("nw_identity", "golden shape packed_both", got, want)
         timing["nw_identity"] = (statistics.median(k), statistics.median(p))
         # cells: every block against every monomer, raw and homopolymer-compressed
@@ -1002,7 +1111,7 @@ def main() -> int:
         _, (mono, lens) = mono_set(library)
         args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
         k, got = timed(lambda: hw_distance_batch_cuda(*args), 5)
-        p, want = timed(lambda: k3_plain.hw_distance_batch(*args), 1)
+        p, want = timed(lambda: k3_plain.hw_distance_batch(*args), 0)
         smoke.same("hw_filter", "golden windows x library", got, want)
         timing["hw_filter"] = (statistics.median(k), statistics.median(p))
         cells = int(args[1].sum()) * int(args[3].sum())
@@ -1011,7 +1120,7 @@ def main() -> int:
         print(f"K3 hw_distance, {len(wins)} windows x 5500 x M={mono.shape[0]}, L={mono.shape[1]}: "
               f"kernel {spread(k)}; plain {spread(p)}")
         k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 3)
-        p, want = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap), 1)
+        p, want = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap), 0)
         smoke.same("chain_dp_large", "golden windows x library blocks", got[0], want[0])
         smoke.same("chain_dp_large", "golden windows x library counts", got[1], want[1])
         timing["chain_dp_large"] = (statistics.median(k), statistics.median(p))
@@ -1275,7 +1384,7 @@ def main() -> int:
 
         for name, what, args, kw, kern, plain in cases:
             k, got = timed(lambda: kern(*args, **kw), 5)
-            p, want = timed(lambda: plain(*args, **kw), 1)
+            p, want = timed(lambda: plain(*args, **kw), 0)
             smoke.same(name, what, got, want)
             timing[name] = (statistics.median(k), statistics.median(p))
             q_len, t_len = int(args[1][0]), int(args[3][0])
@@ -1316,6 +1425,7 @@ def main() -> int:
     smoke.phase("k1", k1_checks)
     smoke.phase("k2", k2_checks)
     smoke.phase("golden", golden_run)
+    smoke.phase("dimers", dimers_run)
     smoke.phase("scale", scale_run)
     smoke.phase("k3", k3_checks)
     smoke.phase("ed_thr", ed_thr_run)
@@ -1346,6 +1456,8 @@ def main() -> int:
              ("chain_dp_int16", src + "chain_dp.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
              ("chain_dp_large_int16", src + "chain_dp.cuh",
               "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")]
+    meta += [(n, src + "chain_dp_lanes.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
+             for n in ("chain_dp_lanes", "chain_dp_lanes_int16")]
     meta += [(n, src + ("chain_dp.cuh" if n.endswith("_base") else "chain_dp_ablate.cu"),
               "scripts/ablate_chain.py:31") for n in ABLATE]
     print(json.dumps({"kernels": [

@@ -56,8 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (the hand-written kernels; default) or cpu "
                    "(the plain PyTorch twins)")
     unported = p.add_argument_group(f"flags of stringdecomposer_tpu {NOT_PORTED}")
-    for flag in ("--stream-reads", "--num-hosts"):
-        unported.add_argument(flag, type=int, default=0 if flag == "--stream-reads" else 1)
+    for flag, default in (("--stream-reads", 0), ("--num-hosts", 1), ("--host-id", 0),
+                          ("--num-processes", None)):
+        unported.add_argument(flag, type=int, default=default)
     for flag in ("--profile-dir", "--coordinator", "--precompile"):
         unported.add_argument(flag, default=None)
     for flag in ("--resume", "--serve", "--data-parallel"):
@@ -72,6 +73,8 @@ def _unported_flags(args) -> list[str]:
         ("--resume", args.resume), ("--data-parallel", args.data_parallel),
         ("--profile-dir", args.profile_dir is not None),
         ("--coordinator", args.coordinator is not None), ("--num-hosts", args.num_hosts > 1),
+        ("--host-id", args.host_id != 0),
+        ("--num-processes", args.num_processes not in (None, 1)),
     ]
     return [flag for flag, used in checks if used]
 

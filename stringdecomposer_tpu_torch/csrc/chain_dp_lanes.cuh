@@ -1,0 +1,348 @@
+// K1's shared route for monomer sets padded to L <= 256: the lanes body.
+//
+// Replaces stringdecomposer_tpu/ops/chain_dp_pallas.py::_dp_kernel, as the
+// chunked body in chain_dp.cuh does, with the same recurrence, tie rules,
+// inputs and outputs (end and spend [B, W, M] in the state type T):
+//   cand = max(enter = chain(i-1) + mm + k*del, diag + mm, ins)
+//   dp[k] = k*del + prefix-max_k(cand - k*del), the earliest k winning a tie,
+//   sp[k] the payload of that k: ins (unguarded at k == 0), diag, enter.
+// ops/chain_dp.sweep_lanes is its plain mirror, step for step.
+//
+// What bounds it on the H100: the read position is a strict sequential axis
+// (the chain score at i is the max over every row's end cell at i-1), so the
+// time is that of one position times W, and one position is a little work
+// (M*L cells) spread over the warps of one block, on one SM. The chunked
+// body walks a row in 32-cell chunks, each a dependent chain of ~21 warp
+// shuffles (shift, a score scan, a pair scan, carries), with two barriers per
+// position. This body cuts the chain and the instructions per cell, so that
+// what is left is the rate at which one SM runs integer instructions (~14 a
+// cell and ~70 a row, a position, for every warp of the window):
+//   - Lane l owns the C = ceil(L / 32) cells l*C .. l*C + C - 1 of a row. It
+//     computes each cell's candidate and payload in registers, then a
+//     sequential pair prefix over its C cells. The diag neighbour of its
+//     first cell is lane l-1's last: one shuffle for the score and one for
+//     the pointer per row.
+//   - One pair scan (5 steps) over the 32 lane totals, shifted to an
+//     exclusive prefix; a cell keeps its in-lane prefix only where it is
+//     strictly greater, so ties keep the earlier lanes. The payload is taken
+//     from the candidate before the fold, as in the Pallas kernel: under a
+//     full prefix max the scan carries the payload only of an earliest
+//     argmax k', where the folded prefix equals cand(k') - k'*del, so this is
+//     the pointer the chunked body derives after the fold.
+//   - The row is kept folded, q[k] = dp[k] - k*del, so that no cell adds or
+//     removes k*del: enter - k*del = chain + mm, diag - k*del = q[k-1] + mm -
+//     del, ins - k*del = q[k] + ins, and only the end cell is unfolded when
+//     it is emitted.
+//   - The end scores are double-buffered by position parity in shared
+//     memory: at position i every warp reads ends[(i-1) & 1] for the chain
+//     max and writes ends[i & 1]; one barrier per position orders the next
+//     read and the next overwrite.
+//   - M <= 32 (kOneRow): one warp a row, whose scores, pointers and monomer
+//     codes (four to a register) stay in registers for all W positions.
+//     More rows than warps (kRowsDense, kRows): each row lives in shared
+//     memory, L cells of it, and is loaded into registers for its update and
+//     stored back; each warp keeps its rows' lengths in a register. The F =
+//     L / C full lanes keep their cell c at c*F + lane, so that for each c a
+//     warp touches consecutive elements (no bank conflicts), and the partial
+//     lane F keeps its cells at F*C + c; where L == 32*C (kRowsDense) every
+//     lane is full and the offsets c*32 are known at compile time. The shared
+//     memory is chain_dp_smem_bytes(M, L, sizeof(T)), as for the chunked
+//     body: the parity buffers take the place of its lengths array.
+// Arithmetic is int32 in registers; T is used where values are stored (the
+// multi-row column, end and spend), as in the chunked body. The folded
+// scores fit T: the int16 range checks bound (W + L) * max|score| below
+// 2^13, so |q| < 2^14.
+
+#pragma once
+
+#include <limits.h>
+
+#include "chain_dp.cuh"
+
+namespace {
+
+constexpr int kLanesMaxC = 8;  // 32 lanes x 8 cells: L <= 256
+
+// One row at one read position, in place on the lane's registers: q and s
+// hold the row's folded scores and pointers at i-1 on entry and at i on
+// return; is_match(c) says whether cell c's monomer code equals the read's.
+// The lane that owns the end cell n-1 writes the row's end score and
+// pointer (ends_i[m], end_i[m], spend_i[m]).
+template <typename T, int C, class Match>
+__device__ __forceinline__ void lanes_row(int (&q)[C], int (&s)[C], Match is_match, int lane,
+                                          int n, int i, int chain, int ins, int dele,
+                                          int mismatch, int match, int* ends_i, T* end_i,
+                                          T* spend_i, int m) {
+  constexpr int kNeg = StateNeg<T>::value;
+  const int enter_y = chain + match, enter_n = chain + mismatch;  // enter - k*del
+  const int diag_y = match - dele, diag_n = mismatch - dele;      // diag - k*del - q[k-1]
+  // the diag neighbour of the lane's first cell: lane l-1's last cell at i-1
+  int up_q = __shfl_up_sync(kFull, q[C - 1], 1);
+  int up_s = __shfl_up_sync(kFull, s[C - 1], 1);
+  if (lane == 0) up_s = 0;  // k == 0: diag is kNeg, its pointer 0
+  int run_t = 0, run_c = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const bool first = c == 0 && lane == 0;  // k == 0
+    const bool y = is_match(c);
+    const int enter = y ? enter_y : enter_n;
+    const int diag = first ? kNeg : up_q + (y ? diag_y : diag_n);
+    const int ins_u = q[c] + ins;  // unguarded: the payload's ins check at k == 0
+    const int t = max(enter, max(diag, first ? kNeg : ins_u));
+    const int cs = t == ins_u ? s[c] : (t == diag ? up_s : i);
+    up_q = q[c];
+    up_s = s[c];
+    if (c == 0 || t > run_t) {  // in-lane pair prefix: a later cell wins only when greater
+      run_t = t;
+      run_c = cs;
+    }
+    q[c] = run_t;
+    s[c] = run_c;
+  }
+  // inclusive pair scan over the 32 lane totals, then shifted to exclusive
+  int tt = run_t, tc = run_c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int ut = __shfl_up_sync(kFull, tt, o);
+    const int uc = __shfl_up_sync(kFull, tc, o);
+    if (lane >= o && !(tt > ut)) {
+      tt = ut;
+      tc = uc;
+    }
+  }
+  int et = __shfl_up_sync(kFull, tt, 1);
+  const int ec = __shfl_up_sync(kFull, tc, 1);
+  if (lane == 0) et = INT_MIN;  // no earlier lane: every cell keeps its own prefix
+  const int le = (n - 1) / C, ce = n - 1 - le * C;  // the end cell's lane and cell
+  int qe = 0, se = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (!(q[c] > et)) {  // ties keep the earlier lanes
+      q[c] = et;
+      s[c] = ec;
+    }
+    if (c == 0 || c == ce) {
+      qe = q[c];
+      se = s[c];
+    }
+  }
+  if (lane == le) {
+    const int e = qe + (n - 1) * dele;
+    ends_i[m] = e;
+    end_i[m] = (T)e;
+    spend_i[m] = (T)se;
+  }
+}
+
+// The kernel's three forms (see the top of this file).
+enum LanesPath : int { kOneRow = 0, kRowsDense = 1, kRows = 2 };
+
+// Threads of one block: one warp a row for M <= 32 (up to 1024); for more
+// rows 32 warps, or 16 where a row in registers needs more than the 64
+// registers a thread of 1024 can have (C >= 7, and C = 6 with offsets
+// computed at run time). The bound's 1 (one block an SM) keeps ptxas from
+// spilling to fit two blocks an SM.
+template <int C, int kPath>
+constexpr int lanes_max_threads() {
+  return kPath == kOneRow || C <= 5 || (C == 6 && kPath == kRowsDense) ? 1024 : 512;
+}
+
+template <typename T, int C, int kPath>
+__global__ void __launch_bounds__(lanes_max_threads<C, kPath>(), 1)
+chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
+                      int W,
+                      const int8_t* __restrict__ mono,  // [M, L] or [B, M, L]
+                      long long mono_bstride,
+                      const int* __restrict__ mono_lens,  // [M] or [B, M]
+                      long long lens_bstride,
+                      const T* __restrict__ dp0,  // [B, M, L] column i = 0
+                      T* __restrict__ end,        // [B, W, M]
+                      T* __restrict__ spend,      // [B, W, M]
+                      int M, int L, int ins, int dele, int mismatch, int match) {
+  constexpr int kNeg = StateNeg<T>::value;
+  constexpr int kWords = (C + 3) / 4;
+  constexpr bool kOne = kPath == kOneRow;
+  extern __shared__ int smem[];
+  int* ends = smem;  // [2][M] end-cell scores, by position parity
+  // several rows a warp: [M][L] folded scores, pointers and codes, cell c of
+  // this lane at x0 + c * dx in its row
+  T* qs = reinterpret_cast<T*>(ends + 2 * M);
+  T* ss = qs + M * L;
+  int8_t* mcs = reinterpret_cast<int8_t*>(ss + M * L);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int b = blockIdx.x;
+  const int k0 = lane * C;
+  const int F = L / C;
+  const int x0 = kPath == kRowsDense ? lane : (lane < F ? lane : F * C);
+  const int dx = kPath == kRowsDense ? 32 : (lane < F ? F : 1);
+  const int8_t* win = windows + (long long)b * W;
+  const int8_t* mono_b = mono + b * mono_bstride;
+  const int* lens_b = mono_lens + b * lens_bstride;
+  const T* dp0_b = dp0 + (long long)b * M * L;
+  T* end_i = end + (long long)b * W * M;  // advanced by M a position
+  T* spend_i = spend + (long long)b * W * M;
+
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    const int n = min(max(lens_b[m], 0), L);
+    const int e = n > 0 ? (int)dp0_b[(long long)m * L + n - 1] : kNeg;
+    ends[m] = e;
+    ends[M + m] = kNeg;  // rows of length 0 keep kNeg in both buffers
+    end_i[m] = (T)e;
+    spend_i[m] = 0;
+  }
+  int q[C], s[C];
+  unsigned codes[kWords];  // kOne: the lane's codes, cell c in byte c % 4 of word c / 4
+  int n_own = 0;  // kOne: the row's length; else that of row warp + lane * nwarps
+  const int chain_reads = lane < M ? (M - 1 - lane) / 32 + 1 : 0;  // ends this lane reads
+  if constexpr (kOne) {
+    n_own = min(max(lens_b[warp], 0), L);
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) codes[w] = 0xffffffffu;  // 0xff never equals a read code
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = k0 + c;
+      const bool valid = k < n_own;
+      q[c] = valid ? (int)dp0_b[(long long)warp * L + k] - k * dele : kNeg;
+      s[c] = 0;
+      if (valid) {
+        const unsigned code = (unsigned)(uint8_t)mono_b[(long long)warp * L + k];
+        codes[c / 4] = (codes[c / 4] & ~(0xffu << (8 * (c % 4)))) | (code << (8 * (c % 4)));
+      }
+    }
+  } else {
+    const int mo = warp + lane * nwarps;
+    if (mo < M) n_own = min(max(lens_b[mo], 0), L);
+    for (int m = warp; m < M; m += nwarps) {  // each warp fills the rows it owns
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int k = k0 + c;
+        if (k < L) {
+          const int x = m * L + x0 + c * dx;
+          qs[x] = (T)((int)dp0_b[(long long)m * L + k] - k * dele);
+          ss[x] = 0;
+          mcs[x] = mono_b[(long long)m * L + k];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  int rc_next = W > 1 ? win[1] : 0;
+  for (int i = 1; i < W; ++i) {
+    const int rc = rc_next;
+    if (i + 1 < W) rc_next = win[i + 1];
+    const int* prev = ends + ((i - 1) & 1) * M;
+    int* cur = ends + (i & 1) * M;
+    end_i += M;
+    spend_i += M;
+    int chain = kNeg;
+    if constexpr (kOne) {
+      if (lane < M) chain = prev[lane];
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
+    }
+    chain = warp_max(chain);
+    if constexpr (kOne) {
+      if (n_own == 0) {
+        if (lane == 0) {
+          end_i[warp] = (T)kNeg;
+          spend_i[warp] = 0;
+        }
+      } else {
+        const unsigned rc4 = (unsigned)(rc & 0xff) * 0x01010101u;  // the read's code, 4 times
+        lanes_row<T, C>(q, s, [&](int c) {
+                          return ((codes[c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
+                        },
+                        lane, n_own, i, chain, ins, dele, mismatch, match, cur, end_i,
+                        spend_i, warp);
+      }
+    } else {
+      int j = 0;
+      for (int m = warp; m < M; m += nwarps, ++j) {
+        const int n = j < 32 ? __shfl_sync(kFull, n_own, j & 31)
+                             : min(max(lens_b[m], 0), L);
+        if (n == 0) {
+          if (lane == 0) {
+            end_i[m] = (T)kNeg;
+            spend_i[m] = 0;
+          }
+          continue;
+        }
+        T* qr = qs + m * L + x0;
+        T* sr = ss + m * L + x0;
+        const int8_t* cr = mcs + m * L + x0;
+        unsigned eq = 0;  // bit c: cell c's code equals the read's
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const bool valid = k0 + c < n;
+          q[c] = valid ? (int)qr[c * dx] : kNeg;
+          s[c] = valid ? (int)sr[c * dx] : 0;
+          if (valid && cr[c * dx] == rc) eq |= 1u << c;
+        }
+        lanes_row<T, C>(q, s, [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain, ins,
+                        dele, mismatch, match, cur, end_i, spend_i, m);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (k0 + c < n) {
+            qr[c * dx] = (T)q[c];
+            sr[c * dx] = (T)s[c];
+          }
+        }
+      }
+    }
+    __syncthreads();  // ends[i & 1] complete before the next chain max and overwrite
+  }
+}
+
+template <typename T, int C>
+int launch_lanes_c(const void* windows, const void* mono, long long mono_bstride,
+                   const void* mono_lens, long long lens_bstride, const void* dp0, void* end,
+                   void* spend, int B, int W, int M, int L, int ins, int dele, int mismatch,
+                   int match, void* stream) {
+  const bool one_row = M <= 32;
+  const long long smem = one_row ? 2LL * M * 4 : chain_dp_smem_bytes(M, L, sizeof(T));
+  const bool dense = L == 32 * C;
+  auto kernel = one_row ? chain_dp_lanes_kernel<T, C, kOneRow>
+                        : (dense ? chain_dp_lanes_kernel<T, C, kRowsDense>
+                                 : chain_dp_lanes_kernel<T, C, kRows>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = one_row ? 32 * M
+                              : (dense ? lanes_max_threads<C, kRowsDense>()
+                                       : lanes_max_threads<C, kRows>());
+  kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
+      (const int8_t*)windows, W, (const int8_t*)mono, mono_bstride, (const int*)mono_lens,
+      lens_bstride, (const T*)dp0, (T*)end, (T*)spend, M, L, ins, dele, mismatch, match);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_lanes(const void* windows, const void* mono, long long mono_bstride,
+                 const void* mono_lens, long long lens_bstride, const void* dp0, void* end,
+                 void* spend, int B, int W, int M, int L, int ins, int dele, int mismatch,
+                 int match, void* stream) {
+#define SD_LANES_CASE(CC)                                                                 \
+  case CC:                                                                                \
+    return launch_lanes_c<T, CC>(windows, mono, mono_bstride, mono_lens, lens_bstride, dp0, \
+                                 end, spend, B, W, M, L, ins, dele, mismatch, match, stream);
+  switch ((L + 31) / 32) {
+    SD_LANES_CASE(1)
+    SD_LANES_CASE(2)
+    SD_LANES_CASE(3)
+    SD_LANES_CASE(4)
+    SD_LANES_CASE(5)
+    SD_LANES_CASE(6)
+    SD_LANES_CASE(7)
+    SD_LANES_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SD_LANES_CASE
+}
+
+}  // namespace

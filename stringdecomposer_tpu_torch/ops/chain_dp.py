@@ -191,6 +191,82 @@ def sweep(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, variant="bas
     return torch.stack(chains, dim=1), end, spend
 
 
+def sweep_lanes(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane):
+    """`sweep` computed as K1's lanes body (csrc/chain_dp_lanes.cuh) splits
+    it; test-only, nothing on the main path calls it. Each row is padded to
+    32 lanes x C = `cells_per_lane` cells (32 * C >= L); lane l owns cells
+    l*C .. l*C + C - 1. At each position: the payload comes from the cell's
+    own candidate, before the fold (ins, unguarded at k == 0; diag; enter);
+    a sequential pair prefix runs within each lane; one pair scan over the
+    32 lane totals, shifted to an exclusive prefix, gives each lane what the
+    earlier lanes hold, and a cell keeps its in-lane prefix only where it is
+    strictly greater. Cells at or past a row's length are read as the
+    sentinel with a mismatch, as in the kernel. Arithmetic is int32; end and
+    spend come out in dp0's type. Same outputs as `sweep`."""
+    B, W = windows.shape
+    M, L = mono_b.shape[1], mono_b.shape[2]
+    C = cells_per_lane
+    P = 32 * C
+    if P < L:
+        raise ValueError(f"32 lanes x {C} cells do not cover L={L}")
+    dev, dt = windows.device, dp0.dtype
+    neg = state_neg(dt)
+    i32 = torch.int32
+    k = torch.arange(P, dtype=i32, device=dev)
+    kdel = k * dele
+    n = lens_b.to(i32).clamp(0, L)[:, :, None]  # [B, M, 1]
+    valid = k < n  # [B, M, P]
+    codes = torch.full((B, M, P), -1, dtype=i32, device=dev)
+    codes[:, :, :L] = mono_b.to(i32)
+    codes = torch.where(valid, codes, -1)
+    dp = torch.full((B, M, P), neg, dtype=i32, device=dev)
+    dp[:, :, :L] = dp0.to(i32)
+    sp = torch.zeros_like(dp)
+    lane = torch.arange(32, device=dev)[:, None]
+    end_idx = (n - 1).clamp(min=0).long()
+
+    def emit(x, fill):  # the end cell of each row; rows of length 0 emit `fill`
+        return torch.where(n[:, :, 0] > 0, x.gather(2, end_idx)[:, :, 0], fill)
+
+    chains = [torch.full((B,), INF, dtype=i32, device=dev)]
+    ends, spends = [emit(dp, neg)], [emit(sp, 0)]
+    for i in range(1, W):
+        p = torch.where(valid, dp, neg)
+        ps = torch.where(valid, sp, 0)
+        rc = windows[:, i].to(i32)[:, None, None]
+        mm = torch.where(codes == rc, match, mismatch).to(i32)
+        chain = ends[-1].amax(dim=1)[:, None, None]  # [B, 1, 1]
+        up_p = torch.cat([torch.full_like(p[:, :, :1], neg), p[:, :, :-1]], dim=2)
+        up_ps = torch.cat([torch.zeros_like(ps[:, :, :1]), ps[:, :, :-1]], dim=2)
+        enter = chain + mm + kdel
+        diag = torch.where(k == 0, neg, up_p + mm)
+        ins_u = p + ins  # unguarded: the payload's ins check at k == 0
+        cand = torch.maximum(enter, torch.maximum(diag, torch.where(k == 0, neg, ins_u)))
+        cs = torch.where(cand == ins_u, ps, torch.where(cand == diag, up_ps, i))
+        t = (cand - kdel).view(B, M, 32, C)
+        cs = cs.view(B, M, 32, C)
+        run_t, run_c = t[..., 0], cs[..., 0]
+        in_t, in_c = [run_t], [run_c]
+        for c in range(1, C):  # later cell wins only when strictly greater
+            take = t[..., c] > run_t
+            run_t = torch.where(take, t[..., c], run_t)
+            run_c = torch.where(take, cs[..., c], run_c)
+            in_t.append(run_t)
+            in_c.append(run_c)
+        in_t, in_c = torch.stack(in_t, dim=-1), torch.stack(in_c, dim=-1)
+        tot_t, (tot_c,) = pair_scan(run_t, [run_c], torch.gt)  # inclusive, over lanes
+        ex_t = torch.cat([torch.full_like(tot_t[..., :1], neg), tot_t[..., :-1]], dim=-1)[..., None]
+        ex_c = torch.cat([torch.zeros_like(tot_c[..., :1]), tot_c[..., :-1]], dim=-1)[..., None]
+        own = (lane == 0) | (in_t > ex_t)  # ties keep the earlier lanes
+        dp = torch.where(own, in_t, ex_t).reshape(B, M, P) + kdel
+        sp = torch.where(own, in_c, ex_c).reshape(B, M, P)
+        chains.append(chain[:, 0, 0])
+        ends.append(emit(dp, neg))
+        spends.append(emit(sp, 0))
+    return (torch.stack(chains, dim=1), torch.stack(ends, dim=1).to(dt),
+            torch.stack(spends, dim=1).to(dt))
+
+
 def chain_dp_forward(
     windows: torch.Tensor,  # [B, W] int8, padded with READ_PAD
     window_lens: torch.Tensor,  # [B] int32 true lengths

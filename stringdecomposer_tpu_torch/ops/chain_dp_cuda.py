@@ -10,8 +10,12 @@ counts are meant to leave the device.
 K1 has two routes with the same recurrence and tie rules. A monomer set
 whose [M, L] column fits one block's shared memory (`smem_bytes`) takes the
 shared route; a larger one takes the large route (`chain_dp_large_cuda`),
-which keeps the column in a device-memory scratch. Each route counts its
-own launches, int32 and int16 state apart.
+which keeps the column in a device-memory scratch. The shared route has two
+kernel bodies (`body`): at L <= 256 the lanes body (csrc/chain_dp_lanes.cuh:
+each lane owns whole cells of a row, one pair scan per row, one barrier per
+position), above it the chunked body (csrc/chain_dp.cuh), which the large
+route and the ablation also run. Each body and route counts its own
+launches, int32 and int16 state apart.
 
 state_dtype="int16" (not the default: "auto" is int32) stores the column
 and emits end / spend as int16, which halves K1's output bytes and lets
@@ -36,7 +40,9 @@ SMEM_LIMIT = 232_448
 # launched in groups of windows, so that a launch's scratch stays in the
 # 50 MB L2.
 LARGE_SCRATCH_BYTES = 32 << 20
-# ablation variant -> csrc/chain_dp.cuh Variant (base is K1's own launch)
+# the lanes body's longest row: 32 lanes x 8 cells (csrc/chain_dp_lanes.cuh)
+LANES_MAX_L = 256
+# ablation variant -> csrc/chain_dp.cuh Variant (base is the chunked body's launch)
 _VARIANT_CODES = {v: i for i, v in enumerate(plain.VARIANTS)}
 
 
@@ -57,6 +63,14 @@ def route(M: int, L: int, state_bytes: int = 4) -> str:
     """The K1 route a monomer set of M rows padded to L takes: "shared" or
     "large"."""
     return "shared" if smem_bytes(M, L, state_bytes) <= SMEM_LIMIT else "large"
+
+
+def body(M: int, L: int, state_bytes: int = 4) -> str:
+    """The K1 kernel body a monomer set runs: "lanes" (the shared route at
+    L <= LANES_MAX_L), "chunked" (the shared route above it) or "large"."""
+    if route(M, L, state_bytes) == "large":
+        return "large"
+    return "lanes" if L <= LANES_MAX_L else "chunked"
 
 
 def check_monomer_set(M: int, L: int) -> None:
@@ -174,24 +188,25 @@ def _epilogue(end, spend, window_lens, max_blocks, return_debug):
     return blocks, counts
 
 
-def _launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, sp,
+def _launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, scratch,
             ins, dele, mismatch, match):
     """One launch of a K1 entry point (`fn`, whose first int arguments are
-    `lead`) over windows [b0, b1); sp is the large route's pointer scratch."""
+    `lead`) over windows [b0, b1); `scratch` holds the pointer arguments
+    that follow dp0 (sd_chain_dp: the large route's pointer scratch or None;
+    sd_chain_dp_lanes: none)."""
     M, L = mono.shape[-2], mono.shape[-1]
     per_window = mono.dim() == 3
     m_w, l_w = (mono[b0:b1], mono_lens[b0:b1]) if per_window else (mono, mono_lens)
     return fn(
         *lead, windows[b0:b1].data_ptr(), m_w.data_ptr(), M * L if per_window else 0,
-        l_w.data_ptr(), M if per_window else 0, dp0[b0:b1].data_ptr(),
-        sp.data_ptr() if sp is not None else None,
+        l_w.data_ptr(), M if per_window else 0, dp0[b0:b1].data_ptr(), *scratch,
         end[b0:b1].data_ptr(), spend[b0:b1].data_ptr(), b1 - b0, windows.shape[1], M, L,
         ins, dele, mismatch, match, stream_of(windows),
     )
 
 
-def _counter(dt: torch.dtype) -> str:
-    return "launches_int16" if dt == torch.int16 else "launches"
+def _counter(dt: torch.dtype, lanes: bool = False) -> str:
+    return f"launches{'_lanes' if lanes else ''}{'_int16' if dt == torch.int16 else ''}"
 
 
 def chain_dp_forward_cuda(
@@ -209,26 +224,32 @@ def chain_dp_forward_cuda(
 ):
     """Same contract and outputs as ops/chain_dp.chain_dp_forward. Monomer
     sets too large for the shared route (in the chosen state type) go to
-    chain_dp_large_cuda."""
+    chain_dp_large_cuda; the shared route runs the body `body` names."""
     kw = dict(ins=ins, dele=dele, mismatch=mismatch, match=match, max_blocks=max_blocks,
               return_debug=return_debug, state_dtype=state_dtype)
     dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
     if not windows.is_cuda:
         return plain.chain_dp_forward(windows, window_lens, mono, mono_lens, **kw)
-    if route(mono.shape[-2], mono.shape[-1], dt.itemsize) == "large":
+    kind = body(mono.shape[-2], mono.shape[-1], dt.itemsize)
+    if kind == "large":
         return chain_dp_large_cuda(windows, window_lens, mono, mono_lens, **kw)
     B, W = windows.shape
     windows, mono, mono_lens, dp0, end, spend = _prologue(
         windows, window_lens, mono, mono_lens, dele, mismatch, match, dt)
     if B > 0:
-        check(_launch(library().sd_chain_dp, (0, dt.itemsize), windows, mono, mono_lens, dp0,
-                      end, spend, 0, B, None, ins, dele, mismatch, match), "chain_dp kernel")
-        count_launch(chain_dp_forward_cuda, _counter(dt))
+        lanes = kind == "lanes"
+        fn, lead, scratch = ((library().sd_chain_dp_lanes, (dt.itemsize,), ()) if lanes else
+                             (library().sd_chain_dp, (0, dt.itemsize), (None,)))
+        check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, 0, B, scratch,
+                      ins, dele, mismatch, match), f"chain_dp {kind} kernel")
+        count_launch(chain_dp_forward_cuda, _counter(dt, lanes))
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
-chain_dp_forward_cuda.launches = 0
+chain_dp_forward_cuda.launches = 0  # the chunked body (shared route, L > 256)
 chain_dp_forward_cuda.launches_int16 = 0
+chain_dp_forward_cuda.launches_lanes = 0  # the lanes body (shared route, L <= 256)
+chain_dp_forward_cuda.launches_lanes_int16 = 0
 
 
 def _groups(B: int, M: int, L: int, dt: torch.dtype) -> int:
@@ -268,7 +289,8 @@ def chain_dp_large_cuda(
     lib = library()
     for b0 in range(0, B, group):  # one launch per group; sp is reused in stream order
         check(_launch(lib.sd_chain_dp, (1, dt.itemsize), windows, mono, mono_lens, dp0, end,
-                      spend, b0, min(B, b0 + group), sp, ins, dele, mismatch, match),
+                      spend, b0, min(B, b0 + group), (sp.data_ptr(),), ins, dele, mismatch,
+                      match),
               "chain_dp large-route kernel")
         count_launch(chain_dp_large_cuda, _counter(dt))
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
@@ -280,8 +302,9 @@ chain_dp_large_cuda.launches_int16 = 0
 
 def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: bool,
                          ins=-1, dele=-1, mismatch=-1, match=1, out=None):
-    """A: K1 with one cost centre removed (ops/chain_dp.VARIANTS; "base" is
-    K1's own production launch), on the shared or the large route, from the
+    """A: K1's chunked body with one cost centre removed (ops/chain_dp.
+    VARIANTS; "base" is the chunked body's own launch, sd_chain_dp, whatever
+    L is), on the shared or the large route, from the
     given int32 column 0 `dp0` [B, M, L], which the large route overwrites.
     Returns (end, spend) [B, W, M] int32, knowingly not K1's for any variant
     but base; `out` may pass them in, zero-filled, to keep allocation out of
@@ -312,8 +335,9 @@ def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: boo
         b1 = min(B, b0 + group)
         fn, lead = ((lib.sd_chain_dp, (int(large), 4)) if variant == "base" else
                     (lib.sd_chain_dp_ablate, (_VARIANT_CODES[variant], int(large))))
-        check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, sp,
-                      ins, dele, mismatch, match), f"chain_dp ablation kernel {variant}")
+        check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1,
+                      (sp.data_ptr() if large else None,), ins, dele, mismatch, match),
+              f"chain_dp ablation kernel {variant}")
         count_launch(chain_dp_ablate_cuda, ablate_counter(variant, large))
     return end, spend
 

@@ -34,6 +34,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "sd_chain_dp": (_I, [_I, _I, _P, _P, _LL, _P, _LL, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_chain_dp_lanes": (_I, [_I, _P, _P, _LL, _P, _LL, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_chain_dp_ablate": (_I, [_I, _I, _P, _P, _LL, _P, _LL, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_block_walk": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Ablation bench of K1 on the card, the counterpart of scripts/ablate_chain.py.
 
-Each variant is K1's own kernel body with one cost centre removed at
-compile time (csrc/chain_dp_ablate.cu; ops/chain_dp.VARIANTS): the chain
-max and its barriers (nochain), the warp scans' depth and chunk carry
-(ladder4, ladder2), the per-position emit (noemit), the diagonal shift
-(noshift). `base` is K1 itself. The outputs of every variant but base are
-knowingly wrong: the times are what the bench is for. Each variant's
+Each variant is K1's chunked kernel body (csrc/chain_dp.cuh) with one
+cost centre removed at compile time (csrc/chain_dp_ablate.cu;
+ops/chain_dp.VARIANTS): the chain max and its barriers (nochain), the warp
+scans' depth and chunk carry (ladder4, ladder2), the per-position emit
+(noemit), the diagonal shift (noshift). `base` is the chunked body itself,
+which K1 runs on the large route and on the shared route at L > 256 (the
+shared route at L <= 256 runs the lanes body, csrc/chain_dp_lanes.cuh,
+which the bench does not take apart). The outputs of every variant but
+base are knowingly wrong: the times are what the bench is for. Each variant's
 kernel is checked bit-equal to its plain PyTorch version first (`check`).
 
 The inputs mirror the JAX bench's main(): seeded random codes, monomers of
@@ -121,10 +124,11 @@ def card() -> str:
     ).stdout.strip()
 
 
-def bench(variants, reps: int = 5, seed: int = 0, out=print) -> dict:
-    """The timing table: {(shape name, variant): [ms, ...]} at SHAPES."""
+def bench(variants, reps: int = 5, seed: int = 0, out=print, shapes=SHAPES) -> dict:
+    """The timing table: {(shape name, variant): [ms, ...]} at `shapes`
+    (SHAPES, the JAX bench's, unless a caller cuts them)."""
     res = {}
-    for name, B, W, M, large in SHAPES:
+    for name, B, W, M, large in shapes:
         out(card())
         out(f"{name}: B = {B} windows x W = {W} positions, M = {M}, L = {L}, "
             f"monomer length {MONO_LEN}, {reps} timed calls after a warm-up")

@@ -186,8 +186,53 @@ def test_cli_lowercase_input_exits_255(tmp_path):
     assert res.returncode == 255
 
 
+def _jax_option_strings():
+    from stringdecomposer_tpu.cli import build_parser as jax_parser
+
+    return [(s, a) for a in jax_parser()._actions for s in a.option_strings
+            if s not in ("-h", "--help", "--version")]
+
+
+@pytest.mark.parametrize("opt", [s for s, _ in _jax_option_strings()])
+def test_cli_parses_every_jax_option(opt):
+    """Every option string of the JAX CLI parses in the port's parser, with
+    the JAX option's default as its value (or a sample where that is None);
+    at the defaults nothing is refused."""
+    from stringdecomposer_tpu_torch.cli import _unported_flags, build_parser
+
+    action = dict(_jax_option_strings())[opt]
+    if action.nargs == 0:  # a switch
+        value = None
+    elif action.default is not None:
+        value = str(action.default)
+    else:
+        value = "1" if action.type is int else "x"
+    # one token, so that a value such as "-1,-1,-1,1" is not read as an option
+    token = opt if value is None else opt + ("=" if opt.startswith("--") else "") + value
+    args = build_parser().parse_args(["reads.fa", "mono.fa", token])
+    if value is not None and (action.default is not None or action.type is int):
+        assert not _unported_flags(args)
+
+
+def test_cli_host_id_0_num_processes_1_matches_jax_cli(tmp_path):
+    """`--host-id 0 --num-processes 1` (the JAX CLI's single-host values)
+    runs rc 0 on the CPU and writes the JAX CLI's three TSVs, byte for byte."""
+    from stringdecomposer_tpu import cli as jax_cli
+
+    fa, mono = _small_inputs(tmp_path, "ACGTTGCAAGGTTTGACCATGCAGACGTTGCATGGT" * 4)
+    flags = ["--second-best", "--host-id", "0", "--num-processes", "1"]
+    assert jax_cli.main([str(fa), str(mono), "-o", str(tmp_path / "jax"), *flags]) == 0
+    res = _cli(fa, mono, "-o", tmp_path / "torch", "--device", "cpu", *flags)
+    assert res.returncode == 0, res.stderr
+    for f in TSVS:
+        assert filecmp.cmp(tmp_path / "torch" / f, tmp_path / "jax" / f, shallow=False), f
+    assert (tmp_path / "torch" / TSVS[0]).stat().st_size > 0
+
+
 @pytest.mark.parametrize("flags", [["--data-parallel"], ["--resume"], ["--serve"],
-                                   ["--stream-reads", "4"], ["--num-hosts", "2"]])
+                                   ["--stream-reads", "4"], ["--num-hosts", "2"],
+                                   ["--host-id", "1"], ["--num-processes", "2"],
+                                   ["--num-processes", "0"]])
 def test_cli_unported_flag_is_refused(tmp_path, flags):
     fa, mono = _small_inputs(tmp_path, "ACGT")
     res = _cli(fa, mono, "-o", tmp_path / "out", "--device", "cpu", *flags)
