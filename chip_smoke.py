@@ -16,7 +16,10 @@ int16 state on both routes against the int16 twin and the int32 kernel and
 drives that path, checks K1's ablation kernels (A) against their plain
 versions and runs the ablation bench (at a quarter of its positions), then
 times each kernel beside its plain version at the main path's shapes and
-prints each one's bound.
+prints each one's bound. K2 runs through both of its entries: the cross
+entry (`nw_identity_cross`, every block x every monomer) on the
+--second-best path, the pairwise one (`nw_identity`) in light mode; its
+times are of the launches alone, apart from the packed call.
 
 Usage: python3 chip_smoke.py        (needs one CUDA device; exits non-zero
 without one, and prints no result)
@@ -39,7 +42,7 @@ DATA = os.path.join(HERE, "stringdecomposer_tpu", "test_data")
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
 VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")  # ops/chain_dp.VARIANTS
 ABLATE = tuple(f"ablate_{'large_' if large else ''}{v}" for large in (False, True) for v in VARIANTS)
-KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "hw_filter",
+KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "nw_identity_cross", "hw_filter",
            "banded_final_column", "banded_myers", "semi_ends", "int16_probe", "chain_dp_int16",
            "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16") + ABLATE
 # K1's kernel bodies (ops/chain_dp_cuda.body) -> chip_smoke kernel names, by state type
@@ -58,13 +61,14 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #   K1 and its ablations, 15: match test and select 2; the diag, ins, del
 #     and enter adds 4; three maxima 3; the start pointer's three compares
 #     and three selects 6;
-#   K2, 12: match test 1, three candidates 3, two min 2, the column count's
-#     preference 2 compares + 2 selects + 1 add, matches 1;
+#   K2, 11: match test 1, three candidates 3, two min 2, the column count's
+#     preference 2 compares + 2 selects + 1 add (matches = columns - D is
+#     one subtraction a pair, not a cell);
 #   K3 and K4, 6: match test 1, three candidates 3, two min 2;
 #   K5 and K6, 17 per word: one Myers step (Eq lookup, Xv, Xh, Ph, Mh, the
 #     add's carry, shifts);
 #   the walk and P, 2 per element: compare, select.
-OPS_PER_CELL = {"k1": 15, "k2": 12, "hw": 6, "myers_word": 17, "scan": 2}
+OPS_PER_CELL = {"k1": 15, "k2": 11, "hw": 6, "myers_word": 17, "scan": 2}
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -73,34 +77,6 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     ms, and which of the two sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def hor_library(records, rng):
-    """A HOR-scale monomer library from a monomer set: each monomer, in file
-    order, then 10 variants v = 0..9 with max(1, int(len * (0.02 + 0.01 v)))
-    random edits each (substitution p 0.8, deletion 0.1, insertion 0.1),
-    named `<first word of name>_v<v>`. From the 12 DXZ1 monomers and
-    numpy.random.default_rng(0): 132 monomers, 264 with RC, padded to 192."""
-    from stringdecomposer_tpu_torch.io.fasta import Record
-
-    out = []
-    for r in records:
-        out.append(Record(r.name, r.seq))
-        head = r.name.split()[0]
-        for v in range(10):
-            seq = list(r.seq)
-            for _ in range(max(1, int(len(r.seq) * (0.02 + 0.01 * v)))):
-                pos = int(rng.integers(len(seq)))
-                kind = rng.random()
-                if kind < 0.8:
-                    seq[pos] = "ACGT".replace(seq[pos], "")[int(rng.integers(3))]
-                elif kind < 0.9:
-                    if len(seq) > 1:
-                        del seq[pos]
-                else:
-                    seq.insert(pos, "ACGT"[int(rng.integers(4))])
-            out.append(Record(f"{head}_v{v}", "".join(seq)))
-    return out
 
 
 def dimer_set(records):
@@ -112,31 +88,6 @@ def dimer_set(records):
 
     return [Record(f"{a.name.split()[0]}+{b.name.split()[0]}", a.seq + b.seq)
             for a, b in zip(records, records[1:] + records[:1])]
-
-
-def synthesize(n_bp: int, monomers, rng) -> str:
-    """A centromere-like assembly of n_bp: tandem copies of monomers drawn
-    at random, each with ~5 % edits (substitution p 0.6, deletion 0.2,
-    insertion 0.2). The same draws as scripts/scale_smoke.synthesize, so
-    seed 0 gives the same 1.6 Mbp assembly."""
-    units = [m.seq for m in monomers]
-    out = []
-    total = 0
-    while total < n_bp:
-        u = list(units[rng.integers(len(units))])
-        for _ in range(max(1, len(u) // 20)):
-            p = int(rng.integers(len(u)))
-            r = rng.random()
-            if r < 0.6:
-                u[p] = "ACGT"[rng.integers(4)]
-            elif r < 0.8 and len(u) > 2:
-                del u[p]
-            else:
-                u.insert(p, "ACGT"[rng.integers(4)])
-        s = "".join(u)
-        out.append(s)
-        total += len(s)
-    return "".join(out)[:n_bp]
 
 
 def hw_brute(q: str, t: str) -> int:
@@ -296,11 +247,12 @@ def main() -> int:
     from stringdecomposer_tpu_torch.ops.chain_dp_cuda import body as k1_body
     from stringdecomposer_tpu_torch.ops.hw_filter_cuda import hw_distance_batch_cuda
     from stringdecomposer_tpu_torch.ops.identity_cuda import (
-        nw_identity_batch_cuda, nw_identity_packed_both,
+        C_MAX, nw_identity_batch_cuda, nw_identity_cross_cuda, nw_identity_packed_both,
     )
     from stringdecomposer_tpu_torch.ops.oracle import Scoring, make_windows
     from stringdecomposer_tpu_torch.report import format_raw_rows
     from stringdecomposer_tpu_torch.runtime import build
+    from stringdecomposer_tpu_torch.scripts.workloads import hor_library, synthesize
 
     dev = torch.device("cuda")
     smoke = Smoke()
@@ -313,6 +265,7 @@ def main() -> int:
                 "chain_dp_large": (chain_dp_large_cuda, "launches"),
                 "block_walk": (block_walk_cuda, "launches"),
                 "nw_identity": (nw_identity_batch_cuda, "launches"),
+                "nw_identity_cross": (nw_identity_cross_cuda, "launches"),
                 "hw_filter": (hw_distance_batch_cuda, "launches"),
                 "banded_final_column": (banded_final_column_cuda, "launches"),
                 "banded_myers": (banded_myers_cuda, "launches"),
@@ -588,12 +541,17 @@ def main() -> int:
             return torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev)
 
         def both(qs, ts, what):
+            """Both entries against their plain twins: the pairwise entry on
+            (qs[i], ts[i]), the cross entry on every qs[i] x ts[k]."""
             q, ql = batch(qs)
             t, tl = batch(ts)
             got = nw_identity_batch_cuda(q, ql, t, tl)
             want = k2_plain.nw_identity_batch(q, ql, t, tl)
             for name_, g, w in zip(("D", "matches", "columns"), got, want):
                 smoke.same("nw_identity", f"{what} {name_}", g, w)
+            cross = nw_identity_cross_cuda(q, ql, t, tl)
+            smoke.same("nw_identity_cross", f"{what} (cross, {len(qs)} x {len(ts)})", cross,
+                       k2_plain.nw_identity_cross(q, ql, t, tl))
             return [x.cpu().numpy() for x in got]
 
         D, mt, cols = both([c["q"] for c in cases], [c["t"] for c in cases], "edlib fixtures")
@@ -604,7 +562,8 @@ def main() -> int:
             if (int(D[i]), int(mt[i]), int(cols[i])) != want:
                 raise AssertionError(f"edlib case {i}: got {(D[i], mt[i], cols[i])}, want {want}")
         print(f"K2: {len(cases)} edlib fixture cases equal to edlib (ed, matches, columns) "
-              "and bit-equal to the plain twin")
+              "and bit-equal to the plain twin through both entries (cross: every query x "
+              "every target)")
         rng = np.random.default_rng(3)
 
         def rs(n):
@@ -613,7 +572,36 @@ def main() -> int:
         qs = ["A", "", "ACGT" * 8, "G" * 17, "ACGT", rs(126), rs(1), rs(126), rs(4500)]
         ts = ["", "ACG", "ACGT" * 8, "G" * 16, "T", rs(1), rs(126), rs(128), rs(4200)]
         both(qs, ts, "edge lengths (tlen 0, qlen 0, skews, 4500 x 4200)")
-        print("K2: edge lengths and a 4500 x 4200 pair bit-equal to the plain twin")
+        print("K2: edge lengths and a 4500 x 4200 pair (strip route, carry rows in device "
+              "memory) bit-equal to the plain twins through both entries")
+        # the seams of ops/identity.nw_lanes: per C, queries padded to 32 C
+        # (the kernel's C) with the last lane's last row and a full lane
+        # group; then the strips of 32 * C_MAX rows (their carry rows in
+        # device memory), with short and with long targets
+        for C in range(1, C_MAX + 1):
+            R = 32 * C
+            both([rs(n) for n in (R - 1, R, 1, 0, C, C + 1, int(rng.integers(1, R)))],
+                 [rs(n) for n in (19, 1, 23, 5, 2, 0, int(rng.integers(1, 200)))], f"seams C={C}")
+        S = 32 * C_MAX
+        both([rs(n) for n in (S - 1, S, S + 1, 2 * S, 2 * S + 1, 3 * S - 1, 3 * S + 2, 40, 0)],
+             [rs(n) for n in (50, 31, 32, 33, 60, 170, 1, 3, 5)], "strips, short targets")
+        both([rs(n) for n in (1100, 900, S + 1)], [rs(n) for n in (2000, 1900, 1816)],
+             "strips, long targets")
+        print(f"K2: lane seams at C = 1..{C_MAX} and strip seams ({S}-row strips, 2 and 3 "
+              "strips, short and long targets) bit-equal through both entries")
+        # the cross entry at the library's width: golden blocks x 264 monomers
+        _, (mlib, llib) = mono_set(library)
+        codes = encode(load_fasta(read_fa)[0].seq)
+        starts = np.sort(rng.choice(len(codes) - 300, 40, replace=False))
+        blens = rng.integers(0, 260, 40).astype(np.int32)
+        q = k2_plain.blocks_from_read(torch.from_numpy(codes).to(dev), torch.from_numpy(starts).to(dev),
+                                      torch.from_numpy(blens).to(dev), int(blens.max()))
+        ql = torch.from_numpy(blens).to(dev)
+        t, tl = torch.from_numpy(mlib).to(dev), torch.from_numpy(llib).to(dev)
+        smoke.same("nw_identity_cross", "40 read blocks (0-259 bp) x library M=264",
+                   nw_identity_cross_cuda(q, ql, t, tl), k2_plain.nw_identity_cross(q, ql, t, tl))
+        print("K2: the cross entry on 40 read blocks of 0-259 bp x the 264-monomer library "
+              "bit-equal to the plain cross twin")
         # nw_identity_packed_both on the JAX package's packed test case
         rng = np.random.default_rng(23)
         alpha = list("ACGT")
@@ -629,7 +617,7 @@ def main() -> int:
         t_homo, tl_homo = (torch.from_numpy(a).to(dev)
                            for a in pad_codes([encode(homo_compress(m)) for m in monos]))
         args = (torch.from_numpy(encode(read)).to(dev), starts, lens, t_raw, tl_raw, t_homo, tl_homo)
-        smoke.same("nw_identity", "packed_both",
+        smoke.same("nw_identity_cross", "packed_both",
                    nw_identity_packed_both(*args, n_pad=16, Lq=256),
                    k2_plain.nw_identity_packed_both_plain(*args, n_pad=16, Lq=256))
         print("K2: nw_identity_packed_both bit-equal to its plain version")
@@ -650,10 +638,10 @@ def main() -> int:
             dt = res["dt"]
             if res["rc"] != 0:
                 raise AssertionError(f"CLI exit code {res['rc']}")
-            need = ("chain_dp_lanes", "block_walk", "nw_identity")
+            need = ("chain_dp_lanes", "block_walk", "nw_identity_cross")
             bad = [k for k in need if got[k] <= 0]
-            if bad:
-                raise AssertionError(f"a kernel of the path was not launched: {bad}")
+            if bad or got["nw_identity"]:
+                raise AssertionError(f"golden --second-best: launches {got}")
             launches.update({k: got[k] for k in need})
             for got_f, want in (("final_decomposition_raw.tsv", "raw_decomposition_oracle.tsv"),
                                 ("final_decomposition.tsv", "final_decomposition_fc89af8.tsv")):
@@ -670,11 +658,28 @@ def main() -> int:
             if rc != 0:
                 raise AssertionError(f"CLI -t 4 exit code {rc}")
             same_files(out, out4, "-t 4 against the -t 1 run")
+            # light mode (no --second-best): each block against its best
+            # monomer through the pairwise entry, against K2's plain twin
+            light = os.path.join(out, "light")
+            got = drive("golden CLI light mode (kernel route)",
+                        lambda: res.update(rc=cli.main([read_fa, dxz1, "-o", light])))
+            if res["rc"] != 0 or got["nw_identity"] <= 0 or got["nw_identity_cross"]:
+                raise AssertionError(f"golden light mode: rc {res['rc']}, launches {got}")
+            launches["nw_identity"] = got["nw_identity"]
+            with open(os.path.join(light, "final_decomposition_raw.tsv"), "rb") as f1, \
+                    open(os.path.join(DATA, "raw_decomposition_oracle.tsv"), "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError("light mode: raw TSV differs from raw_decomposition_oracle.tsv")
+            pipeline.run(read_fa, dxz1, out_dir=os.path.join(out, "light_plain"), device="cuda",
+                         identity_fn=k2_plain.nw_identity_batch)
+            same_files(light, os.path.join(out, "light_plain"), "light mode, K2 kernel vs plain twin")
         golden.update(seconds=dt, rows=rows)
         path = {k: launches[k] for k in need}
         print(f"golden: raw TSV == raw_decomposition_oracle.tsv, final TSV == "
               f"final_decomposition_fc89af8.tsv (byte for byte); launches {path}; -t 4 run "
-              "gives the same three TSVs")
+              "gives the same three TSVs; light mode (pairwise entry, "
+              f"{launches['nw_identity']} launches) gives the oracle's raw TSV and the plain "
+              "twin's three TSVs")
         print(f"golden: e2e {dt:.3f} s, {rows} assignments, {rows / dt:.1f} raw assignments/s "
               f"(first run in this process, kernels already built)")
 
@@ -693,7 +698,7 @@ def main() -> int:
                 raise AssertionError(f"CLI golden x dimers exit code {rc}")
 
         got = drive("golden x DXZ1 dimers (CLI, kernel route)", cli_run)
-        need = ("chain_dp", "block_walk", "nw_identity")
+        need = ("chain_dp", "block_walk", "nw_identity_cross")
         bad = [k for k in need if got[k] <= 0]
         if bad or got["chain_dp_lanes"]:
             raise AssertionError(f"golden x dimers: launches {got}")
@@ -707,6 +712,13 @@ def main() -> int:
         print(f"golden x DXZ1 dimers (M=24, L={dimer_L}): three TSVs equal between routes; "
               f"{n_rows(os.path.join(out, 'dimers_kernel'))} assignments; kernel route "
               f"{secs['kernel']:.3f} s, plain route {time.perf_counter() - t0:.3f} s")
+        from stringdecomposer_tpu_torch.ops.identity_cuda import cells_per_lane
+
+        with open(os.path.join(out, "dimers_kernel", tsvs[0])) as f:
+            longest = max(int(r.split("\t")[3]) - int(r.split("\t")[2]) + 1 for r in f)
+        print(f"golden x DXZ1 dimers: K2 route for the longest block ({longest} bp): C = "
+              f"{cells_per_lane(longest)} rows a lane, "
+              f"{'strips' if longest > 32 * C_MAX else 'one strip'} of {32 * C_MAX} rows")
 
     def scale_run():
         monomers_fwd = load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"))
@@ -830,7 +842,7 @@ def main() -> int:
                 raise AssertionError(f"CLI --ed_thr 10 exit code {rc}")
 
         got = drive("run (i) golden x DXZ1 --ed_thr 10 (CLI, kernel route)", cli_run)
-        bad = [k for k in ("hw_filter", "chain_dp_lanes", "block_walk", "nw_identity")
+        bad = [k for k in ("hw_filter", "chain_dp_lanes", "block_walk", "nw_identity_cross")
                if got[k] <= 0]
         if bad:
             raise AssertionError(f"run (i): kernels of the path not launched: {bad}")
@@ -871,7 +883,7 @@ def main() -> int:
 
             got = drive(f"run (iii) 1.6 Mbp x library --ed_thr {ed}", run_iii)
             path = ("hw_filter", "chain_dp_lanes") if ed >= 0 else ("chain_dp_large",)
-            bad = [k for k in path + ("block_walk", "nw_identity") if got[k] <= 0]
+            bad = [k for k in path + ("block_walk", "nw_identity_cross") if got[k] <= 0]
             if bad:
                 raise AssertionError(f"run (iii) ed_thr {ed}: kernels of the path not launched: {bad}")
             if ed < 0:
@@ -1083,30 +1095,6 @@ def main() -> int:
                                      OPS_PER_CELL["scan"] * cols * M)
         print(f"walk alone on the same end/spend: kernel {spread(k)}; plain {spread(p)}; bound "
               f"{bounds['block_walk'][0]:.6f} ms ({bounds['block_walk'][1]})")
-        # K2 at the golden finishing shape: every raw block x 24 monomers x 2 variants
-        with open(os.path.join(DATA, "raw_decomposition_oracle.tsv")) as f:
-            rows = [ln.split("\t") for ln in f.read().splitlines()]
-        starts = np.array([int(r[2]) for r in rows], dtype=np.int64)
-        blens = np.array([int(r[3]) - int(r[2]) + 1 for r in rows], dtype=np.int32)
-        from stringdecomposer_tpu_torch.convert import numpy_state, state_from_numpy
-
-        fin = add_rc_interleaved(load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"), upper=True))
-        st = state_from_numpy(*numpy_state([], fin), dev)
-        pargs = (torch.from_numpy(codes).to(dev), starts, blens,
-                 st.t_raw, st.tl_raw, st.t_homo, st.tl_homo)
-        kw = dict(n_pad=len(starts), Lq=int(blens.max()))
-        k, got = timed(lambda: nw_identity_packed_both(*pargs, **kw), 5)
-        p, want = timed(lambda: k2_plain.nw_identity_packed_both_plain(*pargs, **kw), 0)
-        smoke.same("nw_identity", "golden shape packed_both", got, want)
-        timing["nw_identity"] = (statistics.median(k), statistics.median(p))
-        # cells: every block against every monomer, raw and homopolymer-compressed
-        hlens = np.array([len(homo_compress(reads[0].seq[a : a + n])) for a, n in zip(starts, blens)])
-        cells = (int(blens.sum()) * int(st.tl_raw.sum()) + int(hlens.sum()) * int(st.tl_homo.sum()))
-        pairs = 2 * len(starts) * st.t_raw.shape[0]
-        bounds["nw_identity"] = bound(int(blens.sum()) + st.t_raw.numel() + st.t_homo.numel()
-                                      + 12 * pairs, OPS_PER_CELL["k2"] * cells)
-        print(f"K2 packed_both, {len(starts)} blocks x {st.t_raw.shape[0]} monomers x 2 variants: "
-              f"kernel {spread(k)}; plain {spread(p)}")
         # K3 and K1's large route at the golden windows x the library
         _, (mono, lens) = mono_set(library)
         args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
@@ -1412,13 +1400,136 @@ def main() -> int:
         b = [torch.from_numpy(r.integers(0, 4, (16, 1600)).astype(np.int32)).to(dev)
              for _ in range(2)]
         n16 = torch.full((16,), 1600, dtype=torch.int32, device=dev)
-        p, _ = timed(lambda: al.dp_moves_batch(b[0], n16, b[1], n16), 3)
-        print(f"dp_moves_batch (plain, no kernel) 16 pairs x 1600 x 1600: {spread(p)}")
-        p, _ = timed(lambda: al.dp_lastrow_batch(b[0], n16, b[1], n16), 3)
-        print(f"dp_lastrow_batch (plain, no kernel) 16 pairs x 1600 x 1600: {spread(p)}")
+        # their bounds: the codes and lengths read once, the move matrix
+        # (uint8, [16, 1601, 1601]) or the last rows (int32, [16, 1601])
+        # written once, OPS_PER_CELL["hw"] (the NW recurrence) a cell
+        ops = OPS_PER_CELL["hw"] * 16 * 1600 * 1600
+        in_bytes = 4 * (2 * b[0].numel() + 2 * n16.numel())
+        for name, fn, out_b in (("dp_moves_batch", al.dp_moves_batch, 16 * 1601 * 1601),
+                                ("dp_lastrow_batch", al.dp_lastrow_batch, 4 * 16 * 1601)):
+            p, _ = timed(lambda: fn(b[0], n16, b[1], n16), 3)
+            bd = bound(in_bytes + out_b, ops)
+            print(f"{name} (plain, no kernel) 16 pairs x 1600 x 1600: {spread(p)}; bound "
+                  f"{bd[0]:.4f} ms ({bd[1]})")
+
+    def k2_times():
+        """K2 at the golden finishing shape, every raw block x the 24 DXZ1
+        monomers x 2 variants: the cross entry's two launches alone on the
+        blocks packed_both builds (sorted by length; homopolymer-collapsed),
+        the pairwise entry on the same pairs expanded and on the pairs the
+        light-mode run dispatches (its own path's shape), and the whole packed
+        call with its prologue; then the cross entry alone at the library's
+        width, the same blocks x the 264 monomers."""
+        from stringdecomposer_tpu_torch.convert import numpy_state, state_from_numpy
+        from stringdecomposer_tpu_torch.ops.identity_cuda import cells_per_lane
+
+        with open(os.path.join(DATA, "raw_decomposition_oracle.tsv")) as f:
+            rows = [ln.split("\t") for ln in f.read().splitlines()]
+        starts = np.array([int(r[2]) for r in rows], dtype=np.int64)
+        blens = np.array([int(r[3]) - int(r[2]) + 1 for r in rows], dtype=np.int32)
+        read_dev = torch.from_numpy(encode(load_fasta(read_fa)[0].seq)).to(dev)
+        order = np.argsort(blens, kind="stable")
+        ql = torch.from_numpy(blens[order]).to(dev)
+        q = k2_plain.blocks_from_read(read_dev, torch.from_numpy(starts[order]).to(dev), ql,
+                                      int(blens.max()))
+        qh, hl = k2_plain.homo_collapse(q, ql)
+        Nb = len(blens)
+
+        def state(records):
+            st = state_from_numpy(*numpy_state([], add_rc_interleaved(records)), dev)
+            return st, [x.to(torch.int32).contiguous()
+                        for x in (st.t_raw, st.tl_raw, st.t_homo, st.tl_homo)]
+
+        def run_cross(fn, t_raw, tl_raw, t_homo, tl_homo, n=Nb):
+            return fn(q[:n], ql[:n], t_raw, tl_raw), fn(qh[:n], hl[:n], t_homo, tl_homo)
+
+        def kernel_bound(t_raw, tl_raw, t_homo, tl_homo, pair_inputs=False):
+            """The cross entry's inputs read once (both variants' blocks, the
+            monomers, the lengths) and (D, columns) written once; with
+            pair_inputs, the pairwise entry's expanded inputs and its three
+            outputs instead. OPS_PER_CELL["k2"] per cell of every pair."""
+            M = t_raw.shape[0]
+            cells = int(ql.sum()) * int(tl_raw.sum()) + int(hl.sum()) * int(tl_homo.sum())
+            if pair_inputs:
+                nbytes = 4 * M * (q.numel() + qh.numel() + 2 * Nb) + 4 * Nb * (
+                    t_raw.numel() + t_homo.numel() + 2 * M) + 2 * Nb * M * 12
+            else:
+                nbytes = 4 * (q.numel() + qh.numel() + t_raw.numel() + t_homo.numel()
+                              + 2 * Nb + 2 * M) + 2 * Nb * M * 8
+            return bound(nbytes, OPS_PER_CELL["k2"] * cells)
+
+        st, targets = state(load_fasta(dxz1, upper=True))
+        M = targets[0].shape[0]
+        k, got = timed(lambda: run_cross(nw_identity_cross_cuda, *targets), 10)
+        p, want = timed(lambda: run_cross(k2_plain.nw_identity_cross, *targets), 0)
+        for v, name in enumerate(("raw", "homopolymer-compressed")):
+            smoke.same("nw_identity_cross", f"golden blocks x DXZ1, {name}", got[v], want[v])
+        timing["nw_identity_cross"] = (statistics.median(k), p[0])
+        bd = bounds["nw_identity_cross"] = kernel_bound(*targets)
+        print(f"K2 cross entry alone (2 launches, C = {cells_per_lane(q.shape[1])} for both "
+              f"variants), {Nb} golden blocks x {M} monomers x 2 variants: kernel {spread(k)}; "
+              f"plain {p[0]:.3f} ms (1 run); bound {bd[0]:.3f} ms ({bd[1]}), "
+              f"{100 * bd[0] / statistics.median(k):.2f} % of it")
+        # the pairwise entry on the same pairs, expanded block-major
+        exp = [(x.repeat_interleave(M, dim=0), xl.repeat_interleave(M), t.repeat(Nb, 1), tl.repeat(Nb))
+               for x, xl, t, tl in ((q, ql, *targets[:2]), (qh, hl, *targets[2:]))]
+        k, got = timed(lambda: [nw_identity_batch_cuda(*e) for e in exp], 10)
+        p, want = timed(lambda: [k2_plain.nw_identity_batch(*e) for e in exp], 0)
+        for v in range(2):
+            for i, name in enumerate(("D", "matches", "columns")):
+                smoke.same("nw_identity", f"golden pairs expanded, variant {v} {name}",
+                           got[v][i], want[v][i])
+        bd = kernel_bound(*targets, pair_inputs=True)
+        print(f"K2 pairwise entry alone (2 launches), the same {2 * Nb * M} pairs expanded: kernel "
+              f"{spread(k)}; plain {p[0]:.3f} ms (1 run); bound {bd[0]:.3f} ms ({bd[1]}), "
+              f"{100 * bd[0] / statistics.median(k):.2f} % of it")
+        # the pairwise entry at its own path's shape: the (block, best
+        # monomer) pairs the golden light-mode run dispatches, as it
+        # dispatches them
+        light = []
+
+        def grab(*a):
+            light.append(a)
+            return nw_identity_batch_cuda(*a)
+
+        with tempfile.TemporaryDirectory() as d:
+            pipeline.run(read_fa, dxz1, out_dir=d, device="cuda", identity_fn=grab)
+        k, got = timed(lambda: [nw_identity_batch_cuda(*a) for a in light], 10)
+        p, want = timed(lambda: [k2_plain.nw_identity_batch(*a) for a in light], 0)
+        for g, w in zip(got, want):
+            for i, name in enumerate(("D", "matches", "columns")):
+                smoke.same("nw_identity", f"light-mode pairs {name}", g[i], w[i])
+        timing["nw_identity"] = (statistics.median(k), p[0])
+        cells = sum(int((ql.to(torch.int64) * tl).sum()) for _, ql, _, tl in light)
+        nbytes = sum(sum(x.numel() * x.element_size() for x in a) + 3 * 4 * a[0].shape[0]
+                     for a in light)
+        bd = bounds["nw_identity"] = bound(nbytes, OPS_PER_CELL["k2"] * cells)
+        print(f"K2 pairwise entry alone ({len(light)} launch(es)), light mode's "
+              f"{sum(a[0].shape[0] for a in light)} (block, best monomer) pairs: kernel "
+              f"{spread(k)}; plain {p[0]:.3f} ms (1 run); bound {bd[0]:.4f} ms ({bd[1]}), "
+              f"{100 * bd[0] / statistics.median(k):.2f} % of it")
+        pargs = (read_dev, starts, blens, st.t_raw, st.tl_raw, st.t_homo, st.tl_homo)
+        kw = dict(n_pad=Nb, Lq=int(blens.max()))
+        k, got = timed(lambda: nw_identity_packed_both(*pargs, **kw), 10)
+        p, want = timed(lambda: k2_plain.nw_identity_packed_both_plain(*pargs, **kw), 0)
+        smoke.same("nw_identity_cross", "golden shape packed_both", got, want)
+        print(f"K2 packed call (nw_identity_packed_both: prologue + the cross entry), {Nb} blocks x "
+              f"{M} monomers x 2 variants: {spread(k)}; plain {p[0]:.3f} ms (1 run)")
+        # the library's width: the same blocks x 264 monomers
+        _, lib = state([Record(r.name, r.seq.upper()) for r in library])
+        k, got = timed(lambda: run_cross(nw_identity_cross_cuda, *lib), 5)
+        want = run_cross(k2_plain.nw_identity_cross, *lib, n=64)
+        for v in range(2):
+            smoke.same("nw_identity_cross", f"library width, variant {v}, first 64 blocks",
+                       got[v][:64], want[v])
+        bd = kernel_bound(*lib)
+        print(f"K2 cross entry alone, {Nb} golden blocks x {lib[0].shape[0]} library monomers x 2 "
+              f"variants (the library's width): kernel {spread(k)}; bound {bd[0]:.3f} ms "
+              f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
 
     def all_times():
         kernel_times()
+        k2_times()
         banded_times()
 
     smoke.phase("setup", setup)
@@ -1448,6 +1559,8 @@ def main() -> int:
             ("chain_dp_large", src + "chain_dp.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
             ("block_walk", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp.py:165"),
             ("nw_identity", src + "nw_identity.cu", "stringdecomposer_tpu/ops/identity_pallas.py:63"),
+            ("nw_identity_cross", src + "nw_identity.cu",
+             "stringdecomposer_tpu/ops/identity_pallas.py:63"),
             ("hw_filter", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
             ("banded_final_column", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:59"),
             ("banded_myers", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "sd_int16_probe": (_I, [_P, _P, _I, _I, _P]),
     "sd_hw_distance": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "sd_nw_identity": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "sd_nw_identity_cross": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sd_banded_column": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_banded_myers": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_semi_ends": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),

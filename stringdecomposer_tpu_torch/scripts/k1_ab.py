@@ -36,14 +36,10 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import re
-import subprocess
 import sys
-import tempfile
-import time
-from pathlib import Path
 
-DATA = Path(__file__).resolve().parents[2] / "stringdecomposer_tpu" / "test_data"
+from ab_common import DATA, checkout, e2e, ms
+
 REPS = 10
 E2E_REPS = 5
 
@@ -81,31 +77,6 @@ def _rows(mono, lens, M):
     return mono[idx], lens[idx]
 
 
-def e2e(pipeline, stagetimer, torch) -> dict:
-    """{run: {"e2e_s": [...], "spans": {stage: s}}} for the golden run and
-    run (i)."""
-    out = {}
-    for name, kw in (("golden", {}), ("run (i) ed_thr 10", {"ed_thr": 10})):
-        with tempfile.TemporaryDirectory() as d:
-            def one():
-                t0 = time.perf_counter()
-                pipeline.run(str(DATA / "read.fa"), str(DATA / "DXZ1_star_monomers.fa"),
-                             out_dir=d, second_best=True, device="cuda", **kw)
-                torch.cuda.synchronize()
-                return time.perf_counter() - t0
-
-            one()  # warm-up
-            secs = [one() for _ in range(E2E_REPS)]
-            stagetimer.enable()
-            try:
-                one()
-                spans = stagetimer.snapshot()
-            finally:
-                stagetimer.disable()
-        out[name] = {"e2e_s": secs, "spans": spans}
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", help="directory holding the checkout's stringdecomposer_tpu_torch")
@@ -115,56 +86,28 @@ def main() -> int:
     what.add_argument("--e2e", action="store_true",
                       help="time the golden run and run (i) end to end instead")
     args = ap.parse_args()
-    root = Path(args.root).resolve()
-    sys.path.insert(0, str(root))
-    import torch
-
-    if not torch.cuda.is_available():
-        print("k1_ab: torch.cuda.is_available() is False; this needs a GPU", file=sys.stderr)
-        return 2
-    from stringdecomposer_tpu_torch import pipeline
+    torch, res = checkout(args.root, "chain_dp", "k1_ab")
     from stringdecomposer_tpu_torch.io import fasta
     from stringdecomposer_tpu_torch.ops import chain_dp, oracle
     from stringdecomposer_tpu_torch.ops.chain_dp_cuda import chain_dp_forward_cuda
-    from stringdecomposer_tpu_torch.runtime import build
-    from stringdecomposer_tpu_torch.utils import stagetimer
 
-    import stringdecomposer_tpu_torch as pkg
-
-    if Path(pkg.__file__).resolve().parent != root / "stringdecomposer_tpu_torch":
-        raise RuntimeError(f"imported {pkg.__file__}, not the checkout under {root}")
-    dev = torch.device("cuda")
-    build.library()
-    ptxas, entry = [], "?"
-    for ln in (build.library_path().parent / "build.log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '_ZN\w*?_cu_\w{8}\d+([a-z_0-9]+)(I\w*?EE)?", ln)
-        if m:
-            entry = m.group(1) + (m.group(2) or "")
-        elif "chain_dp" in entry and ("registers" in ln or "spill" in ln):
-            ptxas.append(f"{entry}: {ln.strip()}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    res = {"root": str(args.root), "gpu": smi, "ptxas": ptxas, "shapes": {}}
     if args.e2e:
-        res["e2e"] = e2e(pipeline, stagetimer, torch)
+        read, dxz1 = str(DATA / "read.fa"), str(DATA / "DXZ1_star_monomers.fa")
+        res["e2e"] = e2e(torch, [("golden", read, dxz1, E2E_REPS, {}),
+                                 ("run (i) ed_thr 10", read, dxz1, E2E_REPS, {"ed_thr": 10})])
         print(json.dumps(res))
         return 0
+    dev = torch.device("cuda")
     cap = 5500 // 8
+    res["shapes"] = {}
     for name, *arrays in shapes(fasta, oracle, chain_dp, args.scaling):
         a = [torch.from_numpy(x).to(dev) for x in arrays]
-        blocks, counts = chain_dp_forward_cuda(*a, max_blocks=cap)  # warm-up
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(REPS):
-            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0.record()
-            chain_dp_forward_cuda(*a, max_blocks=cap)
-            t1.record()
-            torch.cuda.synchronize()
-            ms.append(t0.elapsed_time(t1))
+        blocks, counts = chain_dp_forward_cuda(*a, max_blocks=cap)
         digest = hashlib.sha256(blocks.cpu().numpy().tobytes() + counts.cpu().numpy().tobytes())
         res["shapes"][name] = {"M": int(a[2].shape[0]), "L": int(a[2].shape[1]),
-                               "B": int(a[0].shape[0]), "W": int(a[0].shape[1]), "ms": ms,
+                               "B": int(a[0].shape[0]), "W": int(a[0].shape[1]),
+                               "ms": ms(torch, lambda: chain_dp_forward_cuda(*a, max_blocks=cap),
+                                        REPS),
                                "digest": digest.hexdigest()[:16]}
     print(json.dumps(res))
     return 0

@@ -104,9 +104,10 @@ def test_cpu_dispatch_launches_nothing():
 
 
 def test_hor_library_matches_jax_m264(test_data_dir):
-    """The 264-monomer HOR library (chip_smoke.hor_library, the set that
-    takes K1's large route on the card) at B = 3, W = 320."""
-    from chip_smoke import hor_library
+    """The 264-monomer HOR library (the port's scripts/workloads.hor_library,
+    which chip_smoke drives: the set that takes K1's large route on the
+    card) at B = 3, W = 320."""
+    from stringdecomposer_tpu_torch.scripts.workloads import hor_library
     from stringdecomposer_tpu.io.fasta import load_fasta
 
     lib = hor_library(load_fasta(test_data_dir / "DXZ1_star_monomers.fa"),

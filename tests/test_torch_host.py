@@ -309,9 +309,11 @@ def _load(path: pathlib.Path, name: str):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_chip_smoke_synthesize_matches_scale_smoke(seed, test_data_dir):
-    """chip_smoke's copy of scripts/scale_smoke.synthesize draws the same
+    """chip_smoke's copy of scripts/scale_smoke.synthesize (the port's
+    scripts/workloads.synthesize, which chip_smoke imports) draws the same
     assembly from the same seed (exact string equality)."""
-    ours = _load(REPO / "chip_smoke.py", "_chip_smoke").synthesize
+    from stringdecomposer_tpu_torch.scripts.workloads import synthesize as ours
+
     theirs = _load(REPO / "scripts" / "scale_smoke.py", "_scale_smoke").synthesize
     monomers = j_fasta.load_fasta(os.path.join(test_data_dir, "DXZ1_star_monomers.fa"))
     a = ours(20_000, monomers, np.random.default_rng(seed))
