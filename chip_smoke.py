@@ -6,9 +6,11 @@ PyTorch twin on the card (bit-equal: all outputs are integers) and against
 the reference fixtures, drives the golden CLI run through the kernels and
 a 1.6 Mbp synthetic assembly through both routes, drives the --ed_thr
 pre-filter (K3) and a HOR-scale monomer library (`hor_library`, 264
-monomers with RC, which takes K1's large route unfiltered), drives the
-golden read against DXZ1 dimers (`dimer_set`, L > 256, K1's chunked
-shared-route body; shorter sets take its lanes body), drives the
+monomers with RC, which takes K1's large route unfiltered, on its cluster
+body), drives the golden read against DXZ1 dimers (`dimer_set`, L > 256,
+K1's chunked shared-route body; shorter sets take its lanes body) and
+against 150 dimer variants (`dimer_variants`, L > 256 and too large for the
+shared route: the chunked large route), drives the
 general alignment API through K4, K5 and K6 (the reference edlib fixtures,
 a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
 cut sizes against the scan route), checks P (the int16 probe) and K1's
@@ -44,11 +46,13 @@ VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")  # ops
 ABLATE = tuple(f"ablate_{'large_' if large else ''}{v}" for large in (False, True) for v in VARIANTS)
 KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "nw_identity_cross", "hw_filter",
            "banded_final_column", "banded_myers", "semi_ends", "int16_probe", "chain_dp_int16",
-           "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16") + ABLATE
+           "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16", "chain_dp_cluster",
+           "chain_dp_cluster_int16") + ABLATE
 # K1's kernel bodies (ops/chain_dp_cuda.body) -> chip_smoke kernel names, by state type
 K1_NAMES = {("lanes", 4): "chain_dp_lanes", ("chunked", 4): "chain_dp",
-            ("large", 4): "chain_dp_large", ("lanes", 2): "chain_dp_lanes_int16",
-            ("chunked", 2): "chain_dp_int16", ("large", 2): "chain_dp_large_int16"}
+            ("large", 4): "chain_dp_large", ("cluster", 4): "chain_dp_cluster",
+            ("lanes", 2): "chain_dp_lanes_int16", ("chunked", 2): "chain_dp_int16",
+            ("large", 2): "chain_dp_large_int16", ("cluster", 2): "chain_dp_cluster_int16"}
 # The card's peak rates for the bounds (H100 SXM datasheet, 700 W): HBM at
 # 3.35 TB/s; int32 at 64 INT32 lanes per SM per clock (half the 128 FP32
 # lanes behind the datasheet's 67 TFLOP/s float32, which counts an FMA as 2)
@@ -88,6 +92,24 @@ def dimer_set(records):
 
     return [Record(f"{a.name.split()[0]}+{b.name.split()[0]}", a.seq + b.seq)
             for a, b in zip(records, records[1:] + records[:1])]
+
+
+def dimer_variants(records, n, rng):
+    """n / 2 variants of the DXZ1 dimers (`dimer_set`; variant j of dimer
+    j % 12, 5 % of its bases substituted at random), which with RC are n
+    rows of ~340 bp padded to L > 256: for n = 150 a set too large for the
+    shared route in int32 and int16, so K1 runs it on its chunked large
+    route."""
+    from stringdecomposer_tpu_torch.io.fasta import Record
+
+    dimers = dimer_set(records)
+    out = []
+    for j in range(n // 2):
+        seq = list(dimers[j % len(dimers)].seq)
+        for p in rng.choice(len(seq), len(seq) // 20, replace=False):
+            seq[p] = "ACGT".replace(seq[p], "")[int(rng.integers(3))]
+        out.append(Record(f"dv{j}", "".join(seq)))
+    return out
 
 
 def hw_brute(q: str, t: str) -> int:
@@ -274,7 +296,9 @@ def main() -> int:
                 "chain_dp_int16": (chain_dp_forward_cuda, "launches_int16"),
                 "chain_dp_large_int16": (chain_dp_large_cuda, "launches_int16"),
                 "chain_dp_lanes": (chain_dp_forward_cuda, "launches_lanes"),
-                "chain_dp_lanes_int16": (chain_dp_forward_cuda, "launches_lanes_int16")}
+                "chain_dp_lanes_int16": (chain_dp_forward_cuda, "launches_lanes_int16"),
+                "chain_dp_cluster": (chain_dp_large_cuda, "launches_cluster"),
+                "chain_dp_cluster_int16": (chain_dp_large_cuda, "launches_cluster_int16")}
     counters.update({f"ablate_{'large_' if large else ''}{v}":
                      (chain_dp_ablate_cuda, k1.ablate_counter(v, large))
                      for large in (False, True) for v in VARIANTS})
@@ -294,6 +318,9 @@ def main() -> int:
     dimers_fa = os.path.join(work.name, "dxz1_dimers.fa")
     write_fasta(dimers_fa, dimers)
     dimer_L = (max(len(r.seq) for r in dimers) + 7) // 8 * 8
+    variants = dimer_variants(load_fasta(dxz1), 150, np.random.default_rng(0))
+    variants_fa = os.path.join(work.name, "dxz1_dimer_variants.fa")
+    write_fasta(variants_fa, variants)
     cache: dict[str, object] = {}
 
     def assembly_fa() -> str:
@@ -361,10 +388,22 @@ def main() -> int:
         L = (max(len(m.seq) for m in monos) + 7) // 8 * 8
         return monos, pad_monomers(monos, pad_to=L)
 
-    def k1_int16_case(args, kw, lens_np, what):
-        """K1's int16 state on both routes against the int16 twin (every
-        output, the debug arrays too) and against the int32 kernel (blocks,
-        counts, and end / spend on the rows of nonzero length)."""
+    def plan_at(M, L, state_bytes, windows):
+        """The cluster plan chain_dp_large_cuda takes for `windows` windows
+        on this card."""
+        return k1.cluster_plan(M, L, state_bytes, windows,
+                               lambda cs: k1.cluster_occupancy(M, L, state_bytes, cs, windows))
+
+    def large_name(M, L, state_bytes, cluster_size=None):
+        """The kernel name of the body chain_dp_large_cuda runs."""
+        cluster = cluster_size is not None or k1.cluster_plan(M, L, state_bytes) is not None
+        return K1_NAMES["cluster" if cluster else "large", state_bytes]
+
+    def k1_int16_case(args, kw, lens_np, what, cluster_size=None):
+        """K1's int16 state on both routes (the large one at `cluster_size`
+        where given) against the int16 twin (every output, the debug arrays
+        too) and against the int32 kernel (blocks, counts, and end / spend on
+        the rows of nonzero length)."""
         M, L = args[2].shape[-2], args[2].shape[-1]
         shared16 = K1_NAMES[k1_body(M, L, 2), 2]
         b32, c32, (_, e32, s32) = chain_dp_forward_cuda(*args, **kw)
@@ -372,9 +411,10 @@ def main() -> int:
         real = torch.from_numpy(lens_np > 0).to(dev)
         real = real[None, None, :] if real.dim() == 1 else real[:, None, :]
         got = None
-        for fn, kernel in ((chain_dp_forward_cuda, shared16),
-                           (chain_dp_large_cuda, "chain_dp_large_int16")):
-            got = fn(*args, state_dtype="int16", **kw)
+        for fn, kernel, fkw in ((chain_dp_forward_cuda, shared16, {}),
+                                (chain_dp_large_cuda, large_name(M, L, 2, cluster_size),
+                                 {"cluster_size": cluster_size})):
+            got = fn(*args, state_dtype="int16", **fkw, **kw)
             torch.cuda.synchronize()
             bk, ck, (chk, ek, sk) = got
             for nm, g, w in zip(("blocks", "counts", "chain", "end", "spend"),
@@ -388,19 +428,21 @@ def main() -> int:
         return got
 
     def k1_case(windows_np, wlens_np, mono_np, lens_np, sc, what, max_blocks=0,
-                fn=chain_dp_forward_cuda, kernel=None, want=None, int16=False):
+                fn=chain_dp_forward_cuda, kernel=None, want=None, int16=False,
+                cluster_size=None):
         """One K1 route (`fn`, whose errors count under `kernel`, by default
-        the body chain_dp_forward_cuda takes) against the plain twin, or
-        against `want` when given (another route's outputs on the same
-        inputs). Returns the kernel's outputs. With int16, both routes'
-        int16 state instead (k1_int16_case)."""
+        the body chain_dp_forward_cuda takes; chain_dp_large_cuda at
+        `cluster_size` where given) against the plain twin, or against
+        `want` when given (another route's outputs on the same inputs).
+        Returns the kernel's outputs. With int16, both routes' int16 state
+        instead (k1_int16_case)."""
         args = [torch.from_numpy(a).to(dev) for a in (windows_np, wlens_np, mono_np, lens_np)]
         kernel = kernel or K1_NAMES[k1_body(*mono_np.shape[-2:]), 4]
         kw = dict(ins=sc[0], dele=sc[1], mismatch=sc[2], match=sc[3],
                   max_blocks=max_blocks, return_debug=True)
         if int16:
-            return k1_int16_case(args, kw, lens_np, what)
-        got = fn(*args, **kw)
+            return k1_int16_case(args, kw, lens_np, what, cluster_size)
+        got = fn(*args, **kw) if cluster_size is None else fn(*args, cluster_size=cluster_size, **kw)
         if want is None:
             want = k1_plain.chain_dp_forward(*args, **kw)
         torch.cuda.synchronize()
@@ -502,29 +544,74 @@ def main() -> int:
                 continue
             if what not in shapes_vs_large:
                 continue
-            # the large route on a set that fits, against the shared route
+            # the cluster body on a set that fits, against the lanes body
             for mw, lw, sc in ((mono, lens, (-1, -1, -1, 1)), (mono_w, lens_w, (-2, -1, -1, 2))):
                 shared = k1_case(wb, wl, mw, lw, sc, what + " shared route")
-                k1_case(wb, wl, mw, lw, sc, what + " large route vs shared", fn=chain_dp_large_cuda,
-                        kernel="chain_dp_large", want=shared)
+                for cs in (2, 4):
+                    k1_case(wb, wl, mw, lw, sc, f"{what} cluster body cs={cs} vs the lanes body",
+                            fn=chain_dp_large_cuda, kernel="chain_dp_cluster", want=shared,
+                            cluster_size=cs)
         print(f"K1 {mode}: random shapes (shared and per-window monomers; M = 24, 32, 33, 128, "
               "133 at L = 192, L = 8, 40, 176, 256 on the lanes body, L = 320 on the chunked body; "
-              "max_blocks=1 overflow) bit-equal to the plain twin; the large route bit-equal to "
-              "the shared route on each")
-        # the HOR-scale library: M = 264 at L = 192 takes the large route
+              "max_blocks=1 overflow) bit-equal to the plain twin; the cluster body at cs = 2 and "
+              "4 bit-equal to the lanes body on M = 24 and 128")
+        # the cluster body: the HOR-scale library (M = 264 at L = 192, past
+        # the shared route), its first 200 and 134 rows, at the plan's
+        # cluster sizes for 3, 19 and 64 windows, at 2 and at a non-portable
+        # 16 where the card schedules it; shared and per-window monomers,
+        # rows of length 0 in the last block, max_blocks=1 overflow
+        sb = 2 if int16 else 4
         monos, (mono, lens) = mono_set(library)
-        if mono.shape != (264, 192) or route(*mono.shape) != "large":
-            raise AssertionError(f"library: shape {mono.shape}, route {route(*mono.shape)}")
+        if mono.shape != (264, 192) or k1_body(*mono.shape, sb) != "cluster":
+            raise AssertionError(f"library: shape {mono.shape}, body {k1_body(*mono.shape, sb)}")
         wb, wl = rand_windows(library, 3, 320)
-        k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), "library M=264", kernel="chain_dp_large",
-                int16=int16)
         perm = np.stack([rng.permutation(len(lens)) for _ in range(3)])
+        held = []
+        for M in (264, 200, 134):
+            m, ln = mono[:M], lens[:M]
+            m_w, ln_w = mono[perm[:, :M]], lens[perm[:, :M]].copy()
+            ln_w[:, -5:] = 0
+            ragged = ln.copy()
+            ragged[-3:] = 0
+            sizes = []  # the plan's at 3, 19 and 64 windows, then 2 and 16
+            for cs in [plan_at(M, 192, sb, B)[0] for B in (3, 19, 64)] + [2, 16]:
+                if cs not in sizes and k1.cluster_shape(M, 192, sb, cs) is not None \
+                        and k1.cluster_occupancy(M, 192, sb, cs, 3) > 0:
+                    sizes.append(cs)
+            for cs in sizes:
+                kern = dict(fn=chain_dp_large_cuda, kernel=K1_NAMES["cluster", sb], cluster_size=cs,
+                            int16=int16)
+                k1_case(wb, wl, m, ln, (-1, -1, -1, 1), f"library[:{M}] cs={cs}", **kern)
+                k1_case(wb, wl, m_w, ln_w, (-2, -1, -1, 2), f"library[:{M}] cs={cs} per-window",
+                        **kern)
+                k1_case(wb, wl, m, ragged, (-1, -2, -1, 1), f"library[:{M}] cs={cs} rows of "
+                        "length 0 in the last block", **kern)
+                counts = k1_case(wb, wl, m, ln, (-1, -1, -1, 1), f"library[:{M}] cs={cs} "
+                                 "max_blocks=1", max_blocks=1, **kern)[1]
+                if int(counts.max()) <= 1:
+                    raise AssertionError(f"library[:{M}]: the overflow case did not overflow")
+            held.append(f"M={M} at cs {sizes}")
+        print(f"K1 {mode}: the cluster body on the 264-monomer library and its first 200 and 134 "
+              f"rows ({'; '.join(held)}), shared and per-window monomers, "
+              "rows of length 0, max_blocks=1 overflow, bit-equal to the plain twin")
+        # the chunked large route: 150 DXZ1 dimer variants at L > 256
+        _, (mono, lens) = mono_set(variants)
+        if k1_body(*mono.shape, sb) != "large":
+            raise AssertionError(f"dimer variants {mono.shape}: body {k1_body(*mono.shape, sb)}")
+        wb, wl = rand_windows(variants, 2, 900)
+        perm = np.stack([rng.permutation(len(lens)) for _ in range(2)])
         mono_w, lens_w = mono[perm], lens[perm].copy()
-        lens_w[:, -5:] = 0
-        k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), "library M=264 per-window",
-                kernel="chain_dp_large", int16=int16)
-        print(f"K1 {mode}: the 264-monomer library (large route, shared and per-window "
-              "monomers) bit-equal to the plain twin")
+        lens_w[:, -4:] = 0
+        kern = dict(fn=chain_dp_large_cuda, kernel=K1_NAMES["large", sb], int16=int16)
+        k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), "dimer variants M=150", **kern)
+        k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), "dimer variants M=150 per-window", **kern)
+        counts = k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), "dimer variants M=150 max_blocks=1",
+                         max_blocks=1, **kern)[1]
+        if int(counts.max()) <= 1:
+            raise AssertionError("dimer variants: the overflow case did not overflow")
+        print(f"K1 {mode}: the chunked large route on 150 DXZ1 dimer variants (L = "
+              f"{mono.shape[1]}; shared and per-window monomers, max_blocks=1 overflow) bit-equal "
+              "to the plain twin")
 
     def k2_checks():
         cases = []
@@ -719,6 +806,23 @@ def main() -> int:
         print(f"golden x DXZ1 dimers: K2 route for the longest block ({longest} bp): C = "
               f"{cells_per_lane(longest)} rows a lane, "
               f"{'strips' if longest > 32 * C_MAX else 'one strip'} of {32 * C_MAX} rows")
+        # 150 dimer variants: too large for the shared route at L > 256, so
+        # K1 runs its chunked large route on the main path
+        got = drive("golden x 150 DXZ1 dimer variants (kernel route)",
+                    lambda: pipeline.run(read_fa, variants_fa, out_dir=os.path.join(out, "dv_kernel"),
+                                         second_best=True, device="cuda"))
+        if got["chain_dp_large"] <= 0 or got["chain_dp_cluster"] or got["block_walk"] <= 0:
+            raise AssertionError(f"golden x dimer variants: launches {got}")
+        launches["chain_dp_large"] = got["chain_dp_large"]
+        t0 = time.perf_counter()
+        pipeline.run(read_fa, variants_fa, out_dir=os.path.join(out, "dv_plain"), second_best=True,
+                     device="cuda", forward_fn=k1_plain.chain_dp_forward)
+        torch.cuda.synchronize()
+        same_files(os.path.join(out, "dv_kernel"), os.path.join(out, "dv_plain"),
+                   "golden x dimer variants")
+        print(f"golden x 150 DXZ1 dimer variants: three TSVs equal between the kernel route and "
+              f"the route with K1's plain twin ({time.perf_counter() - t0:.3f} s); "
+              f"{n_rows(os.path.join(out, 'dv_kernel'))} assignments")
 
     def scale_run():
         monomers_fwd = load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"))
@@ -882,12 +986,21 @@ def main() -> int:
                 secs["e2e"] = time.perf_counter() - t0
 
             got = drive(f"run (iii) 1.6 Mbp x library --ed_thr {ed}", run_iii)
-            path = ("hw_filter", "chain_dp_lanes") if ed >= 0 else ("chain_dp_large",)
+            path = ("hw_filter", "chain_dp_lanes") if ed >= 0 else ("chain_dp_cluster",)
             bad = [k for k in path + ("block_walk", "nw_identity_cross") if got[k] <= 0]
-            if bad:
-                raise AssertionError(f"run (iii) ed_thr {ed}: kernels of the path not launched: {bad}")
+            if bad or got["chain_dp_large"]:
+                raise AssertionError(f"run (iii) ed_thr {ed}: kernels of the path not launched: "
+                                     f"{bad}, or the chunked large route launched: {got}")
             if ed < 0:
-                launches["chain_dp_large"] = got["chain_dp_large"]
+                launches["chain_dp_cluster"] = got["chain_dp_cluster"]
+                # the same run with K1's plain twin in place of the cluster body
+                t0 = time.perf_counter()
+                pipeline.run(fa, library_fa, out_dir=d + "_plain", second_best=True, device="cuda",
+                             forward_fn=k1_plain.chain_dp_forward)
+                torch.cuda.synchronize()
+                same_files(d, d + "_plain", "run (iii) unfiltered, K1 kernel vs plain twin")
+                print(f"run (iii) unfiltered: three TSVs equal between the kernel route and the "
+                      f"route with K1's plain twin ({time.perf_counter() - t0:.3f} s)")
             rows = n_rows(d)
             names = {r.name for r in library} | {r.name + "'" for r in library}
             with open(os.path.join(d, tsvs[0])) as f:
@@ -935,9 +1048,11 @@ def main() -> int:
               "int16_state_supported('cuda') is True")
 
     def int16_shapes():
-        """The four timed shapes: the golden windows x DXZ1 (M = 24), x the
-        264-monomer library, x its first 200 rows (int16: shared route,
-        int32: large route), x the DXZ1 dimers (L > 256: the chunked body)."""
+        """The timed shapes: the golden windows x DXZ1 (M = 24), x the
+        264-monomer library (the cluster body), x its first 200 rows (int16:
+        the lanes body, int32: the cluster body), x the DXZ1 dimers (L > 256:
+        the chunked body), x the 150 dimer variants (the chunked large
+        route)."""
         reads = load_fasta(read_fa)
         codes = encode(reads[0].seq)
         wins = [codes[o : o + n] for o, n in make_windows(len(codes), 5000, 500)]
@@ -945,10 +1060,12 @@ def main() -> int:
         _, (m24, l24) = mono_set(load_fasta(dxz1))
         _, (mlib, llib) = mono_set(library)
         _, (mdim, ldim) = mono_set(dimers)
+        _, (mdv, ldv) = mono_set(variants)
         return [("golden x DXZ1 M=24", wb, wl, m24, l24),
                 ("golden x library M=264", wb, wl, mlib, llib),
                 ("golden x library[:200] M=200", wb, wl, mlib[:200], llib[:200]),
-                (f"golden x DXZ1 dimers M=24 L={dimer_L}", wb, wl, mdim, ldim)]
+                (f"golden x DXZ1 dimers M=24 L={dimer_L}", wb, wl, mdim, ldim),
+                (f"golden x dimer variants M=150 L={mdv.shape[1]}", wb, wl, mdv, ldv)]
 
     def k1_int16_run():
         k1_checks(int16=True)
@@ -962,13 +1079,13 @@ def main() -> int:
                 chain_dp_forward_cuda(*args, max_blocks=cap, state_dtype="int16")
 
         got = drive("int16 K1 path: golden windows x DXZ1, x library, x library[:200], "
-                    "x DXZ1 dimers, state_dtype='int16'", path)
+                    "x DXZ1 dimers, x dimer variants, state_dtype='int16'", path)
         need = ("int16_probe", "chain_dp_lanes_int16", "chain_dp_int16", "chain_dp_large_int16",
-                "block_walk")
+                "chain_dp_cluster_int16", "block_walk")
         bad = [k for k in need if got[k] <= 0]
         if bad:
             raise AssertionError(f"int16 K1 path: kernels not launched: {bad}")
-        launches.update({k: got[k] for k in need[:4]})
+        launches.update({k: got[k] for k in need[:5]})
         for what, wb, wl, mono, lens in shapes:
             args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
             M, L = mono.shape
@@ -1054,20 +1171,22 @@ def main() -> int:
               f"L={mono.shape[1]}: kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
               f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
         # several rows a warp: the library's first 64 and 128 rows (L = 192),
-        # held to the large route on the same inputs
+        # held to and timed beside the cluster body at its plan's size on
+        # the same inputs (sets the shared route takes: measured, not routed)
         _, (mlib, llib) = mono_set(library)
         for M in (64, 128):
             a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mlib[:M], llib[:M])]
             if k1_body(M, mlib.shape[1]) != "lanes":
                 raise AssertionError(f"M={M}: body {k1_body(M, mlib.shape[1])}")
             k, got = timed(lambda: chain_dp_forward_cuda(*a, max_blocks=cap), 5)
-            want = chain_dp_large_cuda(*a, max_blocks=cap)
-            smoke.same("chain_dp_lanes", f"M={M} blocks vs the large route", got[0], want[0])
-            smoke.same("chain_dp_lanes", f"M={M} counts vs the large route", got[1], want[1])
+            kc, want = timed(lambda: chain_dp_large_cuda(*a, max_blocks=cap), 5)
+            smoke.same("chain_dp_lanes", f"M={M} blocks vs the cluster body", got[0], want[0])
+            smoke.same("chain_dp_lanes", f"M={M} counts vs the cluster body", got[1], want[1])
             bd = k1_bound(a[0], a[2], a[3], 4, blocks_out=blocks_out)
             print(f"K1 lanes body + walk, {len(wins)} windows x 5500, M={M}, L={mlib.shape[1]}: "
                   f"kernel {spread(k)}; bound {bd[0]:.3f} ms ({bd[1]}), "
-                  f"{100 * bd[0] / statistics.median(k):.2f} % of it")
+                  f"{100 * bd[0] / statistics.median(k):.2f} % of it; the cluster body at cs = "
+                  f"{plan_at(M, mlib.shape[1], 4, len(wins))[0]}: {spread(kc)}")
         # the chunked body at L > 256: the golden windows x the DXZ1 dimers
         _, (mdim, ldim) = mono_set(dimers)
         a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mdim, ldim)]
@@ -1095,7 +1214,7 @@ def main() -> int:
                                      OPS_PER_CELL["scan"] * cols * M)
         print(f"walk alone on the same end/spend: kernel {spread(k)}; plain {spread(p)}; bound "
               f"{bounds['block_walk'][0]:.6f} ms ({bounds['block_walk'][1]})")
-        # K3 and K1's large route at the golden windows x the library
+        # K3 and K1's cluster body at the golden windows x the library
         _, (mono, lens) = mono_set(library)
         args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
         k, got = timed(lambda: hw_distance_batch_cuda(*args), 5)
@@ -1107,14 +1226,33 @@ def main() -> int:
                                     OPS_PER_CELL["hw"] * cells)
         print(f"K3 hw_distance, {len(wins)} windows x 5500 x M={mono.shape[0]}, L={mono.shape[1]}: "
               f"kernel {spread(k)}; plain {spread(p)}")
-        k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 3)
+        plan = plan_at(*mono.shape, 4, len(wins))
+        if k1_body(*mono.shape) != "cluster":
+            raise AssertionError(f"library: body {k1_body(*mono.shape)}")
+        k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 10)
         p, want = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap), 0)
-        smoke.same("chain_dp_large", "golden windows x library blocks", got[0], want[0])
-        smoke.same("chain_dp_large", "golden windows x library counts", got[1], want[1])
+        smoke.same("chain_dp_cluster", "golden windows x library blocks", got[0], want[0])
+        smoke.same("chain_dp_cluster", "golden windows x library counts", got[1], want[1])
+        timing["chain_dp_cluster"] = (statistics.median(k), statistics.median(p))
+        bd = bounds["chain_dp_cluster"] = k1_bound(args[0], args[2], args[3], 4,
+                                                  blocks_out=blocks_out)
+        print(f"K1 cluster body + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, "
+              f"L={mono.shape[1]} (cs = {plan[0]}, R = {plan[1]}, {plan[2]}, {plan[3]} threads, "
+              f"{plan[4]} bytes of shared memory; {k1.cluster_occupancy(*mono.shape, 4, plan[0], 19)} "
+              f"clusters at once): kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
+              f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
+        # the chunked large route: the golden windows x the 150 dimer variants
+        _, (mdv, ldv) = mono_set(variants)
+        a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mdv, ldv)]
+        k, got = timed(lambda: chain_dp_forward_cuda(*a, max_blocks=cap), 3)
+        p, want = timed(lambda: k1_plain.chain_dp_forward(*a, max_blocks=cap), 0)
+        smoke.same("chain_dp_large", "golden windows x dimer variants blocks", got[0], want[0])
+        smoke.same("chain_dp_large", "golden windows x dimer variants counts", got[1], want[1])
         timing["chain_dp_large"] = (statistics.median(k), statistics.median(p))
-        bounds["chain_dp_large"] = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
-        print(f"K1 large route + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, "
-              f"L={mono.shape[1]}: kernel {spread(k)}; plain {spread(p)}")
+        bd = bounds["chain_dp_large"] = k1_bound(a[0], a[2], a[3], 4, blocks_out=blocks_out)
+        print(f"K1 chunked large route + walk, {len(wins)} windows x 5500, M={mdv.shape[0]}, "
+              f"L={mdv.shape[1]}: kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
+              f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
         print("times: every timed kernel output bit-equal to its plain version's")
 
     banded_kernels = ("banded_final_column", "banded_myers", "semi_ends")
@@ -1571,6 +1709,8 @@ def main() -> int:
               "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")]
     meta += [(n, src + "chain_dp_lanes.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
              for n in ("chain_dp_lanes", "chain_dp_lanes_int16")]
+    meta += [(n, src + "chain_dp_cluster.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
+             for n in ("chain_dp_cluster", "chain_dp_cluster_int16")]
     meta += [(n, src + ("chain_dp.cuh" if n.endswith("_base") else "chain_dp_ablate.cu"),
               "scripts/ablate_chain.py:31") for n in ABLATE]
     print(json.dumps({"kernels": [

@@ -16,8 +16,10 @@
 // 8 KB and does 2,048 maxima, so one launch is bound by launch latency.
 //
 // The shared route at L <= 256 runs the lanes body (chain_dp_lanes.cuh,
-// sd_chain_dp_lanes); sd_chain_dp keeps the chunked body for the shared
-// route at L > 256, the large route and the ablation's base.
+// sd_chain_dp_lanes), the large route there the cluster body
+// (chain_dp_cluster.cu); sd_chain_dp keeps the chunked body for both routes
+// at L > 256, the large route past 16 blocks' shared memory and the
+// ablation's base.
 
 #include "chain_dp.cuh"
 #include "chain_dp_lanes.cuh"

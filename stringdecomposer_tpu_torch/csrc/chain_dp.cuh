@@ -23,14 +23,16 @@
 // fit the 232,448-byte opt-in limit of one block (int32 state: M <= 133 at
 // L = 192; int16 state: M <= 240).
 //
-// Large monomer sets (HOR libraries, M = 264 at L = 192 and beyond) take the
-// large route: the same kernel body, instantiated with the score and pointer
-// columns in a per-window device-memory scratch (2 * sizeof(T) bytes per
-// cell; the wrapper bounds one launch's scratch so that it stays in the
-// 50 MB L2) and the monomer codes read from device memory. Only the M end
-// scores and lengths stay in shared memory (8 bytes per row). Each warp owns
-// the same rows at every position, so its scratch rows are private to it;
-// the barriers order the shared end scores exactly as in the shared route.
+// Large monomer sets take the large route. At L <= 256 it runs the cluster
+// body (chain_dp_cluster.cuh) wherever a cluster of up to 16 blocks holds the
+// rows; above, or past that, it runs this kernel body, instantiated with the
+// score and pointer columns in a per-window device-memory scratch (2 *
+// sizeof(T) bytes per cell; the wrapper bounds one launch's scratch so that
+// it stays in the 50 MB L2) and the monomer codes read from device memory.
+// Only the M end scores and lengths stay in shared memory (8 bytes per row).
+// Each warp owns the same rows at every position, so its scratch rows are
+// private to it; the barriers order the shared end scores exactly as in the
+// shared route.
 //
 // The state type T is the type of the stored score and pointer columns and
 // of the emitted end / spend arrays: int (int32) or int16_t. Arithmetic is

@@ -1,0 +1,357 @@
+// K1's large route for monomer sets padded to L <= 256: the cluster body.
+//
+// Replaces stringdecomposer_tpu/ops/chain_dp_pallas.py::_dp_kernel (the
+// pallas_call at :482, through chain_dp_forward_pallas), as the lanes and
+// chunked bodies do, with the same recurrence, tie rules, inputs and outputs
+// (end and spend [B, W, M] in the state type T). ops/chain_dp.sweep_cluster
+// is its plain mirror, step for step.
+//
+// What bounds it on the H100: the read position is a strict sequential axis
+// (the chain score at i is the max of all M end scores at i-1), so a window
+// costs W times one position. A set too large for one block's shared memory
+// (M > 133 at L = 192 in int32) kept its column in an L2 scratch worked by
+// one block (the chunked large route, chain_dp.cuh): ~44 us a position at
+// M = 264. Here a window's rows are spread over the cs blocks of a thread
+// block cluster, each block on its own SM with its R = ceil(M / cs) rows on
+// chip, as the lanes body keeps them. A position then costs one block's row
+// work (R rows of lanes_row on one SM), the exchange of the M end scores and
+// one cluster barrier; those, and the SMs a cluster takes from the batch's
+// other windows, bound it. On one H100 the barrier with the stores costs
+// ~0.8 us a position more than the lanes body's __syncthreads (a cluster of
+// one block against the lanes body, k1_ab.py --sweep), about one row's
+// work; ops/chain_dp_cuda.cluster_plan weighs it against the waves a
+// launch takes.
+//
+// What the design does about that:
+//   - Grid: B x cs blocks in clusters of cs, one cluster a window. Block r
+//     of a cluster (its rank) owns rows r*R .. min(M, (r+1)*R) - 1, at least
+//     one (ops/chain_dp_cuda.cluster_plan picks cs and R).
+//   - Rows: lanes_row (chain_dp_lanes.cuh) unchanged, in the lanes body's
+//     forms: R <= 32, one warp a row with the row in registers (kOneRow);
+//     more, the rows in shared memory, lane-contiguous (kRowsDense, kRows).
+//     The rows' setup and step are chain_dp_lanes_kernel's, over the
+//     block's rows; the chain read (all M rows), the emit and the barrier
+//     differ.
+//   - Exchange: every block keeps all M end scores, double-buffered by
+//     position parity (ends[2][M], int32). At position i the lane that owns
+//     row m's end cell stores its end score into ends[i & 1][m] of every
+//     block of the cluster (st.shared::cluster at mapa's address), and one
+//     cluster barrier (arrive.release, wait.acquire) takes the place of the
+//     lanes body's __syncthreads. At i+1 each warp reads all M from its own
+//     block's shared memory and takes warp_max.
+//   - One barrier a position is enough, across the cluster as in one block:
+//     a store at i+1 goes into ends[(i+1) & 1] = ends[(i-1) & 1], which the
+//     warps of every block read at i for their chain max; each of them
+//     arrived at barrier i after that read, and the storing thread passed
+//     barrier i before its store. The reads at i+1 of ends[i & 1] follow
+//     barrier i, which every store of position i precedes (release, then
+//     acquire).
+//   - Start: each block fills both buffers of all M rows from dp0 itself
+//     (rows of length 0 keep kNeg in both and are never stored), then a
+//     cluster barrier before the loop: every block of the cluster has started
+//     and filled its buffers before the first remote store.
+//   - End: a block stores into another's shared memory only before its
+//     barrier of that position, so after the loop's last barrier no block
+//     can still write into one that exits; W = 1 has no loop and no remote
+//     store.
+//   - Outputs: each block writes end / spend of its own rows only.
+// Arithmetic is int32 in registers; T is used only where values are stored
+// (the shared-memory rows, end and spend), as in the lanes body, so the int16
+// state needs no range check of its own.
+
+#pragma once
+
+#include "chain_dp_lanes.cuh"
+
+namespace {
+
+constexpr int kClusterMax = 16;       // blocks a cluster (above 8: non-portable)
+constexpr int kClusterPortable = 8;   // the largest cluster every sm_90 part schedules
+constexpr long long kSmemLimit = 232448;  // opt-in shared memory of one block (sm_90)
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_blocks() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return (int)r;
+}
+
+// The shared::cluster address, in block `rank`, of this block's shared
+// address `addr`.
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void cluster_store(unsigned addr, int v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Every thread of the cluster: the stores before it are seen by the reads
+// after it in every block.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// The cluster body's emit: the end score into ends[i & 1][m] of every block
+// of the cluster (`cur` is this block's shared address of it), the outputs
+// of the block's row r.
+template <typename T>
+struct ClusterEmit {
+  unsigned cur;
+  int cs;
+  T* end_i;
+  T* spend_i;
+  int r;
+  __device__ __forceinline__ void operator()(int e, int se) const {
+    for (int k = 0; k < cs; ++k) cluster_store(cluster_addr(cur, k), e);
+    end_i[r] = (T)e;
+    spend_i[r] = (T)se;
+  }
+};
+
+// Same formula as ops/chain_dp_cuda.cluster_shape: the parity buffers of all
+// M rows, plus the block's R rows where they live in shared memory (R > 32).
+inline long long cluster_smem_bytes(int M, int L, int R, int state_bytes) {
+  return 2LL * M * 4 + (R > 32 ? (long long)R * L * (2 * state_bytes + 1) : 0);
+}
+
+template <typename T, int C, int kPath>
+__global__ void __launch_bounds__(lanes_max_threads<C, kPath>(), 1)
+chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
+                        int W,
+                        const int8_t* __restrict__ mono,  // [M, L] or [B, M, L]
+                        long long mono_bstride,
+                        const int* __restrict__ mono_lens,  // [M] or [B, M]
+                        long long lens_bstride,
+                        const T* __restrict__ dp0,  // [B, M, L] column i = 0
+                        T* __restrict__ end,        // [B, W, M]
+                        T* __restrict__ spend,      // [B, W, M]
+                        int M, int L, int R, int ins, int dele, int mismatch, int match) {
+  constexpr int kNeg = StateNeg<T>::value;
+  constexpr int kWords = (C + 3) / 4;
+  constexpr bool kOne = kPath == kOneRow;
+  extern __shared__ int smem[];
+  int* ends = smem;  // [2][M] every row's end score, by position parity
+  // several rows a warp: this block's [R][L] folded scores, pointers and
+  // codes, cell c of this lane at x0 + c * dx in its row
+  T* qs = reinterpret_cast<T*>(ends + 2 * M);
+  T* ss = qs + R * L;
+  int8_t* mcs = reinterpret_cast<int8_t*>(ss + R * L);
+
+  const int cs = cluster_blocks();
+  const int m0 = cluster_rank() * R;  // this block's first row
+  const int rows = min(R, M - m0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int b = blockIdx.x / cs;
+  const int k0 = lane * C;
+  const int F = L / C;
+  const int x0 = kPath == kRowsDense ? lane : (lane < F ? lane : F * C);
+  const int dx = kPath == kRowsDense ? 32 : (lane < F ? F : 1);
+  const int8_t* win = windows + (long long)b * W;
+  const int* lens_w = mono_lens + b * lens_bstride;  // all M rows of the window
+  const int* lens_b = lens_w + m0;                   // this block's rows
+  const int8_t* mono_b = mono + b * mono_bstride + (long long)m0 * L;
+  const T* dp0_w = dp0 + (long long)b * M * L;
+  const T* dp0_b = dp0_w + (long long)m0 * L;
+  T* end_i = end + (long long)b * W * M + m0;  // advanced by M a position
+  T* spend_i = spend + (long long)b * W * M + m0;
+
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    const int n = min(max(lens_w[m], 0), L);
+    ends[m] = n > 0 ? (int)dp0_w[(long long)m * L + n - 1] : kNeg;
+    ends[M + m] = kNeg;  // rows of length 0 keep kNeg in both buffers
+  }
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const int n = min(max(lens_b[r], 0), L);
+    end_i[r] = n > 0 ? dp0_b[(long long)r * L + n - 1] : (T)kNeg;
+    spend_i[r] = 0;
+  }
+  int q[C], s[C];
+  unsigned codes[kWords];  // kOne: the lane's codes, cell c in byte c % 4 of word c / 4
+  int n_own = 0;  // kOne: the row's length; else that of row warp + lane * nwarps
+  const int chain_reads = lane < M ? (M - 1 - lane) / 32 + 1 : 0;  // ends this lane reads
+  if constexpr (kOne) {
+    if (warp < rows) n_own = min(max(lens_b[warp], 0), L);
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) codes[w] = 0xffffffffu;  // 0xff never equals a read code
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = k0 + c;
+      const bool valid = k < n_own;
+      q[c] = valid ? (int)dp0_b[(long long)warp * L + k] - k * dele : kNeg;
+      s[c] = 0;
+      if (valid) {
+        const unsigned code = (unsigned)(uint8_t)mono_b[(long long)warp * L + k];
+        codes[c / 4] = (codes[c / 4] & ~(0xffu << (8 * (c % 4)))) | (code << (8 * (c % 4)));
+      }
+    }
+  } else {
+    const int ro = warp + lane * nwarps;
+    if (ro < rows) n_own = min(max(lens_b[ro], 0), L);
+    for (int r = warp; r < rows; r += nwarps) {  // each warp fills the rows it owns
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int k = k0 + c;
+        if (k < L) {
+          const int x = r * L + x0 + c * dx;
+          qs[x] = (T)((int)dp0_b[(long long)r * L + k] - k * dele);
+          ss[x] = 0;
+          mcs[x] = mono_b[(long long)r * L + k];
+        }
+      }
+    }
+  }
+  const unsigned ends_addr = (unsigned)__cvta_generic_to_shared(ends) + 4u * m0;
+  cluster_sync();  // every block started and filled before the first remote store
+
+  int rc_next = W > 1 ? win[1] : 0;
+  for (int i = 1; i < W; ++i) {
+    const int rc = rc_next;
+    if (i + 1 < W) rc_next = win[i + 1];
+    const int* prev = ends + ((i - 1) & 1) * M;
+    const unsigned cur = ends_addr + 4u * (i & 1) * M;  // ends[i & 1][m0]
+    end_i += M;
+    spend_i += M;
+    int chain = kNeg;
+#pragma unroll 1
+    for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
+    chain = warp_max(chain);
+    if constexpr (kOne) {
+      if (warp < rows) {
+        if (n_own == 0) {
+          if (lane == 0) {
+            end_i[warp] = (T)kNeg;
+            spend_i[warp] = 0;
+          }
+        } else {
+          const unsigned rc4 = (unsigned)(rc & 0xff) * 0x01010101u;  // the read's code, 4 times
+          lanes_row<T, C>(q, s, [&](int c) {
+                            return ((codes[c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
+                          },
+                          lane, n_own, i, chain, ins, dele, mismatch, match,
+                          ClusterEmit<T>{cur + 4u * warp, cs, end_i, spend_i, warp});
+        }
+      }
+    } else {
+      int j = 0;
+      for (int r = warp; r < rows; r += nwarps, ++j) {
+        const int n = j < 32 ? __shfl_sync(kFull, n_own, j & 31)
+                             : min(max(lens_b[r], 0), L);
+        if (n == 0) {
+          if (lane == 0) {
+            end_i[r] = (T)kNeg;
+            spend_i[r] = 0;
+          }
+          continue;
+        }
+        T* qr = qs + r * L + x0;
+        T* sr = ss + r * L + x0;
+        const int8_t* cr = mcs + r * L + x0;
+        unsigned eq = 0;  // bit c: cell c's code equals the read's
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const bool valid = k0 + c < n;
+          q[c] = valid ? (int)qr[c * dx] : kNeg;
+          s[c] = valid ? (int)sr[c * dx] : 0;
+          if (valid && cr[c * dx] == rc) eq |= 1u << c;
+        }
+        lanes_row<T, C>(q, s, [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain, ins,
+                        dele, mismatch, match,
+                        ClusterEmit<T>{cur + 4u * r, cs, end_i, spend_i, r});
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (k0 + c < n) {
+            qr[c * dx] = (T)q[c];
+            sr[c * dx] = (T)s[c];
+          }
+        }
+      }
+    }
+    cluster_sync();  // ends[i & 1] complete in every block before the next chain max
+  }
+}
+
+// The launch of one instance, or with `max_clusters` given, only
+// cudaOccupancyMaxActiveClusters for it (nothing is launched).
+template <typename T, int C, int kPath>
+int launch_cluster_k(int* max_clusters, int cs, int R, const void* windows, const void* mono,
+                     long long mono_bstride, const void* mono_lens, long long lens_bstride,
+                     const void* dp0, void* end, void* spend, int B, int W, int M, int L,
+                     int ins, int dele, int mismatch, int match, void* stream) {
+  auto kernel = chain_dp_cluster_kernel<T, C, kPath>;
+  const long long smem = cluster_smem_bytes(M, L, R, sizeof(T));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (cs > kClusterPortable) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B > 0 ? B : 1) * cs);
+  cfg.blockDim = dim3(kPath == kOneRow ? 32 * R : lanes_max_threads<C, kPath>());
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr)
+    return (int)cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, (const int8_t*)windows, W, (const int8_t*)mono,
+                           mono_bstride, (const int*)mono_lens, lens_bstride, (const T*)dp0,
+                           (T*)end, (T*)spend, M, L, R, ins, dele, mismatch, match);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int C>
+int launch_cluster_c(int* max_clusters, int cs, int R, const void* windows, const void* mono,
+                     long long mono_bstride, const void* mono_lens, long long lens_bstride,
+                     const void* dp0, void* end, void* spend, int B, int W, int M, int L,
+                     int ins, int dele, int mismatch, int match, void* stream) {
+  auto launch = R <= 32 ? launch_cluster_k<T, C, kOneRow>
+                        : (L == 32 * C ? launch_cluster_k<T, C, kRowsDense>
+                                       : launch_cluster_k<T, C, kRows>);
+  return launch(max_clusters, cs, R, windows, mono, mono_bstride, mono_lens, lens_bstride, dp0,
+                end, spend, B, W, M, L, ins, dele, mismatch, match, stream);
+}
+
+template <typename T>
+int launch_cluster(int* max_clusters, int cs, int R, const void* windows, const void* mono,
+                   long long mono_bstride, const void* mono_lens, long long lens_bstride,
+                   const void* dp0, void* end, void* spend, int B, int W, int M, int L, int ins,
+                   int dele, int mismatch, int match, void* stream) {
+#define SD_CLUSTER_CASE(CC)                                                                  \
+  case CC:                                                                                   \
+    return launch_cluster_c<T, CC>(max_clusters, cs, R, windows, mono, mono_bstride,         \
+                                   mono_lens, lens_bstride, dp0, end, spend, B, W, M, L, ins, \
+                                   dele, mismatch, match, stream);
+  switch ((L + 31) / 32) {
+    SD_CLUSTER_CASE(1)
+    SD_CLUSTER_CASE(2)
+    SD_CLUSTER_CASE(3)
+    SD_CLUSTER_CASE(4)
+    SD_CLUSTER_CASE(5)
+    SD_CLUSTER_CASE(6)
+    SD_CLUSTER_CASE(7)
+    SD_CLUSTER_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SD_CLUSTER_CASE
+}
+
+}  // namespace

@@ -66,13 +66,14 @@ constexpr int kLanesMaxC = 8;  // 32 lanes x 8 cells: L <= 256
 // One row at one read position, in place on the lane's registers: q and s
 // hold the row's folded scores and pointers at i-1 on entry and at i on
 // return; is_match(c) says whether cell c's monomer code equals the read's.
-// The lane that owns the end cell n-1 writes the row's end score and
-// pointer (ends_i[m], end_i[m], spend_i[m]).
-template <typename T, int C, class Match>
+// The lane that owns the end cell n-1 calls emit(e, se) with the row's end
+// score and pointer; the caller's emit stores them (this body: ends_i[m],
+// end_i[m], spend_i[m]; the cluster body, chain_dp_cluster.cuh, also into
+// every block of the cluster).
+template <typename T, int C, class Match, class Emit>
 __device__ __forceinline__ void lanes_row(int (&q)[C], int (&s)[C], Match is_match, int lane,
                                           int n, int i, int chain, int ins, int dele,
-                                          int mismatch, int match, int* ends_i, T* end_i,
-                                          T* spend_i, int m) {
+                                          int mismatch, int match, Emit emit) {
   constexpr int kNeg = StateNeg<T>::value;
   const int enter_y = chain + match, enter_n = chain + mismatch;  // enter - k*del
   const int diag_y = match - dele, diag_n = mismatch - dele;      // diag - k*del - q[k-1]
@@ -126,13 +127,23 @@ __device__ __forceinline__ void lanes_row(int (&q)[C], int (&s)[C], Match is_mat
       se = s[c];
     }
   }
-  if (lane == le) {
-    const int e = qe + (n - 1) * dele;
+  if (lane == le) emit(qe + (n - 1) * dele, se);
+}
+
+// The lanes body's emit: the end score into this block's parity buffer and
+// the outputs, row m.
+template <typename T>
+struct LanesEmit {
+  int* ends_i;
+  T* end_i;
+  T* spend_i;
+  int m;
+  __device__ __forceinline__ void operator()(int e, int se) const {
     ends_i[m] = e;
     end_i[m] = (T)e;
     spend_i[m] = (T)se;
   }
-}
+};
 
 // The kernel's three forms (see the top of this file).
 enum LanesPath : int { kOneRow = 0, kRowsDense = 1, kRows = 2 };
@@ -257,8 +268,8 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
         lanes_row<T, C>(q, s, [&](int c) {
                           return ((codes[c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
                         },
-                        lane, n_own, i, chain, ins, dele, mismatch, match, cur, end_i,
-                        spend_i, warp);
+                        lane, n_own, i, chain, ins, dele, mismatch, match,
+                        LanesEmit<T>{cur, end_i, spend_i, warp});
       }
     } else {
       int j = 0;
@@ -284,7 +295,7 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
           if (valid && cr[c * dx] == rc) eq |= 1u << c;
         }
         lanes_row<T, C>(q, s, [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain, ins,
-                        dele, mismatch, match, cur, end_i, spend_i, m);
+                        dele, mismatch, match, LanesEmit<T>{cur, end_i, spend_i, m});
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if (k0 + c < n) {

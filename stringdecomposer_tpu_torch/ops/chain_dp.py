@@ -191,63 +191,75 @@ def sweep(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, variant="bas
     return torch.stack(chains, dim=1), end, spend
 
 
-def sweep_lanes(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane):
-    """`sweep` computed as K1's lanes body (csrc/chain_dp_lanes.cuh) splits
-    it; test-only, nothing on the main path calls it. Each row is padded to
-    32 lanes x C = `cells_per_lane` cells (32 * C >= L); lane l owns cells
-    l*C .. l*C + C - 1. At each position: the payload comes from the cell's
-    own candidate, before the fold (ins, unguarded at k == 0; diag; enter);
-    a sequential pair prefix runs within each lane; one pair scan over the
-    32 lane totals, shifted to an exclusive prefix, gives each lane what the
-    earlier lanes hold, and a cell keeps its in-lane prefix only where it is
-    strictly greater. Cells at or past a row's length are read as the
-    sentinel with a mismatch, as in the kernel. Arithmetic is int32; end and
-    spend come out in dp0's type. Same outputs as `sweep`."""
-    B, W = windows.shape
-    M, L = mono_b.shape[1], mono_b.shape[2]
-    C = cells_per_lane
-    P = 32 * C
-    if P < L:
-        raise ValueError(f"32 lanes x {C} cells do not cover L={L}")
-    dev, dt = windows.device, dp0.dtype
-    neg = state_neg(dt)
-    i32 = torch.int32
-    k = torch.arange(P, dtype=i32, device=dev)
-    kdel = k * dele
-    n = lens_b.to(i32).clamp(0, L)[:, :, None]  # [B, M, 1]
-    valid = k < n  # [B, M, P]
-    codes = torch.full((B, M, P), -1, dtype=i32, device=dev)
-    codes[:, :, :L] = mono_b.to(i32)
-    codes = torch.where(valid, codes, -1)
-    dp = torch.full((B, M, P), neg, dtype=i32, device=dev)
-    dp[:, :, :L] = dp0.to(i32)
-    sp = torch.zeros_like(dp)
-    lane = torch.arange(32, device=dev)[:, None]
-    end_idx = (n - 1).clamp(min=0).long()
+class _LanesRows:
+    """A set of rows stepped as K1's lanes body (csrc/chain_dp_lanes.cuh
+    lanes_row) steps them; `sweep_lanes` and `sweep_cluster` share it. Each
+    row is padded to 32 lanes x C = `cells_per_lane` cells (32 * C >= L);
+    lane l owns cells l*C .. l*C + C - 1. At each position: the payload
+    comes from the cell's own candidate, before the fold (ins, unguarded at
+    k == 0; diag; enter); a sequential pair prefix runs within each lane;
+    one pair scan over the 32 lane totals, shifted to an exclusive prefix,
+    gives each lane what the earlier lanes hold, and a cell keeps its
+    in-lane prefix only where it is strictly greater. Cells at or past a
+    row's length are read as the sentinel with a mismatch, as in the kernel.
+    Arithmetic is int32."""
 
-    def emit(x, fill):  # the end cell of each row; rows of length 0 emit `fill`
-        return torch.where(n[:, :, 0] > 0, x.gather(2, end_idx)[:, :, 0], fill)
+    def __init__(self, windows, mono_b, lens_b, dp0, ins, dele, mismatch, match,
+                 cells_per_lane):
+        B = windows.shape[0]
+        M, L = mono_b.shape[1], mono_b.shape[2]
+        C = cells_per_lane
+        P = 32 * C
+        if P < L:
+            raise ValueError(f"32 lanes x {C} cells do not cover L={L}")
+        dev = windows.device
+        self.neg = state_neg(dp0.dtype)
+        i32 = torch.int32
+        self.shape, self.C = (B, M, P), C
+        self.k = torch.arange(P, dtype=i32, device=dev)
+        self.kdel = self.k * dele
+        self.n = lens_b.to(i32).clamp(0, L)[:, :, None]  # [B, M, 1]
+        self.valid = self.k < self.n  # [B, M, P]
+        codes = torch.full((B, M, P), -1, dtype=i32, device=dev)
+        codes[:, :, :L] = mono_b.to(i32)
+        self.codes = torch.where(self.valid, codes, -1)
+        self.dp = torch.full((B, M, P), self.neg, dtype=i32, device=dev)
+        self.dp[:, :, :L] = dp0.to(i32)
+        self.sp = torch.zeros_like(self.dp)
+        self.lane = torch.arange(32, device=dev)[:, None]
+        self.end_idx = (self.n - 1).clamp(min=0).long()
+        self.windows = windows
+        self.scores = (ins, mismatch, match)
 
-    chains = [torch.full((B,), INF, dtype=i32, device=dev)]
-    ends, spends = [emit(dp, neg)], [emit(sp, 0)]
-    for i in range(1, W):
-        p = torch.where(valid, dp, neg)
-        ps = torch.where(valid, sp, 0)
-        rc = windows[:, i].to(i32)[:, None, None]
-        mm = torch.where(codes == rc, match, mismatch).to(i32)
-        chain = ends[-1].amax(dim=1)[:, None, None]  # [B, 1, 1]
+    def emit(self):
+        """(end, spend) [B, M] int32 of each row's end cell; rows of length
+        0 emit (the sentinel, 0)."""
+        has = self.n[:, :, 0] > 0
+        return (torch.where(has, self.dp.gather(2, self.end_idx)[:, :, 0], self.neg),
+                torch.where(has, self.sp.gather(2, self.end_idx)[:, :, 0], 0))
+
+    def step(self, i: int, chain: torch.Tensor) -> None:
+        """Read position i, from the chain score [B] int32 (the max of every
+        row's end score at i - 1)."""
+        B, M, P = self.shape
+        ins, mismatch, match = self.scores
+        neg, k, kdel = self.neg, self.k, self.kdel
+        p = torch.where(self.valid, self.dp, neg)
+        ps = torch.where(self.valid, self.sp, 0)
+        rc = self.windows[:, i].to(torch.int32)[:, None, None]
+        mm = torch.where(self.codes == rc, match, mismatch).to(torch.int32)
         up_p = torch.cat([torch.full_like(p[:, :, :1], neg), p[:, :, :-1]], dim=2)
         up_ps = torch.cat([torch.zeros_like(ps[:, :, :1]), ps[:, :, :-1]], dim=2)
-        enter = chain + mm + kdel
+        enter = chain[:, None, None] + mm + kdel
         diag = torch.where(k == 0, neg, up_p + mm)
         ins_u = p + ins  # unguarded: the payload's ins check at k == 0
         cand = torch.maximum(enter, torch.maximum(diag, torch.where(k == 0, neg, ins_u)))
         cs = torch.where(cand == ins_u, ps, torch.where(cand == diag, up_ps, i))
-        t = (cand - kdel).view(B, M, 32, C)
-        cs = cs.view(B, M, 32, C)
+        t = (cand - kdel).view(B, M, 32, self.C)
+        cs = cs.view(B, M, 32, self.C)
         run_t, run_c = t[..., 0], cs[..., 0]
         in_t, in_c = [run_t], [run_c]
-        for c in range(1, C):  # later cell wins only when strictly greater
+        for c in range(1, self.C):  # later cell wins only when strictly greater
             take = t[..., c] > run_t
             run_t = torch.where(take, t[..., c], run_t)
             run_c = torch.where(take, cs[..., c], run_c)
@@ -257,14 +269,69 @@ def sweep_lanes(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_
         tot_t, (tot_c,) = pair_scan(run_t, [run_c], torch.gt)  # inclusive, over lanes
         ex_t = torch.cat([torch.full_like(tot_t[..., :1], neg), tot_t[..., :-1]], dim=-1)[..., None]
         ex_c = torch.cat([torch.zeros_like(tot_c[..., :1]), tot_c[..., :-1]], dim=-1)[..., None]
-        own = (lane == 0) | (in_t > ex_t)  # ties keep the earlier lanes
-        dp = torch.where(own, in_t, ex_t).reshape(B, M, P) + kdel
-        sp = torch.where(own, in_c, ex_c).reshape(B, M, P)
-        chains.append(chain[:, 0, 0])
-        ends.append(emit(dp, neg))
-        spends.append(emit(sp, 0))
-    return (torch.stack(chains, dim=1), torch.stack(ends, dim=1).to(dt),
-            torch.stack(spends, dim=1).to(dt))
+        own = (self.lane == 0) | (in_t > ex_t)  # ties keep the earlier lanes
+        self.dp = torch.where(own, in_t, ex_t).reshape(B, M, P) + kdel
+        self.sp = torch.where(own, in_c, ex_c).reshape(B, M, P)
+
+
+def sweep_lanes(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane):
+    """`sweep` computed as K1's lanes body (csrc/chain_dp_lanes.cuh) splits
+    it (`_LanesRows`, C = `cells_per_lane`); test-only, nothing on the main
+    path calls it. End and spend come out in dp0's type. Same outputs as
+    `sweep`."""
+    W = windows.shape[1]
+    rows = _LanesRows(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane)
+    chains = [torch.full((windows.shape[0],), INF, dtype=torch.int32, device=windows.device)]
+    out = [rows.emit()]
+    for i in range(1, W):
+        chain = out[-1][0].amax(dim=1)
+        rows.step(i, chain)
+        chains.append(chain)
+        out.append(rows.emit())
+    return (torch.stack(chains, dim=1), torch.stack([e for e, _ in out], dim=1).to(dp0.dtype),
+            torch.stack([s for _, s in out], dim=1).to(dp0.dtype))
+
+
+def sweep_cluster(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cluster_size,
+                  cells_per_lane):
+    """`sweep` computed as K1's cluster body (csrc/chain_dp_cluster.cuh)
+    splits it; test-only, nothing on the main path calls it. The M rows go
+    to cs = `cluster_size` slices of R = ceil(M / cs) rows, each with at
+    least one (else ValueError); each slice steps its rows as the lanes body
+    does (`_LanesRows`, C = `cells_per_lane`) and keeps its own copy of the
+    [2, M] parity buffers of every row's end score. At position i each slice
+    takes its chain score from its own buffer (i - 1) & 1, then writes its
+    rows' end scores into buffer i & 1 of every slice; rows of length 0 are
+    never written and keep the sentinel in both. End and spend come out in
+    dp0's type. Same outputs as `sweep`."""
+    B, W = windows.shape
+    M = mono_b.shape[1]
+    cs = cluster_size
+    R = -(-M // cs) if cs >= 1 else 0
+    if cs < 1 or (cs - 1) * R >= M:
+        raise ValueError(f"{cs} slices of {R} rows leave a slice of M={M} rows empty")
+    dev, neg = windows.device, state_neg(dp0.dtype)
+    cuts = [(r * R, min(M, (r + 1) * R)) for r in range(cs)]
+    slices = [_LanesRows(windows, mono_b[:, a:z], lens_b[:, a:z], dp0[:, a:z], ins, dele,
+                         mismatch, match, cells_per_lane) for a, z in cuts]
+    real = lens_b.to(torch.int32) > 0  # [B, M]: the rows that store an end score
+    ends0 = torch.cat([rows.emit()[0] for rows in slices], dim=1)
+    bufs = [torch.stack([ends0, torch.full_like(ends0, neg)], dim=1) for _ in cuts]  # [B, 2, M]
+    chains = [torch.full((B,), INF, dtype=torch.int32, device=dev)]
+    out = [[rows.emit() for rows in slices]]
+    for i in range(1, W):
+        prev, cur = (i - 1) & 1, i & 1
+        chain = [buf[:, prev].amax(dim=1) for buf in bufs]
+        for rows, ch in zip(slices, chain):
+            rows.step(i, ch)
+        out.append([rows.emit() for rows in slices])
+        ends = torch.cat([e for e, _ in out[-1]], dim=1)
+        for buf in bufs:  # every slice's rows into every slice's copy
+            buf[:, cur] = torch.where(real, ends, buf[:, cur])
+        chains.append(chain[0])
+    end = torch.stack([torch.cat([e for e, _ in o], dim=1) for o in out], dim=1)
+    spend = torch.stack([torch.cat([s for _, s in o], dim=1) for o in out], dim=1)
+    return torch.stack(chains, dim=1), end.to(dp0.dtype), spend.to(dp0.dtype)
 
 
 def chain_dp_forward(

@@ -9,13 +9,18 @@ counts are meant to leave the device.
 
 K1 has two routes with the same recurrence and tie rules. A monomer set
 whose [M, L] column fits one block's shared memory (`smem_bytes`) takes the
-shared route; a larger one takes the large route (`chain_dp_large_cuda`),
-which keeps the column in a device-memory scratch. The shared route has two
-kernel bodies (`body`): at L <= 256 the lanes body (csrc/chain_dp_lanes.cuh:
-each lane owns whole cells of a row, one pair scan per row, one barrier per
-position), above it the chunked body (csrc/chain_dp.cuh), which the large
-route and the ablation also run. Each body and route counts its own
-launches, int32 and int16 state apart.
+shared route; a larger one takes the large route (`chain_dp_large_cuda`).
+Each route has two kernel bodies (`body`). The shared route runs the lanes
+body at L <= 256 (csrc/chain_dp_lanes.cuh: each lane owns whole cells of a
+row, one pair scan per row, one barrier per position) and the chunked body
+above it (csrc/chain_dp.cuh). The large route runs the cluster body at
+L <= 256 where a cluster of at most 16 blocks holds the rows
+(csrc/chain_dp_cluster.cuh, `cluster_plan`: a window's rows spread over a
+thread block cluster, the lanes body's row step in each block, the end
+scores exchanged through distributed shared memory) and the chunked body
+otherwise, with the column in a device-memory scratch; the ablation runs
+the chunked body too. Each body and route counts its own launches, int32
+and int16 state apart.
 
 state_dtype="int16" (not the default: "auto" is int32) stores the column
 and emits end / spend as int16, which halves K1's output bytes and lets
@@ -26,6 +31,8 @@ once per device, has agreed with its plain version.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -42,6 +49,9 @@ SMEM_LIMIT = 232_448
 LARGE_SCRATCH_BYTES = 32 << 20
 # the lanes body's longest row: 32 lanes x 8 cells (csrc/chain_dp_lanes.cuh)
 LANES_MAX_L = 256
+# the cluster body's largest cluster (csrc/chain_dp_cluster.cuh kClusterMax;
+# above 8 blocks the launch allows a non-portable size)
+CLUSTER_MAX = 16
 # ablation variant -> csrc/chain_dp.cuh Variant (base is the chunked body's launch)
 _VARIANT_CODES = {v: i for i, v in enumerate(plain.VARIANTS)}
 
@@ -65,12 +75,75 @@ def route(M: int, L: int, state_bytes: int = 4) -> str:
     return "shared" if smem_bytes(M, L, state_bytes) <= SMEM_LIMIT else "large"
 
 
+def cluster_shape(M: int, L: int, state_bytes: int, cs: int):
+    """The cluster body's launch for M rows padded to L over clusters of cs
+    blocks: (R, form, threads, smem), or None where it does not fit. Block r
+    owns rows r*R .. min(M, (r+1)*R) - 1, R = ceil(M / cs), and must own at
+    least one. R <= 32 rows run one warp a row in registers ("one_row", 32*R
+    threads); more live in shared memory, lane-contiguous ("rows_dense" where
+    L is 32 lanes x C cells, else "rows"), on the lanes body's 1,024 or 512
+    threads. The shared memory (csrc/chain_dp_cluster.cuh
+    cluster_smem_bytes): 8 * M bytes of parity buffers, plus the R rows'
+    (2 * state bytes + 1) * L bytes in the shared-memory forms, within
+    SMEM_LIMIT."""
+    if not (1 <= cs <= CLUSTER_MAX and 1 <= L <= LANES_MAX_L and M >= 1):
+        return None
+    R = -(-M // cs)
+    if (cs - 1) * R >= M:
+        return None
+    C = -(-L // 32)
+    if R <= 32:
+        form, threads = "one_row", 32 * R
+    else:
+        form = "rows_dense" if L == 32 * C else "rows"
+        threads = 1024 if C <= 5 or (C == 6 and form == "rows_dense") else 512
+    smem = 8 * M + (R * L * (2 * state_bytes + 1) if R > 32 else 0)
+    return (R, form, threads, smem) if smem <= SMEM_LIMIT else None
+
+
+def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = None,
+                 active=None):
+    """(cs, R, form, threads, smem) of the cluster body for a monomer set,
+    or None where no cluster of up to CLUSTER_MAX blocks fits (L >
+    LANES_MAX_L, or the rows too many for 16 blocks' shared memory). A pure
+    function of its arguments. The rule: the fewest waves x (1 + rows a
+    warp steps a position), ties to the fewest blocks a cluster. A launch of
+    `windows` clusters runs in ceil(windows / active(cs)) waves, `active`
+    giving how many clusters of cs blocks the card runs at once (the
+    wrapper passes cudaOccupancyMaxActiveClusters; sizes it says 0 for are
+    left out); a warp steps one row a position where the rows are in
+    registers (R <= 32), else ceil(R / warps); the 1 is a position's fixed
+    part (the chain max, the exchange, the barrier), about one row's work:
+    on one H100 a wave of 5,500 positions took ~8 ms x (1 + rows a warp).
+    Without `windows` and `active` every launch counts as one wave, so the
+    rule is the smallest cs whose rows fit registers, else the smallest cs
+    that fits. On one H100 (k1_ab.py --sweep, PERF.md) it picks the fastest
+    size at 19 and 64 windows of M = 264 and at 64 of M = 200, and one
+    within 9 % of it at 19 of M = 200."""
+    shapes = [(cs, *shape) for cs in range(1, CLUSTER_MAX + 1)
+              if (shape := cluster_shape(M, L, state_bytes, cs)) is not None]
+    if windows is not None and active is not None:
+        runs = {cs: active(cs) for cs, *_ in shapes}
+        shapes = [plan for plan in shapes if runs[plan[0]] > 0] or shapes[:1]
+    else:
+        runs = None
+
+    def cost(plan):
+        cs, R, _, threads, _ = plan
+        waves = -(-windows // runs[cs]) if runs and runs[cs] > 0 else 1
+        return waves * (1 + -(-R // (threads // 32))), cs
+
+    return min(shapes, key=cost) if shapes else None
+
+
 def body(M: int, L: int, state_bytes: int = 4) -> str:
-    """The K1 kernel body a monomer set runs: "lanes" (the shared route at
-    L <= LANES_MAX_L), "chunked" (the shared route above it) or "large"."""
-    if route(M, L, state_bytes) == "large":
-        return "large"
-    return "lanes" if L <= LANES_MAX_L else "chunked"
+    """The K1 kernel body a monomer set runs: on the shared route "lanes"
+    (L <= LANES_MAX_L) or "chunked" (above it); on the large route
+    "cluster" (where `cluster_plan` finds a cluster) or "large" (the chunked
+    body with its device-memory scratch)."""
+    if route(M, L, state_bytes) == "shared":
+        return "lanes" if L <= LANES_MAX_L else "chunked"
+    return "cluster" if cluster_plan(M, L, state_bytes) is not None else "large"
 
 
 def check_monomer_set(M: int, L: int) -> None:
@@ -205,8 +278,8 @@ def _launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, scratch
     )
 
 
-def _counter(dt: torch.dtype, lanes: bool = False) -> str:
-    return f"launches{'_lanes' if lanes else ''}{'_int16' if dt == torch.int16 else ''}"
+def _counter(dt: torch.dtype, kind: str = "") -> str:
+    return f"launches{'_' + kind if kind else ''}{'_int16' if dt == torch.int16 else ''}"
 
 
 def chain_dp_forward_cuda(
@@ -231,7 +304,7 @@ def chain_dp_forward_cuda(
     if not windows.is_cuda:
         return plain.chain_dp_forward(windows, window_lens, mono, mono_lens, **kw)
     kind = body(mono.shape[-2], mono.shape[-1], dt.itemsize)
-    if kind == "large":
+    if kind in ("cluster", "large"):
         return chain_dp_large_cuda(windows, window_lens, mono, mono_lens, **kw)
     B, W = windows.shape
     windows, mono, mono_lens, dp0, end, spend = _prologue(
@@ -242,7 +315,7 @@ def chain_dp_forward_cuda(
                              (library().sd_chain_dp, (0, dt.itemsize), (None,)))
         check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, 0, B, scratch,
                       ins, dele, mismatch, match), f"chain_dp {kind} kernel")
-        count_launch(chain_dp_forward_cuda, _counter(dt, lanes))
+        count_launch(chain_dp_forward_cuda, _counter(dt, "lanes" if lanes else ""))
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
@@ -258,6 +331,38 @@ def _groups(B: int, M: int, L: int, dt: torch.dtype) -> int:
     return max(1, min(B, LARGE_SCRATCH_BYTES // (2 * dt.itemsize * M * L)))
 
 
+def cluster_occupancy(M: int, L: int, state_bytes: int, cluster_size: int, B: int = 1) -> int:
+    """cudaOccupancyMaxActiveClusters for the cluster body's launch of B
+    windows at (M, L) over clusters of `cluster_size` blocks, on the current
+    device: how many such clusters the card runs at once (0: none)."""
+    shape = cluster_shape(M, L, state_bytes, cluster_size)
+    _require(shape is not None, f"cluster_size={cluster_size} does not fit M={M}, L={L}")
+    n = ctypes.c_int(0)
+    check(library().sd_chain_dp_cluster_occupancy(state_bytes, cluster_size, shape[0], B, M, L,
+                                                  ctypes.byref(n)),
+          "chain_dp cluster occupancy")
+    return n.value
+
+
+def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None):
+    """The large route's cluster launch (cs, R, form, threads, smem): the
+    plan's for `windows` clusters on the current device (or, without them,
+    the plan's default), or `cluster_size`'s where given, which must fit;
+    None: the chunked body."""
+    if cluster_size is None:
+        active = None
+        if windows:
+            def active(cs):
+                return cluster_occupancy(M, L, state_bytes, cs, windows)
+        return cluster_plan(M, L, state_bytes, windows or None, active)
+    shape = cluster_shape(M, L, state_bytes, cluster_size)
+    _require(shape is not None,
+             f"cluster_size={cluster_size} is not admitted for M={M}, L={L}, state bytes "
+             f"{state_bytes}: it needs 1 <= cluster_size <= {CLUSTER_MAX}, L <= {LANES_MAX_L}, "
+             f"at least one row a block and the shared memory within {SMEM_LIMIT} bytes")
+    return (cluster_size, *shape)
+
+
 def chain_dp_large_cuda(
     windows: torch.Tensor,
     window_lens: torch.Tensor,
@@ -270,23 +375,43 @@ def chain_dp_large_cuda(
     max_blocks: int = 0,
     return_debug: bool = False,
     state_dtype: str = "auto",
+    cluster_size: int | None = None,
 ):
     """K1's large route, for any monomer-set size (chain_dp_forward_cuda
-    takes it when the shared route does not fit; it is called directly only
-    to check it against the shared route). Same contract and outputs."""
+    takes it when the shared route does not fit; it is called directly to
+    check it against the shared route and to sweep cluster sizes). Same
+    contract and outputs. At L <= LANES_MAX_L it runs the cluster body over
+    clusters of `cluster_plan`'s size, or of `cluster_size` where given
+    (checked against what shared memory admits, on any device); above, or
+    where no cluster fits, the chunked body with its device-memory scratch.
+    A cluster the card cannot schedule raises; it never falls back."""
     dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
+    B, W = windows.shape
+    M, L = mono.shape[-2], mono.shape[-1]
+    plan = _cluster_launch(M, L, dt.itemsize, cluster_size, B if windows.is_cuda else None)
     if not windows.is_cuda:
         return plain.chain_dp_forward(
             windows, window_lens, mono, mono_lens, ins=ins, dele=dele, mismatch=mismatch,
             match=match, max_blocks=max_blocks, return_debug=return_debug,
             state_dtype=state_dtype)
-    B, W = windows.shape
-    M, L = mono.shape[-2], mono.shape[-1]
     windows, mono, mono_lens, dp0, end, spend = _prologue(
         windows, window_lens, mono, mono_lens, dele, mismatch, match, dt)
+    lib = library()
+    if plan is not None:
+        cs, R, _, threads, smem = plan
+        if B > 0:
+            if cluster_occupancy(M, L, dt.itemsize, cs, B) == 0:
+                raise RuntimeError(
+                    f"chain_dp cluster body cannot be scheduled: cudaOccupancyMaxActiveClusters "
+                    f"is 0 for M={M}, L={L}, cluster_size={cs} ({R} rows, {threads} threads "
+                    f"and {smem} bytes of shared memory a block)")
+            check(_launch(lib.sd_chain_dp_cluster, (dt.itemsize, cs, R), windows, mono,
+                          mono_lens, dp0, end, spend, 0, B, (), ins, dele, mismatch, match),
+                  "chain_dp cluster kernel")
+            count_launch(chain_dp_large_cuda, _counter(dt, "cluster"))
+        return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
     group = _groups(B, M, L, dt)
     sp = torch.empty((group, M, L), dtype=dt, device=windows.device)
-    lib = library()
     for b0 in range(0, B, group):  # one launch per group; sp is reused in stream order
         check(_launch(lib.sd_chain_dp, (1, dt.itemsize), windows, mono, mono_lens, dp0, end,
                       spend, b0, min(B, b0 + group), (sp.data_ptr(),), ins, dele, mismatch,
@@ -296,8 +421,10 @@ def chain_dp_large_cuda(
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
-chain_dp_large_cuda.launches = 0
+chain_dp_large_cuda.launches = 0  # the chunked body (L > 256, or no cluster fits)
 chain_dp_large_cuda.launches_int16 = 0
+chain_dp_large_cuda.launches_cluster = 0  # the cluster body
+chain_dp_large_cuda.launches_cluster_int16 = 0
 
 
 def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: bool,

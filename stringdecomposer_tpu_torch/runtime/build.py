@@ -36,6 +36,9 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_chain_dp_lanes": (_I, [_I, _P, _P, _LL, _P, _LL, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_chain_dp_cluster": (_I, [_I, _I, _I, _P, _P, _LL, _P, _LL, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_chain_dp_cluster_occupancy": (_I, [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]),
     "sd_chain_dp_ablate": (_I, [_I, _I, _P, _P, _LL, _P, _LL, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_block_walk": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),

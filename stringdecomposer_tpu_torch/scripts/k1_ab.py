@@ -21,11 +21,23 @@ and a digest of the blocks and counts, so that the turns can be held equal.
 With `--scaling`, the shapes are instead the same windows against the first
 M = 1, 2, 4, 8, 16, 24 rows of the DXZ1 set and against it and its first 8
 rows again (M = 32; L = 192): how the time grows with the warps of a block.
-With `--e2e`, the script instead runs the port end to end on the golden
-read against DXZ1 (`pipeline.run`, `--second-best`, on the card), plain and
-with `ed_thr=10` (run (i)): one warm-up run, then E2E_REPS runs timed on the
-host clock up to a synchronize, then one run with the stage timer on for
-its spans (`dp.gather` waits on K1).
+With `--large`, the shapes are K1's large route at L = 192: the golden
+windows (B = 19) and the first 64 windows of the 1.6 Mbp synthetic assembly
+(workloads.synthesize, seed 0; one DP batch of run (iii)), each against the
+264-monomer library (workloads.hor_library, seed 0, with RC) and its first
+200 rows, in int32 and int16 state. With `--sweep` (a checkout that has the
+cluster body), the same shapes through `chain_dp_large_cuda` at every
+cluster size the shared memory admits, each with its
+cudaOccupancyMaxActiveClusters and its digest against the plan's, then the
+golden windows against the library's first 64 and 128 rows on the lanes
+body and on the cluster body at each cluster size (sets the shared route
+takes, timed on both bodies). With `--e2e`, the script instead runs the
+port end to end on the golden read against DXZ1 (`pipeline.run`,
+`--second-best`, on the card), plain and with `ed_thr=10` (run (i)), and the
+1.6 Mbp assembly against the library unfiltered (run (iii)): one warm-up
+run, then E2E_REPS (run (iii): E2E_REPS_III) runs timed on the host clock up
+to a synchronize, then one run with the stage timer on for its spans
+(`dp.gather` waits on K1).
 Prints one JSON line: the checkout, the card's name and power limit, the
 ptxas register and spill lines of its chain-DP kernels (from its build.log)
 and the times.
@@ -37,11 +49,15 @@ import argparse
 import hashlib
 import json
 import sys
+import tempfile
 
 from ab_common import DATA, checkout, e2e, ms
 
 REPS = 10
+LARGE_REPS = 5
+SWEEP_REPS = 3
 E2E_REPS = 5
+E2E_REPS_III = 3
 
 
 def shapes(fasta, oracle, chain_dp, scaling=False):
@@ -77,38 +93,139 @@ def _rows(mono, lens, M):
     return mono[idx], lens[idx]
 
 
+def large_shapes(fasta, oracle, chain_dp, workloads):
+    """(name, windows, window lens, mono, mono lens) of `--large`: the golden
+    windows and one 64-window batch of the 1.6 Mbp assembly, each x the
+    library (M = 264) and its first 200 rows."""
+    import numpy as np
+
+    dxz1 = fasta.load_fasta(str(DATA / "DXZ1_star_monomers.fa"))
+    lib = workloads.hor_library(dxz1, np.random.default_rng(0))
+    mono, lens = fasta.pad_monomers(fasta.add_reverse_complement(lib), pad_to=192)
+    golden = fasta.encode(fasta.load_fasta(str(DATA / "read.fa"))[0].seq)
+    asm = fasta.encode(workloads.synthesize(1_600_000, dxz1, np.random.default_rng(0)))
+    out = []
+    for what, codes, n in (("golden", golden, None), ("1.6Mbp[:64]", asm, 64)):
+        wins = [codes[o : o + ln] for o, ln in oracle.make_windows(len(codes), 5000, 500)][:n]
+        wb, wl = chain_dp.build_window_batch(wins, 5500)
+        out += [(f"{what} x M={M}", wb, wl, mono[:M], lens[:M]) for M in (264, 200)]
+    return out
+
+
+def large_library(fasta, workloads, d):
+    """The 264-monomer library FASTA (the run adds RC) and the 1.6 Mbp
+    assembly, written into directory d: run (iii)'s inputs."""
+    import numpy as np
+
+    dxz1 = fasta.load_fasta(str(DATA / "DXZ1_star_monomers.fa"))
+    lib, asm = f"{d}/library.fa", f"{d}/asm.fa"
+    fasta.write_fasta(lib, workloads.hor_library(dxz1, np.random.default_rng(0)))
+    with open(asm, "w") as f:
+        f.write(f">asm\n{workloads.synthesize(1_600_000, dxz1, np.random.default_rng(0))}\n")
+    return lib, asm
+
+
+def digest(blocks, counts) -> str:
+    return hashlib.sha256(blocks.cpu().numpy().tobytes()
+                          + counts.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def sweep(torch, k1, shapes, dev, cap):
+    """Every admissible cluster size of each `--large` shape, int32 and
+    int16: occupancy, ms, digest (equal to the plan's); then M = 64 and 128
+    on the lanes body against the cluster body."""
+    out = {}
+    for name, *arrays in shapes:
+        a = [torch.from_numpy(x).to(dev) for x in arrays]
+        B, (M, L) = a[0].shape[0], a[2].shape
+        for dt, sb in (("int32", 4), ("int16", 2)):
+            kw = dict(max_blocks=cap, state_dtype=dt)
+            plan = k1.cluster_plan(M, L, sb, B, lambda cs: k1.cluster_occupancy(M, L, sb, cs, B))
+            want = digest(*k1.chain_dp_large_cuda(*a, **kw))
+            rows = {}
+            for cs in range(1, k1.CLUSTER_MAX + 1):
+                shape = k1.cluster_shape(M, L, sb, cs)
+                if shape is None:
+                    continue
+                occ = k1.cluster_occupancy(M, L, sb, cs, B)
+                row = {"R": shape[0], "form": shape[1], "threads": shape[2], "smem": shape[3],
+                       "max_active_clusters": occ}
+                if occ > 0:
+                    got = digest(*k1.chain_dp_large_cuda(*a, cluster_size=cs, **kw))
+                    row.update(ms=ms(torch, lambda: k1.chain_dp_large_cuda(
+                        *a, cluster_size=cs, **kw), SWEEP_REPS), digest_equal=got == want)
+                rows[cs] = row
+            out[f"{name} {dt}"] = {"plan_cs": plan[0], "B": B, "sizes": rows}
+    golden = shapes[0]
+    for M in (64, 128):
+        a = [torch.from_numpy(x).to(dev) for x in (golden[1], golden[2], golden[3][:M],
+                                                    golden[4][:M])]
+        want = digest(*k1.chain_dp_forward_cuda(*a, max_blocks=cap))
+        row = {"body": k1.body(M, 192), "lanes_ms": ms(
+            torch, lambda: k1.chain_dp_forward_cuda(*a, max_blocks=cap), SWEEP_REPS)}
+        for cs in range(1, k1.CLUSTER_MAX + 1):
+            if k1.cluster_shape(M, 192, 4, cs) is None or k1.cluster_occupancy(M, 192, 4, cs, 19) == 0:
+                continue
+            got = digest(*k1.chain_dp_large_cuda(*a, cluster_size=cs, max_blocks=cap))
+            row[f"cluster_{cs}_ms"] = ms(torch, lambda: k1.chain_dp_large_cuda(
+                *a, cluster_size=cs, max_blocks=cap), SWEEP_REPS)
+            row[f"cluster_{cs}_digest_equal"] = got == want
+        out[f"golden x M={M} lanes vs cluster"] = row
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", help="directory holding the checkout's stringdecomposer_tpu_torch")
     what = ap.add_mutually_exclusive_group()
     what.add_argument("--scaling", action="store_true",
                       help="time M = 1 .. 32 rows of one set instead of the A/B shapes")
+    what.add_argument("--large", action="store_true",
+                      help="time the large route's shapes (M = 264, 200; B = 19, 64; int32, int16)")
+    what.add_argument("--sweep", action="store_true",
+                      help="time the large route's shapes at every cluster size")
     what.add_argument("--e2e", action="store_true",
-                      help="time the golden run and run (i) end to end instead")
+                      help="time the golden run, run (i) and run (iii) end to end instead")
     args = ap.parse_args()
     torch, res = checkout(args.root, "chain_dp", "k1_ab")
+    import workloads
     from stringdecomposer_tpu_torch.io import fasta
     from stringdecomposer_tpu_torch.ops import chain_dp, oracle
-    from stringdecomposer_tpu_torch.ops.chain_dp_cuda import chain_dp_forward_cuda
+    from stringdecomposer_tpu_torch.ops import chain_dp_cuda as k1
 
     if args.e2e:
         read, dxz1 = str(DATA / "read.fa"), str(DATA / "DXZ1_star_monomers.fa")
-        res["e2e"] = e2e(torch, [("golden", read, dxz1, E2E_REPS, {}),
-                                 ("run (i) ed_thr 10", read, dxz1, E2E_REPS, {"ed_thr": 10})])
+        with tempfile.TemporaryDirectory() as d:
+            lib, asm = large_library(fasta, workloads, d)
+            res["e2e"] = e2e(torch, [("golden", read, dxz1, E2E_REPS, {}),
+                                     ("run (i) ed_thr 10", read, dxz1, E2E_REPS, {"ed_thr": 10}),
+                                     ("run (iii) unfiltered", asm, lib, E2E_REPS_III, {})])
         print(json.dumps(res))
         return 0
     dev = torch.device("cuda")
     cap = 5500 // 8
+    if args.sweep:
+        res["sweep"] = sweep(torch, k1, large_shapes(fasta, oracle, chain_dp, workloads), dev, cap)
+        print(json.dumps(res))
+        return 0
     res["shapes"] = {}
-    for name, *arrays in shapes(fasta, oracle, chain_dp, args.scaling):
+    if args.large:
+        cases = [(f"{name} {dt}", dt, *arrays)
+                 for name, *arrays in large_shapes(fasta, oracle, chain_dp, workloads)
+                 for dt in ("int32", "int16")]
+        reps = LARGE_REPS
+    else:
+        cases = [(name, "auto", *arrays)
+                 for name, *arrays in shapes(fasta, oracle, chain_dp, args.scaling)]
+        reps = REPS
+    for name, dt, *arrays in cases:
         a = [torch.from_numpy(x).to(dev) for x in arrays]
-        blocks, counts = chain_dp_forward_cuda(*a, max_blocks=cap)
-        digest = hashlib.sha256(blocks.cpu().numpy().tobytes() + counts.cpu().numpy().tobytes())
+        kw = dict(max_blocks=cap, state_dtype=dt)
+        blocks, counts = k1.chain_dp_forward_cuda(*a, **kw)
         res["shapes"][name] = {"M": int(a[2].shape[0]), "L": int(a[2].shape[1]),
                                "B": int(a[0].shape[0]), "W": int(a[0].shape[1]),
-                               "ms": ms(torch, lambda: chain_dp_forward_cuda(*a, max_blocks=cap),
-                                        REPS),
-                               "digest": digest.hexdigest()[:16]}
+                               "ms": ms(torch, lambda: k1.chain_dp_forward_cuda(*a, **kw), reps),
+                               "digest": digest(blocks, counts)}
     print(json.dumps(res))
     return 0
 

@@ -130,17 +130,21 @@ def test_sweep_lanes_matches_jax_on_fixtures(random_cases, idx):
 
 def test_kernel_body_rule():
     """The shared route runs the lanes body at L <= 256 and the chunked body
-    above; the large route is unchanged; int16's wider shared route takes
-    the lanes body too. A pure function of (M, L, state bytes)."""
+    above; the large route runs the cluster body at L <= 256 where a cluster
+    of up to 16 blocks holds the rows, else the chunked body ("large");
+    int16's wider shared route takes the lanes body too. A pure function of
+    (M, L, state bytes)."""
     body = chain_dp_cuda.body
     assert chain_dp_cuda.LANES_MAX_L == 256
     for M, L, sb, want in ((24, 192, 4, "lanes"), (1, 1, 4, "lanes"), (32, 256, 4, "lanes"),
-                           (33, 40, 4, "lanes"), (133, 192, 4, "lanes"), (134, 192, 4, "large"),
-                           (264, 192, 4, "large"), (240, 192, 2, "lanes"), (241, 192, 2, "large"),
-                           (24, 264, 4, "chunked"), (20, 320, 2, "chunked"),
-                           (2905, 8, 4, "lanes"), (2906, 8, 4, "large"), (90, 320, 4, "large")):
+                           (33, 40, 4, "lanes"), (133, 192, 4, "lanes"), (134, 192, 4, "cluster"),
+                           (264, 192, 4, "cluster"), (240, 192, 2, "lanes"),
+                           (241, 192, 2, "cluster"), (24, 264, 4, "chunked"),
+                           (20, 320, 2, "chunked"), (2905, 8, 4, "lanes"), (2906, 8, 4, "cluster"),
+                           (90, 320, 4, "large"), (264, 360, 4, "large"),
+                           (2000, 192, 4, "cluster"), (2100, 192, 4, "large")):
         assert body(M, L, sb) == want, (M, L, sb)
-        assert (want == "large") == (chain_dp_cuda.route(M, L, sb) == "large")
+        assert (want in ("cluster", "large")) == (chain_dp_cuda.route(M, L, sb) == "large")
         assert body(M, L, sb) == body(M, L, sb)
 
 
