@@ -13,7 +13,9 @@ against 150 dimer variants (`dimer_variants`, L > 256 and too large for the
 shared route: the chunked large route), drives the
 general alignment API through K4, K5 and K6 (the reference edlib fixtures,
 a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
-cut sizes against the scan route), checks P (the int16 probe) and K1's
+cut sizes against the scan route; K5 and K6 on their warp routes, K6's HW
+in segments; their wide routes on a 40 kbp NW distance and a 17 kbp HW
+query, each checked against the other route at its shapes), checks P (the int16 probe) and K1's
 int16 state on both routes against the int16 twin and the int32 kernel and
 drives that path, checks K1's ablation kernels (A) against their plain
 versions and runs the ablation bench (at a quarter of its positions), then
@@ -45,7 +47,8 @@ FIXTURES = os.path.join(HERE, "tests", "fixtures")
 VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")  # ops/chain_dp.VARIANTS
 ABLATE = tuple(f"ablate_{'large_' if large else ''}{v}" for large in (False, True) for v in VARIANTS)
 KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "nw_identity_cross", "hw_filter",
-           "banded_final_column", "banded_myers", "semi_ends", "int16_probe", "chain_dp_int16",
+           "banded_final_column", "banded_myers", "semi_ends", "banded_myers_wide", "semi_ends_wide",
+           "int16_probe", "chain_dp_int16",
            "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16", "chain_dp_cluster",
            "chain_dp_cluster_int16") + ABLATE
 # K1's kernel bodies (ops/chain_dp_cuda.body) -> chip_smoke kernel names, by state type
@@ -126,28 +129,6 @@ def hw_brute(q: str, t: str) -> int:
         cand[1:] = np.minimum(row[1:] + 1, row[:-1] + (ta != qa[i - 1]))
         row = np.minimum.accumulate(cand - j) + j  # the left chain
     return int(row.min())
-
-
-def synth_pair(n: int, divergence: float, rng) -> tuple[str, str]:
-    """A random ACGT query of n bp and a copy with int(n * divergence)
-    edits at distinct positions (substitution, deletion, insertion, one
-    third each), as scripts/bench_align.py synthesizes its pairs."""
-    import numpy as np
-
-    q = rng.integers(0, 4, n, dtype=np.int8)
-    t = q.tolist()
-    n_mut = int(n * divergence)
-    idx = np.sort(rng.choice(n, n_mut, replace=False))
-    kinds = rng.integers(0, 3, n_mut)
-    for i, kind in zip(idx[::-1].tolist(), kinds[::-1].tolist()):
-        if kind == 0:
-            t[i] = (t[i] + 1 + int(rng.integers(3))) % 4
-        elif kind == 1:
-            del t[i]
-        else:
-            t.insert(i, int(rng.integers(4)))
-    alpha = np.array(list("ACGT"))
-    return "".join(alpha[q]), "".join(alpha[np.array(t)])
 
 
 def cigar_cost(cigar: str, q: str, t: str) -> int:
@@ -256,10 +237,10 @@ def main() -> int:
     from stringdecomposer_tpu_torch.ops import chain_dp as k1_plain
     from stringdecomposer_tpu_torch.ops import hw_filter as k3_plain
     from stringdecomposer_tpu_torch.ops import align as al
-    from stringdecomposer_tpu_torch.ops import banded
+    from stringdecomposer_tpu_torch.ops import banded, banded_cuda
     from stringdecomposer_tpu_torch.ops import identity as k2_plain
     from stringdecomposer_tpu_torch.ops.banded_cuda import (
-        banded_final_column_cuda, banded_myers_cuda, semi_ends_cuda,
+        banded_final_column_cuda, banded_myers_cuda, segment_plan, semi_ends_cuda,
     )
     from stringdecomposer_tpu_torch.ops import chain_dp_cuda as k1
     from stringdecomposer_tpu_torch.ops.chain_dp_cuda import (
@@ -274,7 +255,9 @@ def main() -> int:
     from stringdecomposer_tpu_torch.ops.oracle import Scoring, make_windows
     from stringdecomposer_tpu_torch.report import format_raw_rows
     from stringdecomposer_tpu_torch.runtime import build
-    from stringdecomposer_tpu_torch.scripts.workloads import hor_library, synthesize
+    from stringdecomposer_tpu_torch.scripts.workloads import (
+        align_pairs, hor_library, synth_pair, synthesize,
+    )
 
     dev = torch.device("cuda")
     smoke = Smoke()
@@ -292,6 +275,8 @@ def main() -> int:
                 "banded_final_column": (banded_final_column_cuda, "launches"),
                 "banded_myers": (banded_myers_cuda, "launches"),
                 "semi_ends": (semi_ends_cuda, "launches"),
+                "banded_myers_wide": (banded_myers_cuda, "launches_wide"),
+                "semi_ends_wide": (semi_ends_cuda, "launches_wide"),
                 "int16_probe": (int16_probe_cuda, "launches"),
                 "chain_dp_int16": (chain_dp_forward_cuda, "launches_int16"),
                 "chain_dp_large_int16": (chain_dp_large_cuda, "launches_int16"),
@@ -1293,29 +1278,122 @@ def main() -> int:
               "rows), mask mode k in {2, 8, 33}, and k = 40000 past shared memory, every lane "
               "bit-equal to the plain twin")
 
+    def wide_launches(fn):
+        """The wide routes' launches (K5, K6) that fn makes."""
+        before = (banded_myers_cuda.launches_wide, semi_ends_cuda.launches_wide)
+        fn()
+        return (banded_myers_cuda.launches_wide - before[0], semi_ends_cuda.launches_wide - before[1])
+
     def k5_checks():
-        for k in (8, 31, 256, 300, 1000):
-            for P, Lq, Lt in ((7, 700, 650), (3, 1300, 1200), (4, 50, 40)):
+        """The warp route bit-equal to the twin on every lane and to the wide
+        route (the block kernel) forced on the same inputs; past k = 1000
+        the twin (a Python loop a column) takes the two smaller shapes and
+        the wide route, itself held to the twin, a pair of 2k + 600 columns
+        that crosses into the columns past k."""
+        small = ((4, 50, 40), (40, 600, 500))
+        for k in (8, 31, 256, 300, 1000, 4096, 8175, 8191):
+            for P, Lq, Lt in (((7, 700, 650), (3, 1300, 1200)) + small if k <= 1000 else
+                              small + ((2, 2 * k + 600, 2 * k + 600),)):
                 a = rand_pairs(P, Lq, Lt, seed=k + P, t_neg=True)
-                smoke.same("banded_myers", f"K5 k={k} P={P} Lq={Lq} Lt={Lt}",
-                           banded_myers_cuda(*a, k=k), banded.banded_final_column_myers(*a, k=k))
+                got = banded_myers_cuda(*a, k=k, route="warp")
+                if Lt <= 1200:
+                    smoke.same("banded_myers", f"K5 warp k={k} P={P} Lq={Lq} Lt={Lt}",
+                               got, banded.banded_final_column_myers(*a, k=k))
+                smoke.same("banded_myers_wide", f"K5 wide k={k} P={P} Lq={Lq} Lt={Lt}",
+                           banded_myers_cuda(*a, k=k, route="wide"), got)
         a = rand_pairs(2, 45000, 120, seed=9, t_neg=True)
-        smoke.same("banded_myers", "K5 k=20000 (2 words a thread)",
-                   banded_myers_cuda(*a, k=20000), banded.banded_final_column_myers(*a, k=20000))
-        print("K5: k in {256, 300, 1000}, k in {8, 31} (below MYERS_MIN_K, which the routers "
-              "patch down to reach them) and k = 20000, every lane bit-equal to the plain twin")
+        n = wide_launches(lambda: smoke.same(
+            "banded_myers_wide", "K5 k=20000 (the wide route, 2 words a thread)",
+            banded_myers_cuda(*a, k=20000), banded.banded_final_column_myers(*a, k=20000)))
+        if n != (1, 0):
+            raise AssertionError(f"K5 k=20000: wide-route launches {n}, expected (1, 0)")
+        print("K5: the warp route at k in {8, 31, 256, 300, 1000, 4096, 8175, 8191} (R = 1..16; "
+              "below MYERS_MIN_K the routers patch it down) on ragged shapes up to 40 pairs, every "
+              "lane bit-equal to the plain twin (past k = 1000 on the two smaller shapes) and to "
+              "the wide route (past k = 1000 also at 2k + 600 columns); k = 20000 on the wide "
+              "route (auto), bit-equal to the twin")
 
     def k6_checks():
-        for Lq in (1, 31, 32, 33, 700, 4096):
+        """The warp route, one warp a pair, bit-equal to the twin and to the
+        wide route; HW segments equal to one warp a pair, at small S across
+        many seams and at the plan's S on the 4 kbp x 1 Mbp run."""
+        for Lq in (1, 31, 32, 33, 700, 4096, 16384):
             for hw in (True, False):
                 a = rand_pairs(5, Lq, 600, seed=Lq, t_neg=True)
-                smoke.same("semi_ends", f"K6 Lq={Lq} {'HW' if hw else 'SHW'}",
-                           semi_ends_cuda(*a, free_target_prefix=hw),
+                mode = "HW" if hw else "SHW"
+                got = semi_ends_cuda(*a, free_target_prefix=hw, route="warp",
+                                     seg_cols=0 if hw else None)
+                smoke.same("semi_ends", f"K6 warp Lq={Lq} {mode}", got,
                            banded.semi_ends_myers(*a, free_target_prefix=hw))
+                smoke.same("semi_ends_wide", f"K6 wide Lq={Lq} {mode}",
+                           semi_ends_cuda(*a, free_target_prefix=hw, route="wide"), got)
+                if hw:
+                    for S in (32, 96, 160):
+                        smoke.same("semi_ends", f"K6 HW Lq={Lq} segments of {S}",
+                                   semi_ends_cuda(*a, seg_cols=S), got)
         a = rand_pairs(3, 40000, 80, seed=3, t_neg=True)
-        smoke.same("semi_ends", "K6 Lq=40000 HW (2 words a thread)",
-                   semi_ends_cuda(*a), banded.semi_ends_myers(*a))
-        print("K6: Lq in {1, 31, 32, 33, 700, 4096, 40000}, HW and SHW, bit-equal to the plain twin")
+        n = wide_launches(lambda: smoke.same(
+            "semi_ends_wide", "K6 Lq=40000 HW (the wide route, 2 words a thread)",
+            semi_ends_cuda(*a), banded.semi_ends_myers(*a)))
+        if n != (0, 1):
+            raise AssertionError(f"K6 Lq=40000: wide-route launches {n}, expected (0, 1)")
+        s = scale_pairs()
+        codes = [torch.from_numpy(encode(x).astype(np.int32)[None, :]).to(dev)
+                 for x in (s["tq"], s["big_t"])]
+        full = [codes[0], torch.tensor([4096], dtype=torch.int32, device=dev), codes[1],
+                torch.tensor([1 << 20], dtype=torch.int32, device=dev)]
+        cut = [full[0], full[1], codes[1][:, :8192].contiguous(),
+               torch.tensor([8192], dtype=torch.int32, device=dev)]
+        smoke.same("semi_ends", "K6 HW 4096 x 8192 segments of 64 (128 seams) vs the twin",
+                   semi_ends_cuda(*cut, seg_cols=64), banded.semi_ends_myers(*cut))
+        plan = banded_cuda.segment_plan(1, 4096, 1 << 20, *banded_cuda._card_warps(0, 128))
+        smoke.same("semi_ends", f"K6 HW 4096 x 1048576 at the plan's {plan[0]} segments of "
+                   f"{plan[1]} vs one warp", semi_ends_cuda(*full), semi_ends_cuda(*full, seg_cols=0))
+        print(f"K6: the warp route at Lq in {{1, 31, 32, 33, 700, 4096, 16384}} (R = 1..16), HW and "
+              "SHW, bit-equal to the plain twin and to the wide route; HW segments of 32, 96, 160 "
+              "columns equal to one warp a pair; 4096 x 8192 in segments of 64 equal to the twin; "
+              f"4 kbp x 1 Mbp HW at the plan's {plan} equal to one warp; Lq = 40000 on the wide "
+              "route, bit-equal to the twin")
+
+    def wide_pairs():
+        """align_wide's pairs, from numpy.random.default_rng(3), made once."""
+        if "wide" not in cache:
+            rng = np.random.default_rng(3)
+            q40, t40 = synth_pair(40_000, 0.15, rng)
+            q17 = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 17_000)])
+            t20 = q17[:9000] + "".join(np.array(list("ACGT"))[rng.integers(0, 4, 11_000)])
+            cache["wide"] = (q40, t40, q17, t20)
+        return cache["wide"]
+
+    def align_wide():
+        """The alignment API through the wide routes: the NW distance of a
+        40 kbp pair at 15 % divergence (k-doubling reaches k = 8,192, 513
+        words: K5's wide route) equal to the K4 route's, and HW distance of
+        a 17 kbp query (532 words: K6's wide route) in a 20 kbp target equal
+        to the scan route's."""
+        q40, t40, q17, t20 = wide_pairs()
+        res = {}
+
+        def runs():
+            res["nw"] = al.align(q40, t40, mode="NW", device="cuda")["editDistance"]
+            res["hw"] = al.align(q17, t20, mode="HW", device="cuda")["editDistance"]
+
+        got = drive("align_wide: NW distance 40 kbp (k = 8192), HW distance 17 kbp x 20 kbp", runs)
+        launches.update({k: got[k] for k in ("banded_myers_wide", "semi_ends_wide")})
+        if got["banded_myers_wide"] <= 0 or got["semi_ends_wide"] <= 0:
+            raise AssertionError(f"align_wide: the wide routes did not launch: {got}")
+        myers_min_k = banded.MYERS_MIN_K
+        try:
+            banded.MYERS_MIN_K = 1 << 30  # every band on K4
+            nw_k4 = al.align(q40, t40, mode="NW", device="cuda")["editDistance"]
+            banded.DEFAULT_BACKEND = "scan"
+            hw_scan = al.align(q17, t20, mode="HW", device="cuda")["editDistance"]
+        finally:
+            banded.MYERS_MIN_K, banded.DEFAULT_BACKEND = myers_min_k, "auto"
+        if (res["nw"], res["hw"]) != (nw_k4, hw_scan):
+            raise AssertionError(f"align_wide: {res} != K4 {nw_k4}, scan {hw_scan}")
+        print(f"align_wide: NW distance 40 kbp d={res['nw']} equal to the K4 route's; HW distance "
+              f"17 kbp x 20 kbp d={res['hw']} equal to the scan route's")
 
     def fixtures(*names):
         out = []
@@ -1396,11 +1474,7 @@ def main() -> int:
         4,096 bp query whose copy repeated to 1,048,576 bp is the target,
         then an 8,192 bp pair for the cut comparison."""
         if not scale_inputs:
-            rng = np.random.default_rng(0)
-            q, t = synth_pair(262_144, 0.01, rng)
-            tq, tt = synth_pair(4096, 0.01, rng)
-            q8, t8 = synth_pair(8192, 0.01, rng)
-            scale_inputs.update(q=q, t=t, tq=tq, big_t=(tt * 256)[: 1 << 20], q8=q8, t8=t8)
+            scale_inputs.update(align_pairs(np.random.default_rng(0)))
         return scale_inputs
 
     def walls(what, fn, reps=3):
@@ -1414,25 +1488,27 @@ def main() -> int:
               f"max {max(secs):.3f} s over {reps}", flush=True)
         return res
 
-    def semi_runs(tq, target, route, reps):
-        """SHW and HW x distance and locations x k in {64, 256, -1};
-        wherever a banded run finds the pair, its result equals k = -1's."""
+    def semi_runs(tq, target, route, reps, ks=(32, 64, 256)):
+        """SHW and HW x distance and locations x k in ks and -1 (SHW at
+        k = 32 is K4's band, k = 64 and 256 K5's, since MYERS_MIN_K = 64);
+        wherever a banded run finds the pair, its result equals k = -1's,
+        and where it does not, it reports none."""
         out = {}
         for mode in ("SHW", "HW"):
             for task in ("distance", "locations"):
                 res = {k: walls(f"{mode} {task} {len(tq)} bp x {len(target)} bp k={k} [{route}]",
                                 lambda k=k: al.align_batch([tq], [target], mode=mode, task=task,
                                                            k=k, device="cuda")[0], reps)
-                       for k in (64, 256, -1)}
+                       for k in ks + (-1,)}
                 full = res[-1]
-                for k in (64, 256):
+                for k in ks:
                     want = full if full["editDistance"] <= k else {
                         "editDistance": -1, "endLocations": [], "startLocations": None,
                         "cigar": None}
                     if res[k] != want:
                         raise AssertionError(f"{mode} {task} k={k}: {res[k]} != {want}")
                 print(f"{mode} {task}: d={full['editDistance']}, {len(full['endLocations'])} "
-                      f"end locations; k=64 and k=256 equal to k=-1")
+                      f"end locations; k in {ks} agree with k=-1")
                 out[(mode, task)] = res
         return out
 
@@ -1454,9 +1530,11 @@ def main() -> int:
             semi_runs(s["tq"], s["big_t"], "auto", 3)
 
         got = drive("align_scale: 262,144 bp NW path and distance; 4 kbp x 1 Mbp SHW/HW", main_runs)
-        bad = [k for k in banded_kernels if got[k] <= 0]
+        bad = [k for k in banded_kernels if got[k] <= 0]  # K5 and K6: their warp routes
         if bad:
             raise AssertionError(f"align_scale: kernels of the path not launched: {bad}")
+        if got["banded_myers_wide"] or got["semi_ends_wide"]:
+            raise AssertionError(f"align_scale: a wide route launched: {got}")
         launches.update({k: got[k] for k in banded_kernels})
         # the same workloads cut to sizes the scan route finishes: identical results
         try:
@@ -1468,16 +1546,20 @@ def main() -> int:
                                    lambda: al.align(s["q8"], s["t8"], mode="NW", task="path",
                                                     device="cuda"), 1)
             al.MOVES_CELL_LIMIT = 1 << 22
+            # K6's HW segments patched down to 64 columns: 128 seams a sweep
+            banded_cuda.segment_plan = lambda P, Lq, Lt, sms, resident: (-(-Lt // 64), 64)
             for route in ("auto", "scan"):
                 banded.DEFAULT_BACKEND = route
-                got[route] = (got[route], semi_runs(s["tq"], s["big_t"][: 1 << 13], route, 1))
+                got[route] = (got[route], semi_runs(s["tq"], s["big_t"][: 1 << 13], route, 1,
+                                                    ks=(64, 256)))
         finally:
             banded.DEFAULT_BACKEND = "auto"
             al.MOVES_CELL_LIMIT = 1 << 22
+            banded_cuda.segment_plan = segment_plan
         if got["auto"] != got["scan"]:
             raise AssertionError("cut sizes: the kernel and scan routes differ")
-        print("align_scale: 8,192 bp path and 4 kbp x 8 kbp SHW/HW identical on the kernel "
-              "and scan routes")
+        print("align_scale: 8,192 bp path and 4 kbp x 8 kbp SHW/HW (K6's HW in segments of 64 "
+              "columns) identical on the kernel and scan routes")
 
     def banded_times():
         s = scale_pairs()
@@ -1491,9 +1573,9 @@ def main() -> int:
         def pair(qs, ts):
             return [codes(qs), lens(len(qs)), codes(ts), lens(len(ts))]
 
-        # K4: the transposed SHW k=64 sweep of the 4 kbp x 1 Mbp run
-        cases = [("banded_final_column", "K4 SHW k=64 transposed: q 4161 bp x t 4096 bp",
-                  pair(s["big_t"][:4161], s["tq"]), dict(k=64),
+        # K4: the transposed SHW k=32 sweep of the 4 kbp x 1 Mbp run
+        cases = [("banded_final_column", "K4 SHW k=32 transposed: q 4129 bp x t 4096 bp",
+                  pair(s["big_t"][:4129], s["tq"]), dict(k=32),
                   banded_final_column_cuda, banded.banded_final_column),
                  # K5: the Hirschberg top level's band (kb = 4096), cut to 1024 target columns
                  ("banded_myers", "K5 k=4096: q 5121 bp x t 1024 bp (the 262,144 bp path's "
@@ -1503,6 +1585,16 @@ def main() -> int:
                  ("semi_ends", "K6 HW: q 4096 bp x t 2048 bp (the 4 kbp x 1 Mbp HW run, cut)",
                   pair(s["tq"], s["big_t"][:2048]), dict(free_target_prefix=True),
                   semi_ends_cuda, banded.semi_ends_myers)]
+        # the wide routes at align_wide's shapes: the 40 kbp pair's band k =
+        # 8192 (513 words) cut to 1024 target columns, the 17 kbp HW query
+        # (532 words) cut to 2048
+        q40, t40, q17, t20 = wide_pairs()
+        cases += [("banded_myers_wide", "K5 wide route k=8192: q 9217 bp x t 1024 bp (the 40 kbp "
+                   "NW distance's last band, cut)", pair(q40[:9217], t40[:1024]), dict(k=8192),
+                   banded_myers_cuda, banded.banded_final_column_myers),
+                  ("semi_ends_wide", "K6 wide route HW: q 17000 bp x t 2048 bp (the 17 kbp HW "
+                   "run, cut)", pair(q17, t20[:2048]), dict(free_target_prefix=True),
+                   semi_ends_cuda, banded.semi_ends_myers)]
         def out_bytes(x):
             if isinstance(x, (tuple, list)):
                 return sum(out_bytes(y) for y in x)
@@ -1516,23 +1608,33 @@ def main() -> int:
             q_len, t_len = int(args[1][0]), int(args[3][0])
             if name == "banded_final_column":  # band lanes x target columns
                 ops = OPS_PER_CELL["hw"] * (2 * kw["k"] + 1) * t_len
-            elif name == "banded_myers":  # 32-row band words x target columns
+            elif name.startswith("banded_myers"):  # 32-row band words x target columns
                 ops = OPS_PER_CELL["myers_word"] * -(-(2 * kw["k"] + 1) // 32) * t_len
             else:  # full-height words x target columns
                 ops = OPS_PER_CELL["myers_word"] * -(-q_len // 32) * t_len
             bounds[name] = bound(4 * (q_len + t_len + 2) + out_bytes(got), ops)
-            print(f"{what}: kernel {spread(k)}; plain {spread(p)}; bound {bounds[name][0]:.4f} ms "
+            print(f"{what}: kernel {spread(k)}, {1e6 * statistics.median(k) / t_len:.1f} ns a "
+                  f"target column; plain {spread(p)}; bound {bounds[name][0]:.4f} ms "
                   f"({bounds[name][1]})")
         # the one-pair sweeps of the uncut runs, kernel only
         k4_full = pair(s["q"], s["t"])
-        k, _ = timed(lambda: banded_final_column_cuda(*k4_full, k=128), 2)
-        print(f"K4 k=128, q {len(s['q'])} bp x t {len(s['t'])} bp (the k-doubling's first band): "
-              f"kernel {spread(k)}")
+        for name, fn in (("K5", banded_myers_cuda), ("K4", banded_final_column_cuda)):
+            k, _ = timed(lambda: fn(*k4_full, k=128), 2)
+            print(f"{name} k=128, q {len(s['q'])} bp x t {len(s['t'])} bp (the k-doubling's first "
+                  f"band, K5's since MYERS_MIN_K = 64): kernel {spread(k)}, "
+                  f"{1e6 * statistics.median(k) / len(s['t']):.1f} ns a target column")
         k, _ = timed(lambda: banded_myers_cuda(*k4_full, k=4096), 2)
-        print(f"K5 k=4096, q {len(s['q'])} bp x t {len(s['t'])} bp: kernel {spread(k)}")
+        print(f"K5 k=4096, q {len(s['q'])} bp x t {len(s['t'])} bp: kernel {spread(k)}, "
+              f"{1e6 * statistics.median(k) / len(s['t']):.1f} ns a target column")
         k6_full = pair(s["tq"], s["big_t"])
-        k, _ = timed(lambda: semi_ends_cuda(*k6_full), 2)
-        print(f"K6 HW, q 4096 bp x t {len(s['big_t'])} bp: kernel {spread(k)}")
+        n = len(s["big_t"])
+        plan = segment_plan(1, 4096, n, *banded_cuda._card_warps(0, 128))
+        for what, kw in ((f"HW at the plan's {plan[0]} segments of {plan[1]} columns", {}),
+                         ("HW one warp", dict(seg_cols=0)),
+                         ("SHW one warp", dict(free_target_prefix=False))):
+            k, _ = timed(lambda: semi_ends_cuda(*k6_full, **kw), 2)
+            print(f"K6 {what}, q 4096 bp x t {n} bp: kernel {spread(k)}, "
+                  f"{1e6 * statistics.median(k) / n:.1f} ns a target column")
         # the path task's plain scans at its base-case size: 16 pairs of ~1600 bp
         r = np.random.default_rng(2)
         b = [torch.from_numpy(r.integers(0, 4, (16, 1600)).astype(np.int32)).to(dev)
@@ -1682,6 +1784,7 @@ def main() -> int:
     smoke.phase("k4", k4_checks)
     smoke.phase("k5", k5_checks)
     smoke.phase("k6", k6_checks)
+    smoke.phase("align_wide", align_wide)
     smoke.phase("align", align_checks)
     smoke.phase("align_scale", align_scale)
     smoke.phase("p_probe", probe_checks)
@@ -1701,8 +1804,10 @@ def main() -> int:
              "stringdecomposer_tpu/ops/identity_pallas.py:63"),
             ("hw_filter", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
             ("banded_final_column", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:59"),
-            ("banded_myers", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),
-            ("semi_ends", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:510")]
+            ("banded_myers", src + "myers_warp.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),
+            ("semi_ends", src + "myers_warp.cu", "stringdecomposer_tpu/ops/banded_pallas.py:510"),
+            ("banded_myers_wide", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),
+            ("semi_ends_wide", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:510")]
     meta += [("int16_probe", src + "chain_dp.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:106"),
              ("chain_dp_int16", src + "chain_dp.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
              ("chain_dp_large_int16", src + "chain_dp.cuh",

@@ -15,6 +15,8 @@
 //       semi_ends_myers): full-height Myers over every target column, the
 //       end-row score D(q_len, j) of HW (free target prefix) or SHW. Twin:
 //       ops/banded.semi_ends_myers.
+// K5 and K6 here are the wide route, for bands and queries of more than 512
+// words; up to that the warp route of csrc/myers_warp.cu serves them.
 //
 // What bounds them on the H100: latency. Each pair is a chain of t_len
 // dependent target columns, and a column is only a few integer operations

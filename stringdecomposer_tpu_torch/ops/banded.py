@@ -37,8 +37,11 @@ from .align import BIG, dp_banded_lastrow_batch
 DEFAULT_BACKEND = "auto"
 
 # minimum k for the bit-parallel route (K5); below it the int32 band K4
-# serves. Tests and chip_smoke patch it down to force K5 on small cases.
-MYERS_MIN_K = 256
+# serves. K5's warp route beat K4 at k = 64, 128 and 256 on every shape
+# scripts/banded_ab.py times (one 262,144 bp pair, a transposed SHW sweep,
+# 64 pairs of 2,048 bp); below 64 it is not measured. Tests and chip_smoke
+# patch it down to force K5 on small cases.
+MYERS_MIN_K = 64
 
 M32 = 0xFFFFFFFF
 
@@ -259,4 +262,218 @@ def semi_ends_myers(q, q_lens, t, t_lens, free_target_prefix: bool = True) -> to
         vp = (hnsh | ((d0 | hpsh) ^ M32)) & M32
         vn = d0 & hpsh
         ends[:, j] = s.to(torch.int32)
+    return ends
+
+
+# ---------------------------------------------------------------------------
+# The warp route's plain mirrors (test-only; nothing on the main path calls
+# them): K5 and K6 as csrc/myers_warp.cu lays them out. Lane l of a pair's
+# warp owns words l*R .. l*R + R - 1, held here as [P, 32, R] planes.
+# ---------------------------------------------------------------------------
+def carry_in_lanes(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The carry into each of 32 lanes, [..., 32] 0/1, from the lanes'
+    (generate, propagate) bits [..., 32] (exclusive), as the kernel takes
+    it: the ballots G and P as 32-bit masks, A = G | P, and bit l of
+    (A + G) ^ A ^ G; no carry enters lane 0."""
+    sh = torch.arange(32, dtype=torch.int64, device=g.device)
+    G = (g.to(torch.int64) << sh).sum(dim=-1, keepdim=True)
+    A = G | (p.to(torch.int64) << sh).sum(dim=-1, keepdim=True)
+    return ((((A + G) & M32) ^ A ^ G) >> sh) & 1
+
+
+def peq_bitmaps(q: torch.Tensor, q_lens: torch.Tensor, off: int, NB: int) -> torch.Tensor:
+    """The kernels' prologue: per-code bitmaps of the query, [P, 4, NB]
+    uint32 values in int64; bit b of word m of plane c is set where query
+    index 32 m + b - off (below min(q_len, Lq)) holds code c."""
+    P, Lq = q.shape
+    dev = q.device
+    idx = torch.arange(32 * NB, device=dev)[None, :] - off
+    ok = (idx >= 0) & (idx < q_lens.to(device=dev, dtype=torch.int64)[:, None]) & (idx < Lq)
+    codes = torch.full((P, 32 * NB), -9, dtype=torch.int64, device=dev)
+    if Lq:
+        got = q.to(torch.int64).gather(1, idx.clamp(0, Lq - 1).expand(P, -1))
+        codes = torch.where(ok, got, codes)
+    return torch.stack([pack_bits(codes == c) for c in range(4)], dim=1)
+
+
+def lane_carries(gen: torch.Tensor, prop: torch.Tensor) -> torch.Tensor:
+    """The carry into each of the warp's words, [P, 32, R] 0/1, from the
+    words' generate and propagate bits [P, 32, R] (exclusive), as the
+    kernel's lane_carries takes it: a lane's words as R-bit masks G and P,
+    A = G | P, its carry out bit R of A + G and its propagate P == all ones;
+    the carry c into the lane from the ballots (carry_in_lanes); bit r of
+    (A + G + c) ^ A ^ G the carry into word r."""
+    R = gen.shape[2]
+    sh = torch.arange(R, dtype=torch.int64, device=gen.device)
+    gm = (gen << sh).sum(dim=-1)
+    pm = (prop << sh).sum(dim=-1)
+    am = gm | pm
+    c = carry_in_lanes(((am + gm) >> R) & 1, (pm == (1 << R) - 1).to(torch.int64))
+    return (((am + gm + c) ^ am ^ gm)[..., None] >> sh) & 1
+
+
+def _warp_add(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(x & v) + v over the warp's words with the carries of lane_carries;
+    [P, 32, R] in, the sum mod 2^(32 * 32R) out."""
+    full = (x & v) + v
+    part, gen = full & M32, full >> 32
+    prop = (part == M32).to(torch.int64)
+    return (part + lane_carries(gen, prop)) & M32
+
+
+def _shift_up(h: torch.Tensor, bit0: int) -> torch.Tensor:
+    """Bit b <- bit b - 1 over the warp's words: within a lane from its word
+    below, across lanes bit 31 of the lane below's last word (the shuffle
+    up); lane 0's word 0 takes bit0."""
+    top = h[:, :, -1:] >> 31
+    below = torch.cat([torch.full_like(top[:, :1], bit0), top[:, :-1]], dim=1)
+    return ((h << 1) & M32) | torch.cat([below, h[:, :, :-1] >> 31], dim=2)
+
+
+def _shift_down(v: torch.Tensor) -> torch.Tensor:
+    """Bit b <- bit b + 1 over the warp's words: bit 0 of the word above,
+    across lanes of the next lane's first word (the shuffle down; lane 31
+    takes 0)."""
+    nxt = torch.cat([v[:, 1:, :1], torch.zeros_like(v[:, :1, :1])], dim=1)
+    return (v >> 1) | (torch.cat([v[:, :, 1:], nxt], dim=2) & 1) << 31
+
+
+def _lane_words(W: int, R: int | None) -> int:
+    need = max(1, -(-W // 32))
+    if R is None:
+        return need
+    if R < need:
+        raise ValueError(f"R = {R} words a lane cannot hold {W} words")
+    return R
+
+
+def myers_warp(q, q_lens, t, t_lens, k: int, R: int | None = None) -> torch.Tensor:
+    """K5 as its warp route computes it, [P, 2k+1] int32 (bit-equal to
+    banded_final_column_myers on every lane): lane strips of R words
+    (default ceil(W / 32); any R that holds W words), the slide's and the
+    up-shift's seams across lanes, the carries of lane_carries, and the Peq
+    words as a funnel shift, at offset j, of the query's per-code bitmaps
+    over absolute rows (bit p = query index p - k - 1). As in the kernel,
+    bits above the band's top lane are left unmasked (they only move up)
+    and the slide forces the top lane's entering bits; the capture masks
+    them."""
+    P, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    Bw = 2 * k + 1
+    W = -(-Bw // 32)
+    R = _lane_words(W, R)
+    widx = (torch.arange(32, device=dev)[:, None] * R
+            + torch.arange(R, device=dev)[None, :]).to(torch.int64)  # [32, R]
+    lm = _lowmask(widx, Bw - 1)
+    topw, topbit = (Bw - 1) // 32, 1 << ((Bw - 1) % 32)
+    top = torch.where(widx == topw, topbit, 0)
+    not0 = torch.where(widx == 0, M32 ^ 1, M32)
+    # column 0: anchor k, a -1 ramp below row 0 (lanes 1..k), +1 above
+    km = _lowmask(widx, k)
+    vp = ((km ^ M32) & lm).expand(P, 32, R).clone()
+    vn = (km & (_lowmask(widx, 0) ^ M32) & lm).expand(P, 32, R).clone()
+    NB = (k + Lq + 32) // 32 + 1
+    bm = peq_bitmaps(q, q_lens, k + 1, NB)
+    bm = torch.cat([bm, torch.zeros_like(bm[:, :, :1]).expand(P, 4, 32 * R + 2)], dim=2)
+    tl = t_lens.to(device=dev, dtype=torch.int64)
+    n = torch.where((tl < 0) | (tl > Lt), -1, tl)
+    a = torch.full((P,), k, dtype=torch.int64, device=dev)
+    cvp = torch.where((n == 0)[:, None, None], vp, 0)
+    cvn = torch.where((n == 0)[:, None, None], vn, 0)
+    ca = a.clone()
+    t64 = t.to(device=dev, dtype=torch.int64)
+    pidx = torch.arange(P, device=dev)
+    for j in range(1, (min(Lt, int(n.max())) if P else 0) + 1):
+        tc = t64[:, j - 1]
+        plane = bm[pidx, tc.clamp(0, 3)]  # [P, NB + pad]
+        lo = plane[:, (j >> 5) + widx]
+        hi = plane[:, (j >> 5) + widx + 1]
+        s = j & 31
+        eq = lo if s == 0 else ((lo >> s) | (hi << (32 - s))) & M32
+        eq = torch.where(((tc >= 0) & (tc < 4))[:, None, None] & (widx < W), eq, 0)
+        b0 = k - j
+        low = _lowmask(widx, b0) if b0 >= 0 else torch.zeros_like(widx)
+        bnd = torch.where(widx == b0 // 32, 1 << (b0 % 32), 0) if b0 >= 0 else torch.zeros_like(widx)
+        vps = (_shift_down(vp) | top) & (low ^ M32)
+        vns = _shift_down(vn) & (top ^ M32)
+        x = (eq | vns) & (low ^ M32)
+        d0 = (_warp_add(x, vps) ^ vps) | x
+        hp = (vns | ((d0 | vps) ^ M32)) | bnd  # boundary row: +1
+        hn = (d0 & vps) & (bnd ^ M32)
+        hpsh = _shift_up(hp, 1)  # out-of-band cell above lane 0: +1
+        hnsh = _shift_up(hn, 0)
+        lowx = low & (bnd ^ M32)
+        nob0 = bnd if b0 >= 1 else torch.zeros_like(bnd)
+        nvp = (hnsh | ((d0 | hpsh) ^ M32)) & (lowx ^ M32) & (nob0 ^ M32) & M32
+        nvn = ((d0 & hpsh) & (lowx ^ M32)) | (lowx & not0) | nob0
+        if b0 < 0 and Bw >= 2:  # the anchor follows lane 0's word 0 once j > k
+            a = a + ((vp[:, 0, 0] >> 1) & 1) - ((vn[:, 0, 0] >> 1) & 1)
+        if b0 < 0:
+            a = a + (hp[:, 0, 0] & 1) - (hn[:, 0, 0] & 1)
+        vp, vn = nvp, nvn
+        cap = n == j
+        cvp = torch.where(cap[:, None, None], vp & lm, cvp)
+        cvn = torch.where(cap[:, None, None], vn & lm, cvn)
+        ca = torch.where(cap, a, ca)
+    return reconstruct_myers_column(cvp.reshape(P, 32 * R)[:, :W], cvn.reshape(P, 32 * R)[:, :W],
+                                    ca, q_lens, t_lens, k)
+
+
+def semi_warp(q, q_lens, t, free_target_prefix: bool = True, R: int | None = None,
+              seg_cols: int = 0) -> torch.Tensor:
+    """K6 as its warp route computes it, [P, Lt] int32 (equal to
+    semi_ends_myers): lane strips of R words with the Peq words fixed a
+    lane, the carries of lane_carries, the up-shift's seam across lanes. With seg_cols = S > 0 (HW only), warp g runs segment
+    g % nseg of pair g // nseg: it starts fresh at column max(0, e_s -
+    2 q_len) and writes ends e_s .. e_s + S - 1 only (csrc/myers_warp.cu
+    semi_warp_kernel says why that is exact)."""
+    if seg_cols and not free_target_prefix:
+        raise ValueError("SHW fixes the alignment's start at column 0: no segments")
+    P, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    W = max(1, -(-Lq // 32))
+    R = _lane_words(W, R)
+    pq = torch.zeros((P, 4, 32 * R), dtype=torch.int64, device=dev)
+    pq[:, :, :W] = peq_bitmaps(q, q_lens, 0, W)
+    pq = pq.view(P, 4, 32, R)
+    nseg, S = (-(-Lt // seg_cols), seg_cols) if seg_cols else (1, Lt)
+    g = torch.arange(P * nseg, device=dev)
+    pw = g // nseg
+    e_s = (g % nseg) * S
+    e_e = (e_s + S).clamp(max=Lt)
+    ql = q_lens.to(device=dev, dtype=torch.int64)[pw]
+    j0 = (e_s - 2 * ql).clamp(min=0)
+    hot_w = torch.where(ql > 0, (ql - 1) // 32, -1)
+    has_hot = (hot_w >= 0) & (hot_w < W)
+    hot_lane, hot_r = (hot_w // R).clamp(0, 31), (hot_w % R).clamp(0, R - 1)
+    hot_b = (ql - 1) & 31
+    hp0 = 0 if free_target_prefix else 1
+    vp = torch.full((len(g), 32, R), M32, dtype=torch.int64, device=dev)  # column j0: all +1
+    vn = torch.zeros_like(vp)
+    score = ql.clone()
+    ends = torch.zeros((P, Lt), dtype=torch.int32, device=dev)
+    t64 = t.to(device=dev, dtype=torch.int64)
+    steps = e_e - j0
+    for i in range(int(steps.max()) if len(g) and Lt else 0):
+        j = j0 + i
+        act = i < steps
+        tc = t64[pw, j.clamp(max=Lt - 1)]
+        eq = pq[pw, tc.clamp(0, 3)]
+        eq = torch.where(((tc >= 0) & (tc < 4))[:, None, None], eq, 0)
+        x = eq | vn
+        d0 = (_warp_add(x, vp) ^ vp) | x
+        hp = vn | ((d0 | vp) ^ M32)
+        hn = d0 & vp
+        at = (g, hot_lane, hot_r)
+        delta = ((hp[at] >> hot_b) & 1) - ((hn[at] >> hot_b) & 1)
+        hpsh = _shift_up(hp, hp0)  # row 0: HW 0, SHW +1
+        hnsh = _shift_up(hn, 0)
+        m = act[:, None, None]
+        vp = torch.where(m, (hnsh | ((d0 | hpsh) ^ M32)) & M32, vp)
+        vn = torch.where(m, d0 & hpsh, vn)
+        score = torch.where(act & has_hot, score + delta, score)
+        out = act & (j >= e_s)
+        ends[pw[out], j[out]] = score[out].to(torch.int32)
     return ends

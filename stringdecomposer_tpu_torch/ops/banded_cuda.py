@@ -1,15 +1,25 @@
 """K4, K5 and K6 on the card: the banded and semi-global sweeps of the
-alignment API (csrc/banded.cu).
+alignment API (csrc/banded.cu, csrc/myers_warp.cu).
 
 Each wrapper has the contract of its twin in ops/banded.py and dispatches
 on the device of `q`: a CPU tensor runs the twin, a CUDA tensor launches the
 kernel (exact at any band width and query length) and raises on anything it
-does not take. The block size and the items per thread are chosen here;
-the band's arrays sit in shared memory while they fit and in a per-pair
-device-memory scratch beyond that.
+does not take. K5 and K6 have two routes, each with its own launch counter:
+- the warp route (`launches`; csrc/myers_warp.cu), a warp a pair with the
+  band in registers, up to WARP_MAX_WORDS 32-row words (k <= 8,191 in K5,
+  Lq <= 16,384 in K6). K6 under HW splits a long target into segments,
+  one warp each (`segment_plan`);
+- the wide route (`launches_wide`; csrc/banded.cu), one block a pair, the
+  band's arrays in shared memory while they fit and in a per-pair
+  device-memory scratch beyond that, for wider bands and taller queries.
+K4 is one block a pair (csrc/banded.cu). The block size and the items per
+thread of the block kernels are chosen here.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -20,6 +30,59 @@ from . import banded
 SMEM_BYTES = 232_448
 _SLOTS = 32  # the kernels' scan slots, one int per warp
 _PLANE_ARRAYS = 9  # K5 / K6: VP, VN, four Peq planes, d0, HP, HN
+# csrc/myers_warp.cu: kMaxR = 16 words a lane, kWarps = 8 warps a block
+WARP_MAX_WORDS = 32 * 16
+WARPS_PER_BLOCK = 8
+# K6's segment plan: the warps an SM runs before they slow each other's
+# columns in proportion, sharing its issue. On the H100 one block (8 warps)
+# an SM was the fastest of the segment counts banded_ab.py --sweep tried at
+# 4 kbp x 1 Mbp; two blocks an SM took 1.7x as long.
+SEG_WARPS_PER_SM = 8
+
+
+def _warp_route(W: int, route: str) -> bool:
+    """Whether a K5 / K6 launch of W words takes the warp route: "auto"
+    while W <= WARP_MAX_WORDS; "warp" and "wide" force one (chip_smoke holds
+    the routes against each other)."""
+    if route not in ("auto", "warp", "wide"):
+        raise ValueError(f"route must be 'auto', 'warp' or 'wide', got {route!r}")
+    if route == "warp" and W > WARP_MAX_WORDS:
+        raise ValueError(f"the warp route takes at most {WARP_MAX_WORDS} words, got {W}")
+    return route == "warp" or (route == "auto" and W <= WARP_MAX_WORDS)
+
+
+def segment_plan(P: int, Lq: int, Lt: int, sms: int, resident: int) -> tuple[int, int]:
+    """(segments a pair, columns a segment S) of K6 under HW, for P pairs
+    of queries padded to Lq against Lt target columns, on a card of `sms`
+    SMs that holds `resident` warps of the kernel an SM. A pure function.
+
+    Each segment is a warp that runs S + 2 Lq columns (its warm-up of up to
+    2 q_len columns, then its own S), so the redundant work is (S + 2 Lq) /
+    S. The card runs sms * min(SEG_WARPS_PER_SM, resident) warps at a
+    column's own pace; past that the warps share the SMs' issue and the time
+    grows with the total work. So the plan takes as many segments as fill
+    those warps, with S a multiple of 32 (the kernel stores 32 end scores
+    at once), and none (one warp a pair, no warm-up) unless S + 2 Lq < Lt."""
+    full = sms * min(SEG_WARPS_PER_SM, resident)
+    n = min(full // max(P, 1), -(-Lt // 32))
+    if n < 2:
+        return 1, Lt
+    S = -(-Lt // (32 * n)) * 32
+    if S + 2 * Lq >= Lt:
+        return 1, Lt
+    return -(-Lt // S), S
+
+
+@functools.lru_cache(maxsize=None)
+def _card_warps(device_index: int, W: int) -> tuple[int, int]:
+    """(SMs, resident warps an SM) for K6's warp kernel at W words, asked of
+    the card: its SM count and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at the kernel's registers."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(library().sd_semi_warp_occupancy(W, ctypes.byref(blocks)), "semi_warp occupancy")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms, blocks.value * WARPS_PER_BLOCK
 
 
 def _layout(n: int) -> tuple[int, int]:
@@ -80,54 +143,89 @@ def banded_final_column_cuda(q, q_lens, t, t_lens, *, k: int, use_mask: bool = F
     return out
 
 
-def banded_myers_cuda(q, q_lens, t, t_lens, *, k: int):
+def banded_myers_cuda(q, q_lens, t, t_lens, *, k: int, route: str = "auto"):
     """K5: [P, 2k+1] int32, as ops/banded.banded_final_column_myers (bit-equal
     on every lane). The kernel emits the captured planes and anchor; the
     column is rebuilt by a cumsum on the device, as the JAX package does
-    outside its kernel."""
-    if not q.is_cuda:
-        return banded.banded_final_column_myers(q, q_lens, t, t_lens, k=k)
+    outside its kernel. `route`: "auto" (the warp route while W <=
+    WARP_MAX_WORDS, else the wide one), "warp" or "wide"."""
     if k < 0:
         raise ValueError(f"k must be >= 0, got {k}")
+    W = -(-(2 * k + 1) // 32)
+    warp = _warp_route(W, route)
+    if not q.is_cuda:
+        return banded.banded_final_column_myers(q, q_lens, t, t_lens, k=k)
     q, q_lens, t, t_lens = _checked(q, q_lens, t, t_lens)
     (P, Lq), Lt = q.shape, t.shape[1]
-    W = -(-(2 * k + 1) // 32)
-    T, R = _layout(W)
     dev = q.device
     cvp = torch.empty((P, W), dtype=torch.int32, device=dev)
     cvn = torch.empty((P, W), dtype=torch.int32, device=dev)
     ca = torch.empty((P,), dtype=torch.int32, device=dev)
-    if P:
+    if P and warp:
+        # the query's per-code bitmaps over bits p = query index + k + 1
+        NB = (k + Lq + 32) // 32 + 1
+        bm = torch.empty((P, 4, NB), dtype=torch.int32, device=dev)
+        check(library().sd_myers_warp(
+            q.data_ptr(), q_lens.data_ptr(), t.data_ptr(), t_lens.data_ptr(), bm.data_ptr(),
+            cvp.data_ptr(), cvn.data_ptr(), ca.data_ptr(), P, Lq, Lt, k, W, NB, stream_of(q),
+        ), "banded_myers warp kernel")
+        count_launch(banded_myers_cuda)
+    elif P:
+        T, R = _layout(W)
         scratch = _scratch(P, _PLANE_ARRAYS * R * T, dev)
         check(library().sd_banded_myers(
             q.data_ptr(), q_lens.data_ptr(), t.data_ptr(), t_lens.data_ptr(), _ptr(scratch),
             cvp.data_ptr(), cvn.data_ptr(), ca.data_ptr(), P, Lq, Lt, k, W, T, R, stream_of(q),
         ), "banded_myers kernel")
-        count_launch(banded_myers_cuda)
+        count_launch(banded_myers_cuda, "launches_wide")
     return banded.reconstruct_myers_column(banded.as_uint32(cvp), banded.as_uint32(cvn), ca,
                                            q_lens, t_lens, k)
 
 
-def semi_ends_cuda(q, q_lens, t, t_lens, *, free_target_prefix: bool = True):
-    """K6: [P, Lt] int32, as ops/banded.semi_ends_myers."""
+def semi_ends_cuda(q, q_lens, t, t_lens, *, free_target_prefix: bool = True,
+                   route: str = "auto", seg_cols: int | None = None):
+    """K6: [P, Lt] int32, as ops/banded.semi_ends_myers. `route` as in
+    banded_myers_cuda. On the warp route under HW, `seg_cols` sets the
+    columns a segment (a multiple of 32; 0: one warp a pair), else
+    `segment_plan` picks them from the card; SHW takes no segments."""
+    W = max(1, -(-q.shape[1] // 32))
+    warp = _warp_route(W, route)
+    if seg_cols is not None and (not warp or not free_target_prefix or seg_cols < 0
+                                 or seg_cols % 32):
+        raise ValueError(f"seg_cols={seg_cols}: segments are for HW on the warp route, "
+                         "a multiple of 32 columns (0: none)")
     if not q.is_cuda:
         return banded.semi_ends_myers(q, q_lens, t, t_lens, free_target_prefix=free_target_prefix)
     q, q_lens, t, t_lens = _checked(q, q_lens, t, t_lens)
     (P, Lq), Lt = q.shape, t.shape[1]
-    W = max(1, -(-Lq // 32))
-    T, R = _layout(W)
     ends = torch.empty((P, Lt), dtype=torch.int32, device=q.device)
     if P == 0 or Lt == 0:
         return ends
+    if warp:
+        nseg, S = 1, Lt
+        if seg_cols:
+            nseg, S = -(-Lt // seg_cols), seg_cols
+        elif seg_cols is None and free_target_prefix:
+            nseg, S = segment_plan(P, Lq, Lt, *_card_warps(q.device.index, W))
+        bm = torch.empty((P, 4, W), dtype=torch.int32, device=q.device)
+        check(library().sd_semi_warp(
+            q.data_ptr(), q_lens.data_ptr(), t.data_ptr(), bm.data_ptr(), ends.data_ptr(),
+            P, Lq, Lt, W, 0 if free_target_prefix else 1, nseg, S, stream_of(q),
+        ), "semi_ends warp kernel")
+        count_launch(semi_ends_cuda)
+        return ends
+    T, R = _layout(W)
     scratch = _scratch(P, _PLANE_ARRAYS * R * T, q.device)
     check(library().sd_semi_ends(
         q.data_ptr(), q_lens.data_ptr(), t.data_ptr(), _ptr(scratch), ends.data_ptr(),
         P, Lq, Lt, W, T, R, 0 if free_target_prefix else 1, stream_of(q),
     ), "semi_ends kernel")
-    count_launch(semi_ends_cuda)
+    count_launch(semi_ends_cuda, "launches_wide")
     return ends
 
 
 banded_final_column_cuda.launches = 0
 banded_myers_cuda.launches = 0
+banded_myers_cuda.launches_wide = 0
 semi_ends_cuda.launches = 0
+semi_ends_cuda.launches_wide = 0

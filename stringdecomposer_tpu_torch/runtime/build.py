@@ -49,6 +49,9 @@ _SIGNATURES = {
     "sd_banded_column": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_banded_myers": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_semi_ends": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_myers_warp": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_semi_warp": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_semi_warp_occupancy": (_I, [_I, ctypes.POINTER(_I)]),
     "sd_error_string": (ctypes.c_char_p, [_I]),
 }
 

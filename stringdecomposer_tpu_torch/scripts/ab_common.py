@@ -1,9 +1,9 @@
-"""What the A/B scripts beside this file (k1_ab.py, k2_ab.py) share: the
-import of the checkout under ROOT with its kernels built, the run's header
-(the card's name and power limit, the checkout's ptxas lines), CUDA-event
-timing and the end-to-end runner with stage spans. The scripts run as
-files, so they import this module, and workloads.py, from beside them,
-whichever checkout they time."""
+"""What the A/B scripts beside this file (k1_ab.py, k2_ab.py,
+banded_ab.py) share: the import of the checkout under ROOT with its kernels
+built, the run's header (the card's name and power limit, the checkout's
+ptxas lines), CUDA-event timing and the end-to-end runner with stage spans.
+The scripts run as files, so they import this module, and workloads.py,
+from beside them, whichever checkout they time."""
 
 from __future__ import annotations
 
@@ -19,12 +19,13 @@ DATA = Path(__file__).resolve().parents[2] / "stringdecomposer_tpu" / "test_data
 ENTRY = re.compile(r"Compiling entry function '_ZN\w*?_cu_\w{8}\d+([a-z_0-9]+)(I\w*?EE)?")
 
 
-def checkout(root: str, kernels: str, who: str):
+def checkout(root: str, kernels: str | tuple[str, ...], who: str):
     """Imports torch and the `stringdecomposer_tpu_torch` under `root` and
     builds its kernels with its own runtime/build.py. Returns (torch,
     header): the checkout, the card's name and power limit, and the ptxas
-    register and spill lines of the entries whose name holds `kernels`
-    (from its build.log). Exits 2 where no card is seen."""
+    register and spill lines of the entries whose name holds `kernels` (or
+    one of them; from its build.log). Exits 2 where no card is seen."""
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
     path = Path(root).resolve()
     sys.path.insert(0, str(path))
     import torch
@@ -43,7 +44,7 @@ def checkout(root: str, kernels: str, who: str):
         m = ENTRY.search(ln)
         if m:
             entry = m.group(1) + (m.group(2) or "")
-        elif kernels in entry and ("registers" in ln or "spill" in ln):
+        elif any(k in entry for k in kernels) and ("registers" in ln or "spill" in ln):
             ptxas.append(f"{entry}: {ln.strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

@@ -1,0 +1,226 @@
+#!/usr/bin/env python3
+"""K5 and K6, the Myers kernels of the alignment API, of one checkout of
+this repo, timed on the card, for an A/B of two commits on one card.
+
+Unpack the other commit's port into a directory that .gitignore lists
+(`mkdir -p build/parent && git archive <commit> stringdecomposer_tpu_torch |
+tar -x -C build/parent`), then, in one chip call, run this script once per
+turn, parent, change, change, parent, each in a fresh process:
+
+    python3 stringdecomposer_tpu_torch/scripts/banded_ab.py build/parent
+    python3 stringdecomposer_tpu_torch/scripts/banded_ab.py .
+
+ROOT is the directory that holds the checkout's `stringdecomposer_tpu_torch`;
+that package, with the kernels its own runtime/build.py builds, is what
+runs. The workloads come from `workloads.align_pairs` beside this script
+(numpy.random.default_rng(0)), whatever the checkout, as does the
+scaffolding shared with k1_ab.py and k2_ab.py (`ab_common.py`):
+  - kernels alone, through the checkout's wrappers on the card: K5 at
+    k = 4,096 on q 5,121 bp x t 1,024 bp (chip_smoke's shape, the 262,144
+    bp path's top-level band cut) and on the whole 262,144 bp pair; K6
+    under HW and SHW on the 4,096 bp query x the first 2,048 bp of its
+    1,048,576 bp target (chip_smoke's shape) and x the whole target; K4 and
+    K5 at k = 64, 128 and 256 on the 262,144 bp pair (the k-doubling's
+    bands), on the transposed SHW sweep of the 4 kbp query (q 4,096 + k + 1
+    bp of the target x t 4,096 bp) and on 64 pairs of 2,048 bp (numpy seed
+    1, 1 % divergence: a Hirschberg level's batch), to say where
+    MYERS_MIN_K belongs. One warm-up call, then REPS (whole sizes:
+    FULL_REPS) calls timed with CUDA events (ms), and a digest of the
+    output, so that the turns can be held equal;
+  - end to end (`ops/align.align` on the card): the NW path and the NW
+    distance (k = -1) of the 262,144 bp pair, and SHW and HW distance and
+    locations of the 4 kbp query in the 1 Mbp target at k = 64, 256 and
+    -1. One warm-up run, then E2E_REPS runs (the path: PATH_REPS) on the
+    host clock up to a synchronize, and a digest of each result.
+With `--sweep` (a checkout with K6's segments), K6 under HW on the whole 1
+Mbp target at forced segment sizes S (nseg = 132 x m warps for m = 1 .. 32,
+and S = 256 .. 16,384), beside the plan's, each with its digest and the
+card's resident warps an SM: the data behind SEG_WARPS_PER_SM.
+With `--profile`, one HW locations run at k = 64 under torch.profiler: the
+device time by kernel, largest first, and the device's busy total (the
+kernels' self time); and K6 alone on the same pair with CUDA events.
+Prints one JSON line: the checkout, the card's name and power limit, the
+ptxas register and spill lines of its Myers entries (from its build.log)
+and the times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+import time
+
+from ab_common import checkout, ms
+
+REPS = 5
+FULL_REPS = 3
+E2E_REPS = 3
+PATH_REPS = 2
+
+
+def digest(x) -> str:
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+    return hashlib.sha256(json.dumps(x, sort_keys=True).encode()).hexdigest()[:16]
+
+
+def timed(torch, fn, reps) -> dict:
+    out = fn()
+    t = ms(torch, fn, reps)
+    return {"ms": t, "median_ms": sorted(t)[len(t) // 2], "digest": digest(out)}
+
+
+def inputs(torch, dev, np, encode, s):
+    """{name: [q, q_lens, t, t_lens]} on the card: the kernels' shapes."""
+    def pair(qs, ts):
+        codes = [torch.from_numpy(encode(x).astype(np.int32)[None, :]).to(dev) for x in (qs, ts)]
+        return [codes[0], torch.tensor([len(qs)], dtype=torch.int32, device=dev),
+                codes[1], torch.tensor([len(ts)], dtype=torch.int32, device=dev)]
+
+    import workloads
+
+    rng = np.random.default_rng(1)
+    pairs = [workloads.synth_pair(2048, 0.01, rng) for _ in range(64)]
+    batch = []
+    for side in (0, 1):
+        seqs = [encode(p[side]).astype(np.int32) for p in pairs]
+        arr = np.zeros((64, max(len(x) for x in seqs)), dtype=np.int32)
+        for i, x in enumerate(seqs):
+            arr[i, : len(x)] = x
+        batch += [torch.from_numpy(arr).to(dev),
+                  torch.tensor([len(x) for x in seqs], dtype=torch.int32, device=dev)]
+    return {"k5 5121x1024": pair(s["q"][:5121], s["t"][:1024]),
+            "nw 262144": pair(s["q"], s["t"]),
+            "k6 4096x2048": pair(s["tq"], s["big_t"][:2048]),
+            "k6 4096x1M": pair(s["tq"], s["big_t"]),
+            "batch 64x2048": batch}
+
+
+def kernels(torch, bc, x) -> dict:
+    out = {}
+    out["K5 k=4096 q 5121 x t 1024"] = timed(
+        torch, lambda: bc.banded_myers_cuda(*x["k5 5121x1024"], k=4096), REPS)
+    out["K5 k=4096 q 262144 x t 262144"] = timed(
+        torch, lambda: bc.banded_myers_cuda(*x["nw 262144"], k=4096), FULL_REPS)
+    for hw in (True, False):
+        mode = "HW" if hw else "SHW"
+        out[f"K6 {mode} q 4096 x t 2048"] = timed(
+            torch, lambda: bc.semi_ends_cuda(*x["k6 4096x2048"], free_target_prefix=hw), REPS)
+        out[f"K6 {mode} q 4096 x t 1048576"] = timed(
+            torch, lambda: bc.semi_ends_cuda(*x["k6 4096x1M"], free_target_prefix=hw), FULL_REPS)
+    q, ql, t, tl = x["k6 4096x1M"]
+    for k in (64, 128, 256):
+        shw = [t[:, : 4096 + k + 1].contiguous(), torch.tensor([4096 + k + 1], dtype=torch.int32,
+                                                               device=t.device), q, ql]
+        for name, args, reps in (("q 262144 x t 262144", x["nw 262144"], FULL_REPS),
+                                 (f"SHW transposed q {4096 + k + 1} x t 4096", shw, REPS),
+                                 ("64 pairs x 2048", x["batch 64x2048"], REPS)):
+            out[f"K4 k={k} {name}"] = timed(
+                torch, lambda: bc.banded_final_column_cuda(*args, k=k), reps)
+            out[f"K5 k={k} {name}"] = timed(
+                torch, lambda: bc.banded_myers_cuda(*args, k=k), reps)
+    return out
+
+
+def e2e(torch, al, s) -> dict:
+    def walls(fn, reps):
+        res = fn()
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return {"s": secs, "digest": digest(res)}
+
+    out = {"NW path 262144": walls(lambda: al.align(s["q"], s["t"], mode="NW", task="path",
+                                                     device="cuda"), PATH_REPS),
+           "NW distance 262144 k=-1": walls(lambda: al.align(s["q"], s["t"], mode="NW",
+                                                             device="cuda"), E2E_REPS)}
+    for mode in ("SHW", "HW"):
+        for task in ("distance", "locations"):
+            for k in (64, 256, -1):
+                out[f"{mode} {task} 4096 x 1M k={k}"] = walls(
+                    lambda: al.align_batch([s["tq"]], [s["big_t"]], mode=mode, task=task, k=k,
+                                           device="cuda")[0], E2E_REPS)
+    return out
+
+
+def sweep(torch, bc, x) -> dict:
+    q, ql, t, tl = x["k6 4096x1M"]
+    Lt = t.shape[1]
+    W = -(-q.shape[1] // 32)
+    sms, resident = bc._card_warps(q.device.index, W)
+    sizes = {-(-Lt // (32 * sms * m)) * 32 for m in (1, 2, 4, 8, 16, 32)}
+    sizes |= {256 << i for i in range(7)}
+    out = {"sms": sms, "resident_warps_per_sm": resident,
+           "plan": list(bc.segment_plan(1, q.shape[1], Lt, sms, resident)),
+           "plan_ms": timed(torch, lambda: bc.semi_ends_cuda(q, ql, t, tl), REPS)}
+    for S in sorted(sizes):
+        row = timed(torch, lambda: bc.semi_ends_cuda(q, ql, t, tl, seg_cols=S), REPS)
+        row["nseg"] = -(-Lt // S)
+        out[f"S={S}"] = row
+    return out
+
+
+def profile(torch, al, bc, x, s) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    def run():
+        return al.align_batch([s["tq"]], [s["big_t"]], mode="HW", task="locations", k=64,
+                              device="cuda")[0]
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # the kernels themselves, not the operators that launched them
+    rows = sorted((e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA), key=dev_us, reverse=True)
+    return {"wall_s": wall, "busy_ms": sum(dev_us(e) for e in rows) / 1e3,
+            "device_by_kernel": [[e.key[:60], e.count, dev_us(e) / 1e3] for e in rows[:15]],
+            "k6_alone": timed(torch, lambda: bc.semi_ends_cuda(*x["k6 4096x1M"]), REPS)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("root", help="directory holding the checkout's stringdecomposer_tpu_torch")
+    ap.add_argument("--sweep", action="store_true", help="K6's segment sizes instead")
+    ap.add_argument("--profile", action="store_true", help="profile HW locations instead")
+    args = ap.parse_args()
+    torch, res = checkout(args.root, ("myers", "semi", "peq", "banded_kernel"), "banded_ab")
+    import numpy as np
+    import workloads
+    from stringdecomposer_tpu_torch.io.fasta import encode
+    from stringdecomposer_tpu_torch.ops import align as al
+    from stringdecomposer_tpu_torch.ops import banded_cuda as bc
+
+    dev = torch.device("cuda")
+    s = workloads.align_pairs(np.random.default_rng(0))
+    x = inputs(torch, dev, np, encode, s)
+    if args.sweep:
+        res["sweep"] = sweep(torch, bc, x)
+    elif args.profile:
+        res["profile"] = profile(torch, al, bc, x, s)
+    else:
+        res["kernels"] = kernels(torch, bc, x)
+        res["e2e"] = e2e(torch, al, s)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
-"""Seeded synthetic workloads of chip_smoke.py and scripts/k2_ab.py: a
-HOR-scale monomer library and a centromere-like assembly, both drawn from
-a numpy.random.default_rng. The import below is absolute, so that k2_ab.py
-can load this file beside another checkout's package."""
+"""Seeded synthetic workloads of chip_smoke.py and the A/B scripts beside
+this file: a HOR-scale monomer library, a centromere-like assembly and the
+alignment API's pairs, all drawn from a numpy.random.default_rng. The
+import below is absolute, so that the A/B scripts can load this file beside
+another checkout's package."""
 
 from __future__ import annotations
 
@@ -57,3 +58,37 @@ def synthesize(n_bp: int, monomers, rng) -> str:
         out.append(s)
         total += len(s)
     return "".join(out)[:n_bp]
+
+
+def synth_pair(n: int, divergence: float, rng) -> tuple[str, str]:
+    """A random ACGT query of n bp and a copy with int(n * divergence)
+    edits at distinct positions (substitution, deletion, insertion, one
+    third each), as scripts/bench_align.py synthesizes its pairs."""
+    import numpy as np
+
+    q = rng.integers(0, 4, n, dtype=np.int8)
+    t = q.tolist()
+    n_mut = int(n * divergence)
+    idx = np.sort(rng.choice(n, n_mut, replace=False))
+    kinds = rng.integers(0, 3, n_mut)
+    for i, kind in zip(idx[::-1].tolist(), kinds[::-1].tolist()):
+        if kind == 0:
+            t[i] = (t[i] + 1 + int(rng.integers(3))) % 4
+        elif kind == 1:
+            del t[i]
+        else:
+            t.insert(i, int(rng.integers(4)))
+    alpha = np.array(list("ACGT"))
+    return "".join(alpha[q]), "".join(alpha[np.array(t)])
+
+
+def align_pairs(rng) -> dict[str, str]:
+    """The alignment API's workloads, from one rng (chip_smoke.py's
+    align_scale and banded_ab.py draw them from numpy.random.default_rng(0)):
+    `q`, `t`, a 262,144 bp pair at 1 % divergence; `tq`, a 4,096 bp query,
+    and `big_t`, its copy repeated to 1,048,576 bp; `q8`, `t8`, an 8,192 bp
+    pair for the comparison with the scan route at cut sizes."""
+    q, t = synth_pair(262_144, 0.01, rng)
+    tq, tt = synth_pair(4096, 0.01, rng)
+    q8, t8 = synth_pair(8192, 0.01, rng)
+    return dict(q=q, t=t, tq=tq, big_t=(tt * 256)[: 1 << 20], q8=q8, t8=t8)
