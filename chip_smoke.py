@@ -7,10 +7,12 @@ the reference fixtures, drives the golden CLI run through the kernels and
 a 1.6 Mbp synthetic assembly through both routes, drives the --ed_thr
 pre-filter (K3) and a HOR-scale monomer library (`hor_library`, 264
 monomers with RC, which takes K1's large route unfiltered, on its cluster
-body), drives the golden read against DXZ1 dimers (`dimer_set`, L > 256,
-K1's chunked shared-route body; shorter sets take its lanes body) and
-against 150 dimer variants (`dimer_variants`, L > 256 and too large for the
-shared route: the chunked large route), drives the
+body), drives the golden read against DXZ1 dimers (`workloads.joined_set`,
+L = 360: K1's lanes body at C = 12) and against 150 dimer variants
+(`workloads.joined_variants`, too large for the shared route: the cluster
+body at L = 360), and against DXZ1 trimers and 150 trimer variants (L =
+528, past the lanes and cluster bodies' 512: K1's chunked body on the
+shared and the large route), drives the
 general alignment API through K4, K5 and K6 (the reference edlib fixtures,
 a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
 cut sizes against the scan route; K5 and K6 on their warp routes, K6's HW
@@ -18,7 +20,7 @@ in segments; their wide routes on a 40 kbp NW distance and a 17 kbp HW
 query, each checked against the other route at its shapes), checks P (the int16 probe) and K1's
 int16 state on both routes against the int16 twin and the int32 kernel and
 drives that path, checks K1's ablation kernels (A) against their plain
-versions and runs the ablation bench (at a quarter of its positions), then
+versions and runs the ablation bench (at an eighth of its positions), then
 times each kernel beside its plain version at the main path's shapes and
 prints each one's bound. K2 runs through both of its entries: the cross
 entry (`nw_identity_cross`, every block x every monomer) on the
@@ -31,6 +33,7 @@ without one, and prints no result)
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -50,12 +53,11 @@ KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "nw_identi
            "banded_final_column", "banded_myers", "semi_ends", "banded_myers_wide", "semi_ends_wide",
            "int16_probe", "chain_dp_int16",
            "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16", "chain_dp_cluster",
-           "chain_dp_cluster_int16") + ABLATE
-# K1's kernel bodies (ops/chain_dp_cuda.body) -> chip_smoke kernel names, by state type
-K1_NAMES = {("lanes", 4): "chain_dp_lanes", ("chunked", 4): "chain_dp",
-            ("large", 4): "chain_dp_large", ("cluster", 4): "chain_dp_cluster",
-            ("lanes", 2): "chain_dp_lanes_int16", ("chunked", 2): "chain_dp_int16",
-            ("large", 2): "chain_dp_large_int16", ("cluster", 2): "chain_dp_cluster_int16"}
+           "chain_dp_cluster_int16", "chain_dp_lanes_long", "chain_dp_lanes_long_int16",
+           "chain_dp_cluster_long", "chain_dp_cluster_long_int16") + ABLATE
+# K1's kernel bodies (ops/chain_dp_cuda.body) -> chip_smoke kernel names
+K1_NAMES = {"lanes": "chain_dp_lanes", "chunked": "chain_dp", "large": "chain_dp_large",
+            "cluster": "chain_dp_cluster"}
 # The card's peak rates for the bounds (H100 SXM datasheet, 700 W): HBM at
 # 3.35 TB/s; int32 at 64 INT32 lanes per SM per clock (half the 128 FP32
 # lanes behind the datasheet's 67 TFLOP/s float32, which counts an FMA as 2)
@@ -84,35 +86,6 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     ms, and which of the two sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def dimer_set(records):
-    """Each monomer joined to the next in file order (the last to the
-    first), named `<first word>+<first word>`: from the 12 DXZ1 monomers, 12
-    dimers of ~340 bp, 24 with RC, padded to L > 256, which K1 runs on its
-    chunked shared-route body."""
-    from stringdecomposer_tpu_torch.io.fasta import Record
-
-    return [Record(f"{a.name.split()[0]}+{b.name.split()[0]}", a.seq + b.seq)
-            for a, b in zip(records, records[1:] + records[:1])]
-
-
-def dimer_variants(records, n, rng):
-    """n / 2 variants of the DXZ1 dimers (`dimer_set`; variant j of dimer
-    j % 12, 5 % of its bases substituted at random), which with RC are n
-    rows of ~340 bp padded to L > 256: for n = 150 a set too large for the
-    shared route in int32 and int16, so K1 runs it on its chunked large
-    route."""
-    from stringdecomposer_tpu_torch.io.fasta import Record
-
-    dimers = dimer_set(records)
-    out = []
-    for j in range(n // 2):
-        seq = list(dimers[j % len(dimers)].seq)
-        for p in rng.choice(len(seq), len(seq) // 20, replace=False):
-            seq[p] = "ACGT".replace(seq[p], "")[int(rng.integers(3))]
-        out.append(Record(f"dv{j}", "".join(seq)))
-    return out
 
 
 def hw_brute(q: str, t: str) -> int:
@@ -256,8 +229,15 @@ def main() -> int:
     from stringdecomposer_tpu_torch.report import format_raw_rows
     from stringdecomposer_tpu_torch.runtime import build
     from stringdecomposer_tpu_torch.scripts.workloads import (
-        align_pairs, hor_library, synth_pair, synthesize,
+        align_pairs, hor_library, joined_set, joined_variants, synth_pair, synthesize,
     )
+
+    def k1_name(body: str, L: int, state_bytes: int) -> str:
+        """The kernel name (and launch counter) of a K1 body at rows padded
+        to L: the lanes and cluster bodies' rows past k1.LANES_LONG_L (C =
+        9..16, two rows a warp in registers) apart, int16 state apart."""
+        long = "_long" if body in ("lanes", "cluster") and L > k1.LANES_LONG_L else ""
+        return K1_NAMES[body] + long + ("_int16" if state_bytes == 2 else "")
 
     dev = torch.device("cuda")
     smoke = Smoke()
@@ -283,7 +263,12 @@ def main() -> int:
                 "chain_dp_lanes": (chain_dp_forward_cuda, "launches_lanes"),
                 "chain_dp_lanes_int16": (chain_dp_forward_cuda, "launches_lanes_int16"),
                 "chain_dp_cluster": (chain_dp_large_cuda, "launches_cluster"),
-                "chain_dp_cluster_int16": (chain_dp_large_cuda, "launches_cluster_int16")}
+                "chain_dp_cluster_int16": (chain_dp_large_cuda, "launches_cluster_int16"),
+                "chain_dp_lanes_long": (chain_dp_forward_cuda, "launches_lanes_long"),
+                "chain_dp_lanes_long_int16": (chain_dp_forward_cuda, "launches_lanes_long_int16"),
+                "chain_dp_cluster_long": (chain_dp_large_cuda, "launches_cluster_long"),
+                "chain_dp_cluster_long_int16": (chain_dp_large_cuda,
+                                                "launches_cluster_long_int16")}
     counters.update({f"ablate_{'large_' if large else ''}{v}":
                      (chain_dp_ablate_cuda, k1.ablate_counter(v, large))
                      for large in (False, True) for v in VARIANTS})
@@ -299,13 +284,19 @@ def main() -> int:
     library = hor_library(load_fasta(dxz1), np.random.default_rng(0))
     library_fa = os.path.join(work.name, "hor_library.fa")
     write_fasta(library_fa, library)
-    dimers = dimer_set(load_fasta(dxz1))
-    dimers_fa = os.path.join(work.name, "dxz1_dimers.fa")
-    write_fasta(dimers_fa, dimers)
-    dimer_L = (max(len(r.seq) for r in dimers) + 7) // 8 * 8
-    variants = dimer_variants(load_fasta(dxz1), 150, np.random.default_rng(0))
-    variants_fa = os.path.join(work.name, "dxz1_dimer_variants.fa")
-    write_fasta(variants_fa, variants)
+    # K1's long rows: the DXZ1 dimers (M = 24, L = 360: the lanes body) and
+    # 150 variants of them (the cluster body); the trimers (L = 528, past
+    # 512: the chunked body) and 150 variants of them (the chunked large route)
+    joined = {}
+    for k, what in ((2, "dimers"), (3, "trimers")):
+        units = joined_set(load_fasta(dxz1), k)
+        units_v = joined_variants(load_fasta(dxz1), k, 150, np.random.default_rng(0))
+        joined[what] = (units, os.path.join(work.name, f"dxz1_{what}.fa"))
+        joined[what + " variants"] = (units_v, os.path.join(work.name, f"dxz1_{what}_variants.fa"))
+    for records, path in joined.values():
+        write_fasta(path, records)
+    dimers, trimers = joined["dimers"][0], joined["trimers"][0]
+    variants, trimer_variants = joined["dimers variants"][0], joined["trimers variants"][0]
     cache: dict[str, object] = {}
 
     def assembly_fa() -> str:
@@ -382,17 +373,28 @@ def main() -> int:
     def large_name(M, L, state_bytes, cluster_size=None):
         """The kernel name of the body chain_dp_large_cuda runs."""
         cluster = cluster_size is not None or k1.cluster_plan(M, L, state_bytes) is not None
-        return K1_NAMES["cluster" if cluster else "large", state_bytes]
+        return k1_name("cluster" if cluster else "large", L, state_bytes)
 
-    def k1_int16_case(args, kw, lens_np, what, cluster_size=None):
+    plain_memo: dict = {}
+
+    def plain_k1(key, args, kw, state_dtype):
+        """The plain twin's outputs on these inputs, run once a `key` (the
+        inputs' digest): K1's routes and cluster sizes are held to one run
+        of it. k1_checks empties the memo when it ends."""
+        if (key, state_dtype) not in plain_memo:
+            plain_memo[key, state_dtype] = k1_plain.chain_dp_forward(
+                *args, state_dtype=state_dtype, **kw)
+        return plain_memo[key, state_dtype]
+
+    def k1_int16_case(args, kw, lens_np, what, cluster_size, key):
         """K1's int16 state on both routes (the large one at `cluster_size`
         where given) against the int16 twin (every output, the debug arrays
         too) and against the int32 kernel (blocks, counts, and end / spend on
         the rows of nonzero length)."""
         M, L = args[2].shape[-2], args[2].shape[-1]
-        shared16 = K1_NAMES[k1_body(M, L, 2), 2]
+        shared16 = k1_name(k1_body(M, L, 2), L, 2)
         b32, c32, (_, e32, s32) = chain_dp_forward_cuda(*args, **kw)
-        want = k1_plain.chain_dp_forward(*args, state_dtype="int16", **kw)
+        want = plain_k1(key, args, kw, "int16")
         real = torch.from_numpy(lens_np > 0).to(dev)
         real = real[None, None, :] if real.dim() == 1 else real[:, None, :]
         got = None
@@ -421,15 +423,18 @@ def main() -> int:
         `want` when given (another route's outputs on the same inputs).
         Returns the kernel's outputs. With int16, both routes' int16 state
         instead (k1_int16_case)."""
-        args = [torch.from_numpy(a).to(dev) for a in (windows_np, wlens_np, mono_np, lens_np)]
-        kernel = kernel or K1_NAMES[k1_body(*mono_np.shape[-2:]), 4]
+        arrays = (windows_np, wlens_np, mono_np, lens_np)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        kernel = kernel or k1_name(k1_body(*mono_np.shape[-2:]), mono_np.shape[-1], 4)
         kw = dict(ins=sc[0], dele=sc[1], mismatch=sc[2], match=sc[3],
                   max_blocks=max_blocks, return_debug=True)
+        key = hashlib.sha256(repr([(a.shape, a.dtype.str) for a in arrays] + sorted(kw.items()))
+                             .encode() + b"".join(a.tobytes() for a in arrays)).hexdigest()
         if int16:
-            return k1_int16_case(args, kw, lens_np, what, cluster_size)
+            return k1_int16_case(args, kw, lens_np, what, cluster_size, key)
         got = fn(*args, **kw) if cluster_size is None else fn(*args, cluster_size=cluster_size, **kw)
         if want is None:
-            want = k1_plain.chain_dp_forward(*args, **kw)
+            want = plain_k1(key, args, kw, "auto")
         torch.cuda.synchronize()
         (bk, ck, (chk, ek, sk)), (bp, cp, (chp, ep, spp)) = got, want
         smoke.same(kernel, f"{what} end", ek, ep)
@@ -440,9 +445,12 @@ def main() -> int:
         return got
 
     def k1_checks(int16=False):
-        """K1 on the fixtures, random shapes and the library; int16 runs the
-        same cases through the int16 state of both routes."""
+        """K1 on the fixtures, random shapes, the library and the dimer and
+        trimer variants; int16 runs the same cases through the int16 state
+        of both routes."""
         import numpy.random as npr
+
+        plain_memo.clear()
 
         mode = "int16" if int16 else "int32"
         cases = []
@@ -489,10 +497,11 @@ def main() -> int:
             return k1_plain.build_window_batch(wins, W)
 
         # (what, forward monomers, lengths [lo, hi), rows kept, B, W): the
-        # lanes body at one row a warp (M <= 32) and several (M >= 33, with L
-        # a multiple of 32 or not), at C = 1 (L = 8) and C = 8 (L = 256), up
-        # to the int32 shared limit (M = 133 at L = 192); the chunked body at
-        # L = 320
+        # lanes body with its rows in registers (M <= 32: one row a warp up
+        # to C = 8, two above, an odd M leaving the last warp one) and in
+        # shared memory (M >= 33, with L a multiple of 32 or not), at C = 1
+        # (L = 8), 8 (L = 256), 10, 12 and 16 (L = 512), up to the int32
+        # shared limit (M = 133 at L = 192); the chunked body at L = 544
         shapes = [("golden-like M=24 L=192", 12, 150, 188, 24, 6, 1200),
                   ("M=128 L=40 W=96", 64, 20, 41, 128, 4, 96),
                   ("M=128 L=192", 64, 150, 190, 128, 3, 600),
@@ -502,11 +511,16 @@ def main() -> int:
                   ("M=24 L=8", 12, 3, 9, 24, 3, 300),
                   ("M=133 L=192", 67, 150, 190, 133, 2, 600),
                   ("M=40 L=176", 20, 150, 177, 40, 3, 600),
-                  ("M=20 L=320 (chunked body)", 10, 280, 321, 20, 3, 1300)]
+                  ("M=20 L=320", 10, 280, 321, 20, 3, 1300),
+                  ("M=17 L=304", 9, 260, 301, 17, 2, 1216),
+                  ("M=16 L=512", 8, 400, 513, 16, 2, 2048),
+                  ("M=33 L=360", 17, 300, 358, 33, 2, 1440),
+                  ("M=40 L=384", 20, 320, 385, 40, 2, 1536),
+                  ("M=20 L=544 (chunked body)", 10, 500, 545, 20, 2, 2176)]
         # the shapes on which the large route is also held to the shared one
-        shapes_vs_large = [what for what, *_ in shapes[:3]]
+        shapes_vs_large = [what for what, *_ in shapes[:3]] + ["M=17 L=304"]
         if int16:  # shared route in int16, large route in int32
-            shapes.append(("M=200 L=192", 100, 150, 190, 200, 3, 400))
+            shapes.append(("M=200 L=192", 100, 150, 190, 200, 3, 768))
         for what, nf, lo, hi, rows, B, W in shapes:
             fwd = rand_monos(nf, lo, hi)
             _, (mono, lens) = mono_set(fwd)
@@ -534,12 +548,13 @@ def main() -> int:
                 shared = k1_case(wb, wl, mw, lw, sc, what + " shared route")
                 for cs in (2, 4):
                     k1_case(wb, wl, mw, lw, sc, f"{what} cluster body cs={cs} vs the lanes body",
-                            fn=chain_dp_large_cuda, kernel="chain_dp_cluster", want=shared,
-                            cluster_size=cs)
+                            fn=chain_dp_large_cuda, kernel=k1_name("cluster", mw.shape[-1], 4),
+                            want=shared, cluster_size=cs)
         print(f"K1 {mode}: random shapes (shared and per-window monomers; M = 24, 32, 33, 128, "
-              "133 at L = 192, L = 8, 40, 176, 256 on the lanes body, L = 320 on the chunked body; "
-              "max_blocks=1 overflow) bit-equal to the plain twin; the cluster body at cs = 2 and "
-              "4 bit-equal to the lanes body on M = 24 and 128")
+              "133 at L = 192, L = 8, 40, 176, 256, 304, 320, 360, 384, 512 on the lanes body, "
+              "L = 544 on the chunked body; max_blocks=1 overflow) bit-equal to the plain twin; the "
+              "cluster body at cs = 2 and 4 bit-equal to the lanes body on M = 24 and 128 at "
+              "L = 192 and M = 17 at L = 304")
         # the cluster body: the HOR-scale library (M = 264 at L = 192, past
         # the shared route), its first 200 and 134 rows, at the plan's
         # cluster sizes for 3, 19 and 64 windows, at 2 and at a non-portable
@@ -549,7 +564,7 @@ def main() -> int:
         monos, (mono, lens) = mono_set(library)
         if mono.shape != (264, 192) or k1_body(*mono.shape, sb) != "cluster":
             raise AssertionError(f"library: shape {mono.shape}, body {k1_body(*mono.shape, sb)}")
-        wb, wl = rand_windows(library, 3, 320)
+        wb, wl = rand_windows(library, 3, 768)
         perm = np.stack([rng.permutation(len(lens)) for _ in range(3)])
         held = []
         for M in (264, 200, 134):
@@ -564,8 +579,8 @@ def main() -> int:
                         and k1.cluster_occupancy(M, 192, sb, cs, 3) > 0:
                     sizes.append(cs)
             for cs in sizes:
-                kern = dict(fn=chain_dp_large_cuda, kernel=K1_NAMES["cluster", sb], cluster_size=cs,
-                            int16=int16)
+                kern = dict(fn=chain_dp_large_cuda, kernel=k1_name("cluster", 192, sb),
+                            cluster_size=cs, int16=int16)
                 k1_case(wb, wl, m, ln, (-1, -1, -1, 1), f"library[:{M}] cs={cs}", **kern)
                 k1_case(wb, wl, m_w, ln_w, (-2, -1, -1, 2), f"library[:{M}] cs={cs} per-window",
                         **kern)
@@ -579,24 +594,43 @@ def main() -> int:
         print(f"K1 {mode}: the cluster body on the 264-monomer library and its first 200 and 134 "
               f"rows ({'; '.join(held)}), shared and per-window monomers, "
               "rows of length 0, max_blocks=1 overflow, bit-equal to the plain twin")
-        # the chunked large route: 150 DXZ1 dimer variants at L > 256
-        _, (mono, lens) = mono_set(variants)
-        if k1_body(*mono.shape, sb) != "large":
-            raise AssertionError(f"dimer variants {mono.shape}: body {k1_body(*mono.shape, sb)}")
-        wb, wl = rand_windows(variants, 2, 900)
-        perm = np.stack([rng.permutation(len(lens)) for _ in range(2)])
-        mono_w, lens_w = mono[perm], lens[perm].copy()
-        lens_w[:, -4:] = 0
-        kern = dict(fn=chain_dp_large_cuda, kernel=K1_NAMES["large", sb], int16=int16)
-        k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), "dimer variants M=150", **kern)
-        k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), "dimer variants M=150 per-window", **kern)
-        counts = k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), "dimer variants M=150 max_blocks=1",
-                         max_blocks=1, **kern)[1]
-        if int(counts.max()) <= 1:
-            raise AssertionError("dimer variants: the overflow case did not overflow")
-        print(f"K1 {mode}: the chunked large route on 150 DXZ1 dimer variants (L = "
-              f"{mono.shape[1]}; shared and per-window monomers, max_blocks=1 overflow) bit-equal "
-              "to the plain twin")
+        # 150 DXZ1 dimer variants (L = 360): the cluster body at the plan's
+        # sizes for 2 and 19 windows, and at 3 (rows in shared memory) and 16
+        # where they fit and the card schedules them; 150 trimer variants (L
+        # = 528): the chunked large route
+        held = []
+        for what, records, body in (("dimer variants", variants, "cluster"),
+                                    ("trimer variants", trimer_variants, "large")):
+            _, (mono, lens) = mono_set(records)
+            M, L = mono.shape
+            if k1_body(M, L, sb) != body:
+                raise AssertionError(f"{what} {mono.shape}: body {k1_body(M, L, sb)}")
+            wb, wl = rand_windows(records, 2, 4 * L)
+            perm = np.stack([rng.permutation(len(lens)) for _ in range(2)])
+            mono_w, lens_w = mono[perm], lens[perm].copy()
+            lens_w[:, -4:] = 0
+            sizes = [None]
+            if body == "cluster":
+                sizes = []
+                for cs in [plan_at(M, L, sb, B)[0] for B in (2, 19)] + [3, 16]:
+                    if cs not in sizes and k1.cluster_shape(M, L, sb, cs) is not None \
+                            and k1.cluster_occupancy(M, L, sb, cs, 2) > 0:
+                        sizes.append(cs)
+            for cs in sizes:
+                kern = dict(fn=chain_dp_large_cuda, kernel=k1_name(body, L, sb), int16=int16,
+                            cluster_size=cs)
+                tag = f"{what} M={M} L={L}" + (f" cs={cs}" if cs else "")
+                k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), tag, **kern)
+                k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), f"{tag} per-window", **kern)
+                counts = k1_case(wb, wl, mono, lens, (-1, -1, -1, 1), f"{tag} max_blocks=1",
+                                 max_blocks=1, **kern)[1]
+                if int(counts.max()) <= 1:
+                    raise AssertionError(f"{tag}: the overflow case did not overflow")
+            held.append(f"{what} (L = {L}) on the {k1_name(body, L, sb)} body"
+                        + (f" at cs {sizes}" if body == "cluster" else ""))
+        print(f"K1 {mode}: {'; '.join(held)}: shared and per-window monomers, max_blocks=1 "
+              "overflow, bit-equal to the plain twin")
+        plain_memo.clear()
 
     def k2_checks():
         cases = []
@@ -755,59 +789,60 @@ def main() -> int:
         print(f"golden: e2e {dt:.3f} s, {rows} assignments, {rows / dt:.1f} raw assignments/s "
               f"(first run in this process, kernels already built)")
 
-    def dimers_run():
-        """The golden read against the DXZ1 dimers (L > 256): K1's chunked
-        shared-route body on the main path, kernel route against plain."""
-        out = work.name
-        secs = {}
-
-        def cli_run():
-            t0 = time.perf_counter()
-            rc = cli.main([read_fa, dimers_fa, "-o", os.path.join(out, "dimers_kernel"),
-                           "--second-best"])
-            secs["kernel"] = time.perf_counter() - t0
-            if rc != 0:
-                raise AssertionError(f"CLI golden x dimers exit code {rc}")
-
-        got = drive("golden x DXZ1 dimers (CLI, kernel route)", cli_run)
-        need = ("chain_dp", "block_walk", "nw_identity_cross")
-        bad = [k for k in need if got[k] <= 0]
-        if bad or got["chain_dp_lanes"]:
-            raise AssertionError(f"golden x dimers: launches {got}")
-        launches["chain_dp"] = got["chain_dp"]
-        t0 = time.perf_counter()
-        pipeline.run(read_fa, dimers_fa, out_dir=os.path.join(out, "dimers_plain"),
-                     second_best=True, device="cuda", **plain_route)
-        torch.cuda.synchronize()
-        same_files(os.path.join(out, "dimers_kernel"), os.path.join(out, "dimers_plain"),
-                   "golden x dimers")
-        print(f"golden x DXZ1 dimers (M=24, L={dimer_L}): three TSVs equal between routes; "
-              f"{n_rows(os.path.join(out, 'dimers_kernel'))} assignments; kernel route "
-              f"{secs['kernel']:.3f} s, plain route {time.perf_counter() - t0:.3f} s")
+    def joined_runs():
+        """The golden read against the DXZ1 dimers and trimers and 150
+        variants of each (`--second-best`): the dimers through the CLI on
+        K1's lanes body at L = 360, their variants on the cluster body, the
+        trimers (L = 528) through the CLI on the chunked shared route and
+        their variants on the chunked large route. Each run launches its K1
+        body and no other, and its three TSVs equal those of the plain route
+        (the sets) or of the route with K1's plain twin (the variants)."""
         from stringdecomposer_tpu_torch.ops.identity_cuda import cells_per_lane
 
-        with open(os.path.join(out, "dimers_kernel", tsvs[0])) as f:
-            longest = max(int(r.split("\t")[3]) - int(r.split("\t")[2]) + 1 for r in f)
-        print(f"golden x DXZ1 dimers: K2 route for the longest block ({longest} bp): C = "
-              f"{cells_per_lane(longest)} rows a lane, "
-              f"{'strips' if longest > 32 * C_MAX else 'one strip'} of {32 * C_MAX} rows")
-        # 150 dimer variants: too large for the shared route at L > 256, so
-        # K1 runs its chunked large route on the main path
-        got = drive("golden x 150 DXZ1 dimer variants (kernel route)",
-                    lambda: pipeline.run(read_fa, variants_fa, out_dir=os.path.join(out, "dv_kernel"),
-                                         second_best=True, device="cuda"))
-        if got["chain_dp_large"] <= 0 or got["chain_dp_cluster"] or got["block_walk"] <= 0:
-            raise AssertionError(f"golden x dimer variants: launches {got}")
-        launches["chain_dp_large"] = got["chain_dp_large"]
-        t0 = time.perf_counter()
-        pipeline.run(read_fa, variants_fa, out_dir=os.path.join(out, "dv_plain"), second_best=True,
-                     device="cuda", forward_fn=k1_plain.chain_dp_forward)
-        torch.cuda.synchronize()
-        same_files(os.path.join(out, "dv_kernel"), os.path.join(out, "dv_plain"),
-                   "golden x dimer variants")
-        print(f"golden x 150 DXZ1 dimer variants: three TSVs equal between the kernel route and "
-              f"the route with K1's plain twin ({time.perf_counter() - t0:.3f} s); "
-              f"{n_rows(os.path.join(out, 'dv_kernel'))} assignments")
+        out = work.name
+        bodies = ("chain_dp", "chain_dp_large", "chain_dp_lanes", "chain_dp_cluster",
+                  "chain_dp_lanes_long", "chain_dp_cluster_long")
+        for what, body in (("dimers", "chain_dp_lanes_long"),
+                           ("dimers variants", "chain_dp_cluster_long"),
+                           ("trimers", "chain_dp"), ("trimers variants", "chain_dp_large")):
+            records, fa = joined[what]
+            kernel_dir, plain_dir = (os.path.join(out, what.replace(" ", "_") + r)
+                                     for r in ("_kernel", "_plain"))
+            secs = {}
+
+            def run():
+                t0 = time.perf_counter()
+                if what.endswith("variants"):
+                    pipeline.run(read_fa, fa, out_dir=kernel_dir, second_best=True, device="cuda")
+                else:
+                    rc = cli.main([read_fa, fa, "-o", kernel_dir, "--second-best"])
+                    if rc != 0:
+                        raise AssertionError(f"CLI golden x {what} exit code {rc}")
+                secs["kernel"] = time.perf_counter() - t0
+
+            entry = "pipeline.run" if what.endswith("variants") else "CLI"
+            got = drive(f"golden x DXZ1 {what} ({entry}, kernel route)", run)
+            bad = [k for k in (body, "block_walk", "nw_identity_cross") if got[k] <= 0]
+            if bad or any(got[k] for k in bodies if k != body):
+                raise AssertionError(f"golden x {what}: launches {got}")
+            launches[body] = got[body]
+            t0 = time.perf_counter()
+            plain_kw = dict(forward_fn=k1_plain.chain_dp_forward) if what.endswith("variants") \
+                else plain_route
+            pipeline.run(read_fa, fa, out_dir=plain_dir, second_best=True, device="cuda",
+                         **plain_kw)
+            torch.cuda.synchronize()
+            same_files(kernel_dir, plain_dir, f"golden x {what}")
+            _, (mono, _) = mono_set(records)
+            with open(os.path.join(kernel_dir, tsvs[0])) as f:
+                longest = max(int(r.split("\t")[3]) - int(r.split("\t")[2]) + 1 for r in f)
+            other = "plain route" if plain_kw is plain_route else "route with K1's plain twin"
+            print(f"golden x DXZ1 {what} (M={mono.shape[0]}, L={mono.shape[1]}, {body}): three "
+                  f"TSVs equal to the {other}; "
+                  f"{n_rows(kernel_dir)} assignments; kernel route {secs['kernel']:.3f} s, "
+                  f"the other {time.perf_counter() - t0:.3f} s; K2 for the longest block "
+                  f"({longest} bp): C = {cells_per_lane(longest)} rows a lane, "
+                  f"{'strips' if longest > 32 * C_MAX else 'one strip'} of {32 * C_MAX} rows")
 
     def scale_run():
         monomers_fwd = load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"))
@@ -1035,22 +1070,24 @@ def main() -> int:
     def int16_shapes():
         """The timed shapes: the golden windows x DXZ1 (M = 24), x the
         264-monomer library (the cluster body), x its first 200 rows (int16:
-        the lanes body, int32: the cluster body), x the DXZ1 dimers (L > 256:
-        the chunked body), x the 150 dimer variants (the chunked large
-        route)."""
+        the lanes body, int32: the cluster body), x the DXZ1 dimers (L = 360:
+        the lanes body's long rows), x the 150 dimer variants (the cluster
+        body's), x the DXZ1 trimers (L = 528: the chunked body), x the 150
+        trimer variants (the chunked large route)."""
         reads = load_fasta(read_fa)
         codes = encode(reads[0].seq)
         wins = [codes[o : o + n] for o, n in make_windows(len(codes), 5000, 500)]
         wb, wl = k1_plain.build_window_batch(wins, 5500)
         _, (m24, l24) = mono_set(load_fasta(dxz1))
         _, (mlib, llib) = mono_set(library)
-        _, (mdim, ldim) = mono_set(dimers)
-        _, (mdv, ldv) = mono_set(variants)
-        return [("golden x DXZ1 M=24", wb, wl, m24, l24),
-                ("golden x library M=264", wb, wl, mlib, llib),
-                ("golden x library[:200] M=200", wb, wl, mlib[:200], llib[:200]),
-                (f"golden x DXZ1 dimers M=24 L={dimer_L}", wb, wl, mdim, ldim),
-                (f"golden x dimer variants M=150 L={mdv.shape[1]}", wb, wl, mdv, ldv)]
+        out = [("golden x DXZ1 M=24", wb, wl, m24, l24),
+               ("golden x library M=264", wb, wl, mlib, llib),
+               ("golden x library[:200] M=200", wb, wl, mlib[:200], llib[:200])]
+        for what in ("dimers", "dimers variants", "trimers", "trimers variants"):
+            _, (mono, lens) = mono_set(joined[what][0])
+            out.append((f"golden x DXZ1 {what} M={mono.shape[0]} L={mono.shape[1]}", wb, wl,
+                        mono, lens))
+        return out
 
     def k1_int16_run():
         k1_checks(int16=True)
@@ -1064,17 +1101,18 @@ def main() -> int:
                 chain_dp_forward_cuda(*args, max_blocks=cap, state_dtype="int16")
 
         got = drive("int16 K1 path: golden windows x DXZ1, x library, x library[:200], "
-                    "x DXZ1 dimers, x dimer variants, state_dtype='int16'", path)
+                    "x DXZ1 dimers, trimers and their variants, state_dtype='int16'", path)
         need = ("int16_probe", "chain_dp_lanes_int16", "chain_dp_int16", "chain_dp_large_int16",
-                "chain_dp_cluster_int16", "block_walk")
+                "chain_dp_cluster_int16", "chain_dp_lanes_long_int16",
+                "chain_dp_cluster_long_int16", "block_walk")
         bad = [k for k in need if got[k] <= 0]
         if bad:
             raise AssertionError(f"int16 K1 path: kernels not launched: {bad}")
-        launches.update({k: got[k] for k in need[:5]})
+        launches.update({k: got[k] for k in need[:-1]})
         for what, wb, wl, mono, lens in shapes:
             args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
             M, L = mono.shape
-            name = K1_NAMES[k1_body(M, L, 2), 2]
+            name = k1_name(k1_body(M, L, 2), L, 2)
             b32, c32, (_, e32, s32) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
             b16, c16, (_, e16, s16) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True,
                                                             state_dtype="int16")
@@ -1113,11 +1151,11 @@ def main() -> int:
         print(f"ablation: every variant bit-equal to its plain version on both routes at "
               f"B=5 x W=300, M=40 (max abs errors {err})")
         res = {}
-        # the bench's shapes at a quarter of their positions, for the time
+        # the bench's shapes at an eighth of their positions, for the time
         # limit; the bench alone runs them whole
-        shapes = tuple((n, B, W // 4, M, large) for n, B, W, M, large in ab.SHAPES)
+        shapes = tuple((n, B, W // 8, M, large) for n, B, W, M, large in ab.SHAPES)
         got = drive("ablation bench (python -m stringdecomposer_tpu_torch.scripts.ablate_chain, "
-                    "W / 4)", lambda: res.update(ab.bench(list(VARIANTS), reps=3, shapes=shapes)))
+                    "W / 8)", lambda: res.update(ab.bench(list(VARIANTS), reps=3, shapes=shapes)))
         bad = [k for k in ABLATE if got[k] <= 0]
         if bad:
             raise AssertionError(f"ablation bench: kernels not launched: {bad}")
@@ -1172,18 +1210,40 @@ def main() -> int:
                   f"kernel {spread(k)}; bound {bd[0]:.3f} ms ({bd[1]}), "
                   f"{100 * bd[0] / statistics.median(k):.2f} % of it; the cluster body at cs = "
                   f"{plan_at(M, mlib.shape[1], 4, len(wins))[0]}: {spread(kc)}")
-        # the chunked body at L > 256: the golden windows x the DXZ1 dimers
-        _, (mdim, ldim) = mono_set(dimers)
-        a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mdim, ldim)]
-        k, got = timed(lambda: chain_dp_forward_cuda(*a, max_blocks=cap), 5)
-        p, want = timed(lambda: k1_plain.chain_dp_forward(*a, max_blocks=cap), 0)
-        smoke.same("chain_dp", "golden windows x dimers blocks", got[0], want[0])
-        smoke.same("chain_dp", "golden windows x dimers counts", got[1], want[1])
-        timing["chain_dp"] = (statistics.median(k), statistics.median(p))
-        bd = bounds["chain_dp"] = k1_bound(a[0], a[2], a[3], 4, blocks_out=blocks_out)
-        print(f"K1 chunked body + walk, {len(wins)} windows x 5500, M={mdim.shape[0]}, "
-              f"L={mdim.shape[1]}: kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
-              f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
+        def k1_time(name, what, records, fn=chain_dp_forward_cuda, reps=5, plain=True):
+            """K1 + walk at the golden windows x `records` with RC, timed; with
+            `plain`, held to the plain twin and kept as `name`'s row of the
+            kernels line, else timed only."""
+            _, (mono_np, lens_np) = mono_set(records)
+            a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mono_np, lens_np)]
+            M, L = mono_np.shape
+            if k1_name(k1_body(M, L), L, 4) != name:
+                raise AssertionError(f"{what} (M={M}, L={L}): body {k1_body(M, L)}, not {name}")
+            k, got = timed(lambda: fn(*a, max_blocks=cap), reps)
+            bd = k1_bound(a[0], a[2], a[3], 4, blocks_out=blocks_out)
+            line = f"K1 {name} + walk, {len(wins)} windows x 5500, {what} (M={M}, L={L})"
+            if k1_body(M, L) == "cluster":
+                plan = plan_at(M, L, 4, len(wins))
+                line += (f" (cs = {plan[0]}, R = {plan[1]}, {plan[2]}, {plan[3]} threads; "
+                         f"{k1.cluster_occupancy(M, L, 4, plan[0], len(wins))} clusters at once)")
+            line += f": kernel {spread(k)}"
+            if plain:
+                p, want = timed(lambda: k1_plain.chain_dp_forward(*a, max_blocks=cap), 0)
+                smoke.same(name, f"golden windows x {what} blocks", got[0], want[0])
+                smoke.same(name, f"golden windows x {what} counts", got[1], want[1])
+                timing[name] = (statistics.median(k), statistics.median(p))
+                bounds[name] = bd
+                line += f"; plain {spread(p)}"
+            print(f"{line}; bound {bd[0]:.3f} ms ({bd[1]}), "
+                  f"{100 * bd[0] / statistics.median(k):.2f} % of it")
+
+        # the lanes body's long rows (L = 360 and 512) and the chunked body
+        # past them (L = 528): the golden windows x the DXZ1 dimers, the
+        # trimers cut to 512 bp and the trimers
+        k1_time("chain_dp_lanes_long", "DXZ1 dimers", dimers)
+        k1_time("chain_dp_lanes_long", "DXZ1 trimers cut to 512 bp",
+                [Record(r.name, r.seq[:512]) for r in trimers], plain=False)
+        k1_time("chain_dp", "DXZ1 trimers", trimers)
         _, _, (_, end, spend) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
         k, got = timed(lambda: block_walk_cuda(end, spend, args[1], cap), 10)
         p, want = timed(lambda: k1_plain.block_walk(end, spend, args[1], cap), 0)
@@ -1226,18 +1286,13 @@ def main() -> int:
               f"{plan[4]} bytes of shared memory; {k1.cluster_occupancy(*mono.shape, 4, plan[0], 19)} "
               f"clusters at once): kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
               f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
-        # the chunked large route: the golden windows x the 150 dimer variants
-        _, (mdv, ldv) = mono_set(variants)
-        a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mdv, ldv)]
-        k, got = timed(lambda: chain_dp_forward_cuda(*a, max_blocks=cap), 3)
-        p, want = timed(lambda: k1_plain.chain_dp_forward(*a, max_blocks=cap), 0)
-        smoke.same("chain_dp_large", "golden windows x dimer variants blocks", got[0], want[0])
-        smoke.same("chain_dp_large", "golden windows x dimer variants counts", got[1], want[1])
-        timing["chain_dp_large"] = (statistics.median(k), statistics.median(p))
-        bd = bounds["chain_dp_large"] = k1_bound(a[0], a[2], a[3], 4, blocks_out=blocks_out)
-        print(f"K1 chunked large route + walk, {len(wins)} windows x 5500, M={mdv.shape[0]}, "
-              f"L={mdv.shape[1]}: kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
-              f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
+        # the cluster body's long rows and the chunked large route past
+        # them: the golden windows x the 150 dimer variants (L = 360), x the
+        # 150 trimer variants cut to 512 bp and x the trimer variants (L = 528)
+        k1_time("chain_dp_cluster_long", "150 dimer variants", variants)
+        k1_time("chain_dp_cluster_long", "150 trimer variants cut to 512 bp",
+                [Record(r.name, r.seq[:512]) for r in trimer_variants], plain=False)
+        k1_time("chain_dp_large", "150 trimer variants", trimer_variants, reps=3)
         print("times: every timed kernel output bit-equal to its plain version's")
 
     banded_kernels = ("banded_final_column", "banded_myers", "semi_ends")
@@ -1629,12 +1684,21 @@ def main() -> int:
         k6_full = pair(s["tq"], s["big_t"])
         n = len(s["big_t"])
         plan = segment_plan(1, 4096, n, *banded_cuda._card_warps(0, 128))
-        for what, kw in ((f"HW at the plan's {plan[0]} segments of {plan[1]} columns", {}),
-                         ("HW one warp", dict(seg_cols=0)),
-                         ("SHW one warp", dict(free_target_prefix=False))):
-            k, _ = timed(lambda: semi_ends_cuda(*k6_full, **kw), 2)
+        # the bound of the work, full-height words x the target's columns;
+        # the segments step (segment columns + a 2 q_len warm-up) each
+        words = -(-4096 // 32)
+        for what, kw, cols in ((f"HW at the plan's {plan[0]} segments of {plan[1]} columns", {},
+                                plan[0] * (plan[1] + 2 * 4096)),
+                               ("HW one warp", dict(seg_cols=0), n),
+                               ("SHW one warp", dict(free_target_prefix=False), n)):
+            k, got = timed(lambda: semi_ends_cuda(*k6_full, **kw), 2)
+            nbytes = 4 * (4096 + n + 2) + out_bytes(got)
+            bd = bound(nbytes, OPS_PER_CELL["myers_word"] * words * n)
+            stepped = bound(nbytes, OPS_PER_CELL["myers_word"] * words * cols)
             print(f"K6 {what}, q 4096 bp x t {n} bp: kernel {spread(k)}, "
-                  f"{1e6 * statistics.median(k) / n:.1f} ns a target column")
+                  f"{1e6 * statistics.median(k) / n:.1f} ns a target column; bound {bd[0]:.4f} ms "
+                  f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it; the {cols} "
+                  f"columns the kernel steps: {stepped[0]:.4f} ms")
         # the path task's plain scans at its base-case size: 16 pairs of ~1600 bp
         r = np.random.default_rng(2)
         b = [torch.from_numpy(r.integers(0, 4, (16, 1600)).astype(np.int32)).to(dev)
@@ -1776,7 +1840,7 @@ def main() -> int:
     smoke.phase("k1", k1_checks)
     smoke.phase("k2", k2_checks)
     smoke.phase("golden", golden_run)
-    smoke.phase("dimers", dimers_run)
+    smoke.phase("joined", joined_runs)
     smoke.phase("scale", scale_run)
     smoke.phase("k3", k3_checks)
     smoke.phase("ed_thr", ed_thr_run)
@@ -1813,9 +1877,11 @@ def main() -> int:
              ("chain_dp_large_int16", src + "chain_dp.cuh",
               "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")]
     meta += [(n, src + "chain_dp_lanes.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
-             for n in ("chain_dp_lanes", "chain_dp_lanes_int16")]
+             for n in ("chain_dp_lanes", "chain_dp_lanes_int16", "chain_dp_lanes_long",
+                       "chain_dp_lanes_long_int16")]
     meta += [(n, src + "chain_dp_cluster.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
-             for n in ("chain_dp_cluster", "chain_dp_cluster_int16")]
+             for n in ("chain_dp_cluster", "chain_dp_cluster_int16", "chain_dp_cluster_long",
+                       "chain_dp_cluster_long_int16")]
     meta += [(n, src + ("chain_dp.cuh" if n.endswith("_base") else "chain_dp_ablate.cu"),
               "scripts/ablate_chain.py:31") for n in ABLATE]
     print(json.dumps({"kernels": [

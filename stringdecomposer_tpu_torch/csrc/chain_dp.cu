@@ -15,14 +15,12 @@
 // the first int16 K1 launch and compares it with its plain version. It moves
 // 8 KB and does 2,048 maxima, so one launch is bound by launch latency.
 //
-// The shared route at L <= 256 runs the lanes body (chain_dp_lanes.cuh,
-// sd_chain_dp_lanes), the large route there the cluster body
-// (chain_dp_cluster.cu); sd_chain_dp keeps the chunked body for both routes
-// at L > 256, the large route past 16 blocks' shared memory and the
-// ablation's base.
+// The shared route at L <= 512 runs the lanes body (chain_dp_lanes.cu), the
+// large route there the cluster body (chain_dp_cluster.cu); sd_chain_dp
+// keeps the chunked body for both routes at L > 512, the large route past
+// 16 blocks' shared memory and the ablation's base.
 
 #include "chain_dp.cuh"
-#include "chain_dp_lanes.cuh"
 
 namespace {
 
@@ -119,23 +117,6 @@ extern "C" int sd_chain_dp(int large, int state_bytes, const void* windows, cons
   return launch_state<false>(state_bytes, windows, mono, mono_bstride, mono_lens,
                              lens_bstride, dp0, sp_scratch, end, spend, B, W, M, L, ins, dele,
                              mismatch, match, stream);
-}
-
-// K1's shared route at L <= 256 (the lanes body): dp0 is only read.
-// state_bytes is 4 (int32) or 2 (int16): dp0, end and spend are of that type.
-extern "C" int sd_chain_dp_lanes(int state_bytes, const void* windows, const void* mono,
-                                 long long mono_bstride, const void* mono_lens,
-                                 long long lens_bstride, const void* dp0, void* end, void* spend,
-                                 int B, int W, int M, int L, int ins, int dele, int mismatch,
-                                 int match, void* stream) {
-  if (L < 1 || L > 32 * kLanesMaxC) return (int)cudaErrorInvalidValue;
-  if (state_bytes == 4)
-    return launch_lanes<int>(windows, mono, mono_bstride, mono_lens, lens_bstride, dp0, end,
-                             spend, B, W, M, L, ins, dele, mismatch, match, stream);
-  if (state_bytes == 2)
-    return launch_lanes<int16_t>(windows, mono, mono_bstride, mono_lens, lens_bstride, dp0, end,
-                                 spend, B, W, M, L, ins, dele, mismatch, match, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int sd_block_walk(int state_bytes, const void* end, const void* spend,

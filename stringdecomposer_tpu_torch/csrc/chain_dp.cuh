@@ -23,7 +23,7 @@
 // fit the 232,448-byte opt-in limit of one block (int32 state: M <= 133 at
 // L = 192; int16 state: M <= 240).
 //
-// Large monomer sets take the large route. At L <= 256 it runs the cluster
+// Large monomer sets take the large route. At L <= 512 it runs the cluster
 // body (chain_dp_cluster.cuh) wherever a cluster of up to 16 blocks holds the
 // rows; above, or past that, it runs this kernel body, instantiated with the
 // score and pointer columns in a per-window device-memory scratch (2 *

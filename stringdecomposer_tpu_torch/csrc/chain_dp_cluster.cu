@@ -1,7 +1,7 @@
-// K1's cluster body (chain_dp_cluster.cuh): the large route at L <= 256,
+// K1's cluster body (chain_dp_cluster.cuh): the large route at L <= 512,
 // a window's rows spread over a thread block cluster. Its own source, so
-// that nvcc builds its 48 instances (int32 and int16 state, C = 1..8, three
-// row forms) beside chain_dp.cu's, not after them.
+// that nvcc builds its 96 instances (int32 and int16 state, C = 1..16, three
+// row forms) beside the other sources', not after them.
 
 #include "chain_dp_cluster.cuh"
 

@@ -1,4 +1,4 @@
-// K1's large route for monomer sets padded to L <= 256: the cluster body.
+// K1's large route for monomer sets padded to L <= 512: the cluster body.
 //
 // Replaces stringdecomposer_tpu/ops/chain_dp_pallas.py::_dp_kernel (the
 // pallas_call at :482, through chain_dp_forward_pallas), as the lanes and
@@ -27,8 +27,9 @@
 //     of a cluster (its rank) owns rows r*R .. min(M, (r+1)*R) - 1, at least
 //     one (ops/chain_dp_cuda.cluster_plan picks cs and R).
 //   - Rows: lanes_row (chain_dp_lanes.cuh) unchanged, in the lanes body's
-//     forms: R <= 32, one warp a row with the row in registers (kOneRow);
-//     more, the rows in shared memory, lane-contiguous (kRowsDense, kRows).
+//     forms: R <= 32, the rows in registers, one a warp at C <= 8 and two
+//     a warp above (kRegRows); more, the rows in shared memory,
+//     lane-contiguous (kRowsDense, kRows).
 //     The rows' setup and step are chain_dp_lanes_kernel's, over the
 //     block's rows; the chain read (all M rows), the emit and the barrier
 //     differ.
@@ -136,7 +137,8 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
                         int M, int L, int R, int ins, int dele, int mismatch, int match) {
   constexpr int kNeg = StateNeg<T>::value;
   constexpr int kWords = (C + 3) / 4;
-  constexpr bool kOne = kPath == kOneRow;
+  constexpr bool kRegs = kPath == kRegRows;
+  constexpr int kP = kRegs ? lanes_reg_rows<C>() : 1;  // rows a warp holds in registers
   extern __shared__ int smem[];
   int* ends = smem;  // [2][M] every row's end score, by position parity
   // several rows a warp: this block's [R][L] folded scores, pointers and
@@ -175,23 +177,33 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
     end_i[r] = n > 0 ? dp0_b[(long long)r * L + n - 1] : (T)kNeg;
     spend_i[r] = 0;
   }
-  int q[C], s[C];
-  unsigned codes[kWords];  // kOne: the lane's codes, cell c in byte c % 4 of word c / 4
-  int n_own = 0;  // kOne: the row's length; else that of row warp + lane * nwarps
+  // kRegs: the block's row p of this warp is r = warp + p * nwarps, its
+  // cells in q[p], s[p] and codes[p] (cell c in byte c % 4 of word c / 4),
+  // its length in n_reg[p] (0 past the block's rows); else q[0] and s[0]
+  // hold the row being stepped
+  int q[kP][C], s[kP][C];
+  unsigned codes[kP][kWords];
+  int n_reg[kP];
+  int n_own = 0;  // the shared-memory forms: the length of row warp + lane * nwarps
   const int chain_reads = lane < M ? (M - 1 - lane) / 32 + 1 : 0;  // ends this lane reads
-  if constexpr (kOne) {
-    if (warp < rows) n_own = min(max(lens_b[warp], 0), L);
+  if constexpr (kRegs) {
 #pragma unroll
-    for (int w = 0; w < kWords; ++w) codes[w] = 0xffffffffu;  // 0xff never equals a read code
+    for (int p = 0; p < kP; ++p) {
+      const int r = warp + p * nwarps;
+      n_reg[p] = r < rows ? min(max(lens_b[r], 0), L) : 0;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int k = k0 + c;
-      const bool valid = k < n_own;
-      q[c] = valid ? (int)dp0_b[(long long)warp * L + k] - k * dele : kNeg;
-      s[c] = 0;
-      if (valid) {
-        const unsigned code = (unsigned)(uint8_t)mono_b[(long long)warp * L + k];
-        codes[c / 4] = (codes[c / 4] & ~(0xffu << (8 * (c % 4)))) | (code << (8 * (c % 4)));
+      for (int w = 0; w < kWords; ++w) codes[p][w] = 0xffffffffu;  // 0xff never equals a read code
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int k = k0 + c;
+        const bool valid = k < n_reg[p];
+        q[p][c] = valid ? (int)dp0_b[(long long)r * L + k] - k * dele : kNeg;
+        s[p][c] = 0;
+        if (valid) {
+          const unsigned code = (unsigned)(uint8_t)mono_b[(long long)r * L + k];
+          codes[p][c / 4] =
+              (codes[p][c / 4] & ~(0xffu << (8 * (c % 4)))) | (code << (8 * (c % 4)));
+        }
       }
     }
   } else {
@@ -225,21 +237,24 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
 #pragma unroll 1
     for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
     chain = warp_max(chain);
-    if constexpr (kOne) {
-      if (warp < rows) {
-        if (n_own == 0) {
+    if constexpr (kRegs) {
+      const unsigned rc4 = (unsigned)(rc & 0xff) * 0x01010101u;  // the read's code, 4 times
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int r = warp + p * nwarps;
+        if (r >= rows) continue;
+        if (n_reg[p] == 0) {
           if (lane == 0) {
-            end_i[warp] = (T)kNeg;
-            spend_i[warp] = 0;
+            end_i[r] = (T)kNeg;
+            spend_i[r] = 0;
           }
-        } else {
-          const unsigned rc4 = (unsigned)(rc & 0xff) * 0x01010101u;  // the read's code, 4 times
-          lanes_row<T, C>(q, s, [&](int c) {
-                            return ((codes[c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
-                          },
-                          lane, n_own, i, chain, ins, dele, mismatch, match,
-                          ClusterEmit<T>{cur + 4u * warp, cs, end_i, spend_i, warp});
+          continue;
         }
+        lanes_row<T, C>(q[p], s[p], [&](int c) {
+                          return ((codes[p][c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
+                        },
+                        lane, n_reg[p], i, chain, ins, dele, mismatch, match,
+                        ClusterEmit<T>{cur + 4u * r, cs, end_i, spend_i, r});
       }
     } else {
       int j = 0;
@@ -260,18 +275,18 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           const bool valid = k0 + c < n;
-          q[c] = valid ? (int)qr[c * dx] : kNeg;
-          s[c] = valid ? (int)sr[c * dx] : 0;
+          q[0][c] = valid ? (int)qr[c * dx] : kNeg;
+          s[0][c] = valid ? (int)sr[c * dx] : 0;
           if (valid && cr[c * dx] == rc) eq |= 1u << c;
         }
-        lanes_row<T, C>(q, s, [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain, ins,
-                        dele, mismatch, match,
+        lanes_row<T, C>(q[0], s[0], [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain,
+                        ins, dele, mismatch, match,
                         ClusterEmit<T>{cur + 4u * r, cs, end_i, spend_i, r});
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if (k0 + c < n) {
-            qr[c * dx] = (T)q[c];
-            sr[c * dx] = (T)s[c];
+            qr[c * dx] = (T)q[0][c];
+            sr[c * dx] = (T)s[0][c];
           }
         }
       }
@@ -303,7 +318,9 @@ int launch_cluster_k(int* max_clusters, int cs, int R, const void* windows, cons
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(B > 0 ? B : 1) * cs);
-  cfg.blockDim = dim3(kPath == kOneRow ? 32 * R : lanes_max_threads<C, kPath>());
+  constexpr int kP = lanes_reg_rows<C>();
+  cfg.blockDim =
+      dim3(kPath == kRegRows ? 32 * ((R + kP - 1) / kP) : lanes_max_threads<C, kPath>());
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
@@ -322,7 +339,7 @@ int launch_cluster_c(int* max_clusters, int cs, int R, const void* windows, cons
                      long long mono_bstride, const void* mono_lens, long long lens_bstride,
                      const void* dp0, void* end, void* spend, int B, int W, int M, int L,
                      int ins, int dele, int mismatch, int match, void* stream) {
-  auto launch = R <= 32 ? launch_cluster_k<T, C, kOneRow>
+  auto launch = R <= 32 ? launch_cluster_k<T, C, kRegRows>
                         : (L == 32 * C ? launch_cluster_k<T, C, kRowsDense>
                                        : launch_cluster_k<T, C, kRows>);
   return launch(max_clusters, cs, R, windows, mono, mono_bstride, mono_lens, lens_bstride, dp0,
@@ -348,6 +365,14 @@ int launch_cluster(int* max_clusters, int cs, int R, const void* windows, const 
     SD_CLUSTER_CASE(6)
     SD_CLUSTER_CASE(7)
     SD_CLUSTER_CASE(8)
+    SD_CLUSTER_CASE(9)
+    SD_CLUSTER_CASE(10)
+    SD_CLUSTER_CASE(11)
+    SD_CLUSTER_CASE(12)
+    SD_CLUSTER_CASE(13)
+    SD_CLUSTER_CASE(14)
+    SD_CLUSTER_CASE(15)
+    SD_CLUSTER_CASE(16)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,4 +1,4 @@
-// K1's shared route for monomer sets padded to L <= 256: the lanes body.
+// K1's shared route for monomer sets padded to L <= 512: the lanes body.
 //
 // Replaces stringdecomposer_tpu/ops/chain_dp_pallas.py::_dp_kernel, as the
 // chunked body in chain_dp.cuh does, with the same recurrence, tie rules,
@@ -37,9 +37,16 @@
 //     memory: at position i every warp reads ends[(i-1) & 1] for the chain
 //     max and writes ends[i & 1]; one barrier per position orders the next
 //     read and the next overwrite.
-//   - M <= 32 (kOneRow): one warp a row, whose scores, pointers and monomer
-//     codes (four to a register) stay in registers for all W positions.
-//     More rows than warps (kRowsDense, kRows): each row lives in shared
+//   - M <= 32 (kRegRows): each row's scores, pointers and monomer codes
+//     (four to a register) stay in one warp's registers for all W
+//     positions. At C <= 8 a warp holds one row, on up to 32 warps (1,024
+//     threads, so at most 64 registers a thread: C = 8 takes 61). Above, a
+//     row's 2C + ceil(C / 4) values do not fit 64 registers, so a warp
+//     holds two rows, rows w and w + warps, on at most 16 warps (512
+//     threads, up to 128 registers; lanes_reg_rows) and steps them one
+//     after the other: the same row work a position as one warp a row,
+//     with no shared-memory round trip.
+//     More rows (kRowsDense, kRows): each row lives in shared
 //     memory, L cells of it, and is loaded into registers for its update and
 //     stored back; each warp keeps its rows' lengths in a register. The F =
 //     L / C full lanes keep their cell c at c*F + lane, so that for each c a
@@ -61,7 +68,7 @@
 
 namespace {
 
-constexpr int kLanesMaxC = 8;  // 32 lanes x 8 cells: L <= 256
+constexpr int kLanesMaxC = 16;  // 32 lanes x 16 cells: L <= 512
 
 // One row at one read position, in place on the lane's registers: q and s
 // hold the row's folded scores and pointers at i-1 on entry and at i on
@@ -146,16 +153,25 @@ struct LanesEmit {
 };
 
 // The kernel's three forms (see the top of this file).
-enum LanesPath : int { kOneRow = 0, kRowsDense = 1, kRows = 2 };
+enum LanesPath : int { kRegRows = 0, kRowsDense = 1, kRows = 2 };
 
-// Threads of one block: one warp a row for M <= 32 (up to 1024); for more
-// rows 32 warps, or 16 where a row in registers needs more than the 64
-// registers a thread of 1024 can have (C >= 7, and C = 6 with offsets
-// computed at run time). The bound's 1 (one block an SM) keeps ptxas from
-// spilling to fit two blocks an SM.
+// Rows a warp holds in registers in the kRegRows form: one up to C = 8, two
+// above (see the top of this file).
+template <int C>
+__host__ __device__ constexpr int lanes_reg_rows() {
+  return C <= 8 ? 1 : 2;
+}
+
+// Threads of one block: in the kRegRows form a warp for every
+// lanes_reg_rows rows (up to 1024 or 512); for more rows 32 warps, or 16
+// where a row in registers needs more than the 64 registers a thread of
+// 1024 can have (C >= 7, and C = 6 with offsets computed at run time). The
+// bound's 1 (one block an SM) keeps ptxas from spilling to fit two blocks
+// an SM.
 template <int C, int kPath>
 constexpr int lanes_max_threads() {
-  return kPath == kOneRow || C <= 5 || (C == 6 && kPath == kRowsDense) ? 1024 : 512;
+  return kPath == kRegRows ? 1024 / lanes_reg_rows<C>()
+                           : (C <= 5 || (C == 6 && kPath == kRowsDense) ? 1024 : 512);
 }
 
 template <typename T, int C, int kPath>
@@ -172,7 +188,8 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
                       int M, int L, int ins, int dele, int mismatch, int match) {
   constexpr int kNeg = StateNeg<T>::value;
   constexpr int kWords = (C + 3) / 4;
-  constexpr bool kOne = kPath == kOneRow;
+  constexpr bool kRegs = kPath == kRegRows;
+  constexpr int kP = kRegs ? lanes_reg_rows<C>() : 1;  // rows a warp holds in registers
   extern __shared__ int smem[];
   int* ends = smem;  // [2][M] end-cell scores, by position parity
   // several rows a warp: [M][L] folded scores, pointers and codes, cell c of
@@ -204,23 +221,32 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
     end_i[m] = (T)e;
     spend_i[m] = 0;
   }
-  int q[C], s[C];
-  unsigned codes[kWords];  // kOne: the lane's codes, cell c in byte c % 4 of word c / 4
-  int n_own = 0;  // kOne: the row's length; else that of row warp + lane * nwarps
+  // kRegs: row p of this warp is m = warp + p * nwarps, its cells in q[p],
+  // s[p] and codes[p] (cell c in byte c % 4 of word c / 4), its length in
+  // n_reg[p] (0 past M); else q[0] and s[0] hold the row being stepped
+  int q[kP][C], s[kP][C];
+  unsigned codes[kP][kWords];
+  int n_reg[kP];
+  int n_own = 0;  // the shared-memory forms: the length of row warp + lane * nwarps
   const int chain_reads = lane < M ? (M - 1 - lane) / 32 + 1 : 0;  // ends this lane reads
-  if constexpr (kOne) {
-    n_own = min(max(lens_b[warp], 0), L);
+  if constexpr (kRegs) {
 #pragma unroll
-    for (int w = 0; w < kWords; ++w) codes[w] = 0xffffffffu;  // 0xff never equals a read code
+    for (int p = 0; p < kP; ++p) {
+      const int m = warp + p * nwarps;  // at kP == 1 the launch gives every row a warp
+      n_reg[p] = kP == 1 || m < M ? min(max(lens_b[m], 0), L) : 0;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int k = k0 + c;
-      const bool valid = k < n_own;
-      q[c] = valid ? (int)dp0_b[(long long)warp * L + k] - k * dele : kNeg;
-      s[c] = 0;
-      if (valid) {
-        const unsigned code = (unsigned)(uint8_t)mono_b[(long long)warp * L + k];
-        codes[c / 4] = (codes[c / 4] & ~(0xffu << (8 * (c % 4)))) | (code << (8 * (c % 4)));
+      for (int w = 0; w < kWords; ++w) codes[p][w] = 0xffffffffu;  // 0xff never equals a read code
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int k = k0 + c;
+        const bool valid = k < n_reg[p];
+        q[p][c] = valid ? (int)dp0_b[(long long)m * L + k] - k * dele : kNeg;
+        s[p][c] = 0;
+        if (valid) {
+          const unsigned code = (unsigned)(uint8_t)mono_b[(long long)m * L + k];
+          codes[p][c / 4] =
+              (codes[p][c / 4] & ~(0xffu << (8 * (c % 4)))) | (code << (8 * (c % 4)));
+        }
       }
     }
   } else {
@@ -250,26 +276,31 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
     end_i += M;
     spend_i += M;
     int chain = kNeg;
-    if constexpr (kOne) {
+    if constexpr (kRegs) {
       if (lane < M) chain = prev[lane];
     } else {
 #pragma unroll 1
       for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
     }
     chain = warp_max(chain);
-    if constexpr (kOne) {
-      if (n_own == 0) {
-        if (lane == 0) {
-          end_i[warp] = (T)kNeg;
-          spend_i[warp] = 0;
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int m = warp + p * nwarps;
+        if (kP > 1 && m >= M) continue;
+        if (n_reg[p] == 0) {
+          if (lane == 0) {
+            end_i[m] = (T)kNeg;
+            spend_i[m] = 0;
+          }
+          continue;
         }
-      } else {
         const unsigned rc4 = (unsigned)(rc & 0xff) * 0x01010101u;  // the read's code, 4 times
-        lanes_row<T, C>(q, s, [&](int c) {
-                          return ((codes[c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
+        lanes_row<T, C>(q[p], s[p], [&](int c) {
+                          return ((codes[p][c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
                         },
-                        lane, n_own, i, chain, ins, dele, mismatch, match,
-                        LanesEmit<T>{cur, end_i, spend_i, warp});
+                        lane, n_reg[p], i, chain, ins, dele, mismatch, match,
+                        LanesEmit<T>{cur, end_i, spend_i, m});
       }
     } else {
       int j = 0;
@@ -290,17 +321,17 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           const bool valid = k0 + c < n;
-          q[c] = valid ? (int)qr[c * dx] : kNeg;
-          s[c] = valid ? (int)sr[c * dx] : 0;
+          q[0][c] = valid ? (int)qr[c * dx] : kNeg;
+          s[0][c] = valid ? (int)sr[c * dx] : 0;
           if (valid && cr[c * dx] == rc) eq |= 1u << c;
         }
-        lanes_row<T, C>(q, s, [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain, ins,
-                        dele, mismatch, match, LanesEmit<T>{cur, end_i, spend_i, m});
+        lanes_row<T, C>(q[0], s[0], [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain,
+                        ins, dele, mismatch, match, LanesEmit<T>{cur, end_i, spend_i, m});
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if (k0 + c < n) {
-            qr[c * dx] = (T)q[c];
-            sr[c * dx] = (T)s[c];
+            qr[c * dx] = (T)q[0][c];
+            sr[c * dx] = (T)s[0][c];
           }
         }
       }
@@ -314,18 +345,19 @@ int launch_lanes_c(const void* windows, const void* mono, long long mono_bstride
                    const void* mono_lens, long long lens_bstride, const void* dp0, void* end,
                    void* spend, int B, int W, int M, int L, int ins, int dele, int mismatch,
                    int match, void* stream) {
-  const bool one_row = M <= 32;
-  const long long smem = one_row ? 2LL * M * 4 : chain_dp_smem_bytes(M, L, sizeof(T));
+  const bool regs = M <= 32;
+  const long long smem = regs ? 2LL * M * 4 : chain_dp_smem_bytes(M, L, sizeof(T));
   const bool dense = L == 32 * C;
-  auto kernel = one_row ? chain_dp_lanes_kernel<T, C, kOneRow>
-                        : (dense ? chain_dp_lanes_kernel<T, C, kRowsDense>
-                                 : chain_dp_lanes_kernel<T, C, kRows>);
+  auto kernel = regs ? chain_dp_lanes_kernel<T, C, kRegRows>
+                     : (dense ? chain_dp_lanes_kernel<T, C, kRowsDense>
+                              : chain_dp_lanes_kernel<T, C, kRows>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = one_row ? 32 * M
-                              : (dense ? lanes_max_threads<C, kRowsDense>()
-                                       : lanes_max_threads<C, kRows>());
+  constexpr int kP = lanes_reg_rows<C>();
+  const int threads = regs ? 32 * ((M + kP - 1) / kP)
+                           : (dense ? lanes_max_threads<C, kRowsDense>()
+                                    : lanes_max_threads<C, kRows>());
   kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
       (const int8_t*)windows, W, (const int8_t*)mono, mono_bstride, (const int*)mono_lens,
       lens_bstride, (const T*)dp0, (T*)end, (T*)spend, M, L, ins, dele, mismatch, match);
@@ -350,6 +382,14 @@ int launch_lanes(const void* windows, const void* mono, long long mono_bstride,
     SD_LANES_CASE(6)
     SD_LANES_CASE(7)
     SD_LANES_CASE(8)
+    SD_LANES_CASE(9)
+    SD_LANES_CASE(10)
+    SD_LANES_CASE(11)
+    SD_LANES_CASE(12)
+    SD_LANES_CASE(13)
+    SD_LANES_CASE(14)
+    SD_LANES_CASE(15)
+    SD_LANES_CASE(16)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -11,16 +11,19 @@ K1 has two routes with the same recurrence and tie rules. A monomer set
 whose [M, L] column fits one block's shared memory (`smem_bytes`) takes the
 shared route; a larger one takes the large route (`chain_dp_large_cuda`).
 Each route has two kernel bodies (`body`). The shared route runs the lanes
-body at L <= 256 (csrc/chain_dp_lanes.cuh: each lane owns whole cells of a
-row, one pair scan per row, one barrier per position) and the chunked body
-above it (csrc/chain_dp.cuh). The large route runs the cluster body at
-L <= 256 where a cluster of at most 16 blocks holds the rows
-(csrc/chain_dp_cluster.cuh, `cluster_plan`: a window's rows spread over a
-thread block cluster, the lanes body's row step in each block, the end
-scores exchanged through distributed shared memory) and the chunked body
-otherwise, with the column in a device-memory scratch; the ablation runs
-the chunked body too. Each body and route counts its own launches, int32
-and int16 state apart.
+body at L <= 512 (csrc/chain_dp_lanes.cuh: each lane owns C = ceil(L / 32)
+<= 16 whole cells of a row, one pair scan per row, one barrier per
+position) and the chunked body above it (csrc/chain_dp.cuh). The large
+route runs the cluster body at L <= 512 where a cluster of at most 16
+blocks holds the rows (csrc/chain_dp_cluster.cuh, `cluster_plan`: a
+window's rows spread over a thread block cluster, the lanes body's row
+step in each block, the end scores exchanged through distributed shared
+memory) and the chunked body otherwise, with the column in a device-memory
+scratch; the ablation runs the chunked body too. A C outside 1..16 is
+refused by the lanes and cluster entries, never run on another body. Each
+body and route counts its own launches, int32 and int16 state apart, and
+the lanes and cluster bodies' rows past LANES_LONG_L (C = 9..16, two rows
+a warp in registers) apart from the shorter ones.
 
 state_dtype="int16" (not the default: "auto" is int32) stores the column
 and emits end / spend as int16, which halves K1's output bytes and lets
@@ -47,8 +50,12 @@ SMEM_LIMIT = 232_448
 # launched in groups of windows, so that a launch's scratch stays in the
 # 50 MB L2.
 LARGE_SCRATCH_BYTES = 32 << 20
-# the lanes body's longest row: 32 lanes x 8 cells (csrc/chain_dp_lanes.cuh)
-LANES_MAX_L = 256
+# the lanes and cluster bodies' longest row: 32 lanes x 16 cells
+# (csrc/chain_dp_lanes.cuh kLanesMaxC)
+LANES_MAX_L = 512
+# rows past it (C = 9..16) are held two to a warp in registers, and their
+# launches are counted apart ("_long")
+LANES_LONG_L = 256
 # the cluster body's largest cluster (csrc/chain_dp_cluster.cuh kClusterMax;
 # above 8 blocks the launch allows a non-portable size)
 CLUSTER_MAX = 16
@@ -75,17 +82,24 @@ def route(M: int, L: int, state_bytes: int = 4) -> str:
     return "shared" if smem_bytes(M, L, state_bytes) <= SMEM_LIMIT else "large"
 
 
+def reg_rows(L: int) -> int:
+    """Rows a warp holds in registers in the lanes and cluster bodies'
+    register form (csrc/chain_dp_lanes.cuh lanes_reg_rows): one up to
+    LANES_LONG_L, two above."""
+    return 1 if L <= LANES_LONG_L else 2
+
+
 def cluster_shape(M: int, L: int, state_bytes: int, cs: int):
     """The cluster body's launch for M rows padded to L over clusters of cs
     blocks: (R, form, threads, smem), or None where it does not fit. Block r
     owns rows r*R .. min(M, (r+1)*R) - 1, R = ceil(M / cs), and must own at
-    least one. R <= 32 rows run one warp a row in registers ("one_row", 32*R
-    threads); more live in shared memory, lane-contiguous ("rows_dense" where
-    L is 32 lanes x C cells, else "rows"), on the lanes body's 1,024 or 512
-    threads. The shared memory (csrc/chain_dp_cluster.cuh
-    cluster_smem_bytes): 8 * M bytes of parity buffers, plus the R rows'
-    (2 * state bytes + 1) * L bytes in the shared-memory forms, within
-    SMEM_LIMIT."""
+    least one. R <= 32 rows live in registers ("regs"), a warp for every
+    `reg_rows(L)` rows (32 * ceil(R / reg_rows) threads); more live in
+    shared memory, lane-contiguous ("rows_dense" where L is 32 lanes x C
+    cells, else "rows"), on the lanes body's 1,024 or 512 threads. The
+    shared memory (csrc/chain_dp_cluster.cuh cluster_smem_bytes): 8 * M
+    bytes of parity buffers, plus the R rows' (2 * state bytes + 1) * L
+    bytes in the shared-memory forms, within SMEM_LIMIT."""
     if not (1 <= cs <= CLUSTER_MAX and 1 <= L <= LANES_MAX_L and M >= 1):
         return None
     R = -(-M // cs)
@@ -93,7 +107,7 @@ def cluster_shape(M: int, L: int, state_bytes: int, cs: int):
         return None
     C = -(-L // 32)
     if R <= 32:
-        form, threads = "one_row", 32 * R
+        form, threads = "regs", 32 * -(-R // reg_rows(L))
     else:
         form = "rows_dense" if L == 32 * C else "rows"
         threads = 1024 if C <= 5 or (C == 6 and form == "rows_dense") else 512
@@ -111,8 +125,8 @@ def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = Non
     `windows` clusters runs in ceil(windows / active(cs)) waves, `active`
     giving how many clusters of cs blocks the card runs at once (the
     wrapper passes cudaOccupancyMaxActiveClusters; sizes it says 0 for are
-    left out); a warp steps one row a position where the rows are in
-    registers (R <= 32), else ceil(R / warps); the 1 is a position's fixed
+    left out); a warp steps ceil(R / warps) rows a position: one or two
+    where the rows are in registers (R <= 32); the 1 is a position's fixed
     part (the chain max, the exchange, the barrier), about one row's work:
     on one H100 a wave of 5,500 positions took ~8 ms x (1 + rows a warp).
     Without `windows` and `active` every launch counts as one wave, so the
@@ -139,8 +153,9 @@ def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = Non
 def body(M: int, L: int, state_bytes: int = 4) -> str:
     """The K1 kernel body a monomer set runs: on the shared route "lanes"
     (L <= LANES_MAX_L) or "chunked" (above it); on the large route
-    "cluster" (where `cluster_plan` finds a cluster) or "large" (the chunked
-    body with its device-memory scratch)."""
+    "cluster" (where `cluster_plan` finds a cluster: L <= LANES_MAX_L and
+    rows that 16 blocks hold) or "large" (the chunked body with its
+    device-memory scratch)."""
     if route(M, L, state_bytes) == "shared":
         return "lanes" if L <= LANES_MAX_L else "chunked"
     return "cluster" if cluster_plan(M, L, state_bytes) is not None else "large"
@@ -278,8 +293,11 @@ def _launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, scratch
     )
 
 
-def _counter(dt: torch.dtype, kind: str = "") -> str:
-    return f"launches{'_' + kind if kind else ''}{'_int16' if dt == torch.int16 else ''}"
+def _counter(dt: torch.dtype, kind: str = "", L: int = 0) -> str:
+    """The launch counter of a K1 body (`kind`: "" for the chunked body,
+    "lanes" or "cluster"), rows past LANES_LONG_L and int16 state apart."""
+    long = "_long" if kind and L > LANES_LONG_L else ""
+    return f"launches{'_' + kind if kind else ''}{long}{'_int16' if dt == torch.int16 else ''}"
 
 
 def chain_dp_forward_cuda(
@@ -307,6 +325,7 @@ def chain_dp_forward_cuda(
     if kind in ("cluster", "large"):
         return chain_dp_large_cuda(windows, window_lens, mono, mono_lens, **kw)
     B, W = windows.shape
+    L = mono.shape[-1]
     windows, mono, mono_lens, dp0, end, spend = _prologue(
         windows, window_lens, mono, mono_lens, dele, mismatch, match, dt)
     if B > 0:
@@ -315,14 +334,16 @@ def chain_dp_forward_cuda(
                              (library().sd_chain_dp, (0, dt.itemsize), (None,)))
         check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, 0, B, scratch,
                       ins, dele, mismatch, match), f"chain_dp {kind} kernel")
-        count_launch(chain_dp_forward_cuda, _counter(dt, "lanes" if lanes else ""))
+        count_launch(chain_dp_forward_cuda, _counter(dt, "lanes" if lanes else "", L))
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
-chain_dp_forward_cuda.launches = 0  # the chunked body (shared route, L > 256)
+chain_dp_forward_cuda.launches = 0  # the chunked body (shared route, L > 512)
 chain_dp_forward_cuda.launches_int16 = 0
 chain_dp_forward_cuda.launches_lanes = 0  # the lanes body (shared route, L <= 256)
 chain_dp_forward_cuda.launches_lanes_int16 = 0
+chain_dp_forward_cuda.launches_lanes_long = 0  # the lanes body at 256 < L <= 512
+chain_dp_forward_cuda.launches_lanes_long_int16 = 0
 
 
 def _groups(B: int, M: int, L: int, dt: torch.dtype) -> int:
@@ -408,7 +429,7 @@ def chain_dp_large_cuda(
             check(_launch(lib.sd_chain_dp_cluster, (dt.itemsize, cs, R), windows, mono,
                           mono_lens, dp0, end, spend, 0, B, (), ins, dele, mismatch, match),
                   "chain_dp cluster kernel")
-            count_launch(chain_dp_large_cuda, _counter(dt, "cluster"))
+            count_launch(chain_dp_large_cuda, _counter(dt, "cluster", L))
         return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
     group = _groups(B, M, L, dt)
     sp = torch.empty((group, M, L), dtype=dt, device=windows.device)
@@ -421,10 +442,12 @@ def chain_dp_large_cuda(
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
-chain_dp_large_cuda.launches = 0  # the chunked body (L > 256, or no cluster fits)
+chain_dp_large_cuda.launches = 0  # the chunked body (L > 512, or no cluster fits)
 chain_dp_large_cuda.launches_int16 = 0
-chain_dp_large_cuda.launches_cluster = 0  # the cluster body
+chain_dp_large_cuda.launches_cluster = 0  # the cluster body (L <= 256)
 chain_dp_large_cuda.launches_cluster_int16 = 0
+chain_dp_large_cuda.launches_cluster_long = 0  # the cluster body at 256 < L <= 512
+chain_dp_large_cuda.launches_cluster_long_int16 = 0
 
 
 def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: bool,

@@ -25,9 +25,16 @@ With `--large`, the shapes are K1's large route at L = 192: the golden
 windows (B = 19) and the first 64 windows of the 1.6 Mbp synthetic assembly
 (workloads.synthesize, seed 0; one DP batch of run (iii)), each against the
 264-monomer library (workloads.hor_library, seed 0, with RC) and its first
-200 rows, in int32 and int16 state. With `--sweep` (a checkout that has the
-cluster body), the same shapes through `chain_dp_large_cuda` at every
-cluster size the shared memory admits, each with its
+200 rows, in int32 and int16 state. With `--long`, the shapes are K1 at
+rows past 256 bp: the golden windows against the DXZ1 dimers with RC (M =
+24, L = 360: the shared route) and 150 dimer variants (M = 150: the large
+route; workloads.joined_set and joined_variants, seed 0), in int32 and
+int16 state, and against the trimers and 150 trimer variants cut to 512 bp
+(M = 24 and 150, L = 512), int32: a parent before the lanes and cluster
+bodies took L > 256 runs them on its chunked body. With `--sweep` (a
+checkout that has the cluster body), the `--large` shapes and the golden
+windows x the 150 dimer variants (L = 360) through `chain_dp_large_cuda`
+at every cluster size the shared memory admits, each with its
 cudaOccupancyMaxActiveClusters and its digest against the plan's, then the
 golden windows against the library's first 64 and 128 rows on the lanes
 body and on the cluster body at each cluster size (sets the shared route
@@ -112,6 +119,32 @@ def large_shapes(fasta, oracle, chain_dp, workloads):
     return out
 
 
+def long_shapes(fasta, oracle, chain_dp, workloads, cut=None):
+    """(name, windows, window lens, mono, mono lens, state) of `--long`: the
+    golden windows x the DXZ1 dimers and their 150 variants (L = 360), int32
+    and int16, and x the trimers and their 150 variants cut to 512 bp (L =
+    512), int32. With `cut`, only the sets of that name ("dimers variants"
+    for `--sweep`), int32."""
+    import numpy as np
+
+    dxz1 = fasta.load_fasta(str(DATA / "DXZ1_star_monomers.fa"))
+    codes = fasta.encode(fasta.load_fasta(str(DATA / "read.fa"))[0].seq)
+    wins = [codes[o : o + n] for o, n in oracle.make_windows(len(codes), 5000, 500)]
+    wb, wl = chain_dp.build_window_batch(wins, 5500)
+    out = []
+    for k, width, states in ((2, 360, ("int32", "int16")), (3, 512, ("int32",))):
+        for what, records in ((f"{'di' if k == 2 else 'tri'}mers", workloads.joined_set(dxz1, k)),
+                              (f"{'di' if k == 2 else 'tri'}mers variants",
+                               workloads.joined_variants(dxz1, k, 150, np.random.default_rng(0)))):
+            if cut not in (None, what):
+                continue
+            records = [fasta.Record(r.name, r.seq[:width]) for r in records]
+            mono, lens = fasta.pad_monomers(fasta.add_reverse_complement(records), pad_to=width)
+            for dt in (("int32",) if cut else states):
+                out.append((f"golden x {what} M={len(lens)} L={width}", wb, wl, mono, lens, dt))
+    return out
+
+
 def large_library(fasta, workloads, d):
     """The 264-monomer library FASTA (the run adds RC) and the 1.6 Mbp
     assembly, written into directory d: run (iii)'s inputs."""
@@ -131,9 +164,10 @@ def digest(blocks, counts) -> str:
 
 
 def sweep(torch, k1, shapes, dev, cap):
-    """Every admissible cluster size of each `--large` shape, int32 and
-    int16: occupancy, ms, digest (equal to the plan's); then M = 64 and 128
-    on the lanes body against the cluster body."""
+    """Every admissible cluster size of each shape (`--large`'s and the
+    dimer variants at L = 360), int32 and int16: occupancy, ms, digest
+    (equal to the plan's); then M = 64 and 128 on the lanes body against the
+    cluster body."""
     out = {}
     for name, *arrays in shapes:
         a = [torch.from_numpy(x).to(dev) for x in arrays]
@@ -182,8 +216,10 @@ def main() -> int:
                       help="time M = 1 .. 32 rows of one set instead of the A/B shapes")
     what.add_argument("--large", action="store_true",
                       help="time the large route's shapes (M = 264, 200; B = 19, 64; int32, int16)")
+    what.add_argument("--long", action="store_true",
+                      help="time K1 at L = 360 and 512 (M = 24, 150; int32, int16)")
     what.add_argument("--sweep", action="store_true",
-                      help="time the large route's shapes at every cluster size")
+                      help="time the large route's shapes and L = 360 at every cluster size")
     what.add_argument("--e2e", action="store_true",
                       help="time the golden run, run (i) and run (iii) end to end instead")
     args = ap.parse_args()
@@ -205,7 +241,9 @@ def main() -> int:
     dev = torch.device("cuda")
     cap = 5500 // 8
     if args.sweep:
-        res["sweep"] = sweep(torch, k1, large_shapes(fasta, oracle, chain_dp, workloads), dev, cap)
+        at = large_shapes(fasta, oracle, chain_dp, workloads) + [
+            sh[:5] for sh in long_shapes(fasta, oracle, chain_dp, workloads, "dimers variants")]
+        res["sweep"] = sweep(torch, k1, at, dev, cap)
         print(json.dumps(res))
         return 0
     res["shapes"] = {}
@@ -213,6 +251,10 @@ def main() -> int:
         cases = [(f"{name} {dt}", dt, *arrays)
                  for name, *arrays in large_shapes(fasta, oracle, chain_dp, workloads)
                  for dt in ("int32", "int16")]
+        reps = LARGE_REPS
+    elif args.long:
+        cases = [(f"{name} {dt}", dt, *arrays)
+                 for name, *arrays, dt in long_shapes(fasta, oracle, chain_dp, workloads)]
         reps = LARGE_REPS
     else:
         cases = [(name, "auto", *arrays)

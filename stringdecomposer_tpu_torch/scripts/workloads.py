@@ -1,5 +1,6 @@
 """Seeded synthetic workloads of chip_smoke.py and the A/B scripts beside
-this file: a HOR-scale monomer library, a centromere-like assembly and the
+this file: a HOR-scale monomer library, monomer sets of joined units
+(dimers, trimers) and their variants, a centromere-like assembly and the
 alignment API's pairs, all drawn from a numpy.random.default_rng. The
 import below is absolute, so that the A/B scripts can load this file beside
 another checkout's package."""
@@ -32,6 +33,36 @@ def hor_library(records, rng):
                 else:
                     seq.insert(pos, "ACGT"[int(rng.integers(4))])
             out.append(Record(f"{head}_v{v}", "".join(seq)))
+    return out
+
+
+def joined_set(records, k: int):
+    """Each monomer joined to the next k - 1 in file order (wrapping round),
+    named `<first word>+<first word>...`. From the 12 DXZ1 monomers: k = 2,
+    12 dimers of 338-357 bp (24 with RC, padded to L = 360: K1's lanes and
+    cluster bodies at C = 12, as alpha-satellite dimers or a ~360 bp
+    satellite family would run); k = 3, 12 trimers of 507-527 bp (L = 528,
+    past the lanes body's 512: K1's chunked body)."""
+    n = len(records)
+    return [Record("+".join(records[(i + j) % n].name.split()[0] for j in range(k)),
+                   "".join(records[(i + j) % n].seq for j in range(k)))
+            for i in range(n)]
+
+
+def joined_variants(records, k: int, n: int, rng):
+    """n / 2 variants of `joined_set(records, k)`: variant j of unit j % 12,
+    5 % of its bases substituted at random, named `v<k>_<j>`; with RC, n
+    rows. For n = 150 a set too large for K1's shared route in int32 and
+    int16: at k = 2 (L = 360) the large route's cluster body, at k = 3 (L =
+    528) its chunked body. k = 2 with numpy.random.default_rng(0) draws the
+    dimer variants chip_smoke has driven since its dimer cases began."""
+    units = joined_set(records, k)
+    out = []
+    for j in range(n // 2):
+        seq = list(units[j % len(units)].seq)
+        for p in rng.choice(len(seq), len(seq) // 20, replace=False):
+            seq[p] = "ACGT".replace(seq[p], "")[int(rng.integers(3))]
+        out.append(Record(f"v{k}_{j}", "".join(seq)))
     return out
 
 

@@ -143,7 +143,8 @@ def test_large_route_cpu_matches_jax(library_case, cs, dt):
     arrays, max_blocks = 1 overflowing; it launches nothing."""
     args, kw, jax_out = library_case
     fn = chain_dp_cuda.chain_dp_large_cuda
-    names = ("launches", "launches_int16", "launches_cluster", "launches_cluster_int16")
+    names = ("launches", "launches_int16", "launches_cluster", "launches_cluster_int16",
+             "launches_cluster_long", "launches_cluster_long_int16")
     before = [getattr(fn, n) for n in names]
     got = fn(*args, cluster_size=cs, state_dtype="int16" if dt == torch.int16 else "int32", **kw)
     for g, j in zip(got[:2] + got[2], jax_out):
@@ -164,11 +165,12 @@ def test_large_route_refuses_a_cluster_size_that_does_not_fit(library_case):
 @pytest.mark.parametrize("sb", [4, 2], ids=["int32", "int16"])
 def test_cluster_plan_invariants(sb):
     """Every admissible shape and the plan's pick: each block owns at least
-    one row, at most 1,024 threads in whole warps, shared memory within
-    232,448 bytes, at most 16 blocks; pure; `body` says "cluster" exactly
-    where the shared route does not fit and a plan exists."""
+    one row, at most 1,024 threads in whole warps (512 past L = 256, where a
+    warp holds two rows in registers), shared memory within 232,448 bytes,
+    at most 16 blocks; pure; `body` says "cluster" exactly where the shared
+    route does not fit and a plan exists."""
     assert chain_dp_cuda.SMEM_LIMIT == 232_448 and chain_dp_cuda.CLUSTER_MAX == 16
-    for L in (8, 40, 191, 192, 256):
+    for L in (8, 40, 191, 192, 256, 257, 300, 360, 480, 512):
         for M in list(range(1, 300, 7)) + [1000, 1999, 2000, 2001, 2100, 2905, 2906, 4000]:
             for cs in range(0, 18):
                 shape = chain_dp_cuda.cluster_shape(M, L, sb, cs)
@@ -176,9 +178,12 @@ def test_cluster_plan_invariants(sb):
                     continue
                 R, form, threads, smem = shape
                 assert 1 <= cs <= 16 and R == -(-M // cs) and (cs - 1) * R < M <= cs * R
-                assert threads <= 1024 and threads % 32 == 0 and smem <= 232_448
-                assert form == ("one_row" if R <= 32 else
+                assert threads <= (1024 if L <= 256 else 512) and threads % 32 == 0
+                assert smem <= 232_448
+                assert form == ("regs" if R <= 32 else
                                 "rows_dense" if L % 32 == 0 else "rows")
+                if form == "regs":
+                    assert threads == 32 * -(-R // (1 if L <= 256 else 2))
                 assert smem == 8 * M + (R * L * (2 * sb + 1) if R > 32 else 0)
             plan = chain_dp_cuda.cluster_plan(M, L, sb)
             assert plan == chain_dp_cuda.cluster_plan(M, L, sb)
@@ -186,22 +191,34 @@ def test_cluster_plan_invariants(sb):
                 assert plan[1:] == chain_dp_cuda.cluster_shape(M, L, sb, plan[0])
             large = chain_dp_cuda.route(M, L, sb) == "large"
             assert (chain_dp_cuda.body(M, L, sb) == "cluster") == (large and plan is not None)
-    for M, L in ((264, 257), (24, 320), (5000, 192)):
+    for M, L in ((264, 513), (24, 528), (5000, 192), (1400, 512)):
         assert chain_dp_cuda.cluster_plan(M, L, sb) is None
 
 
 def test_constants_match_the_kernel_source():
     """The wrapper's copies of the cluster body's constants and formulas
-    (csrc/chain_dp_cluster.cuh) and of the lanes body's thread rule."""
+    (csrc/chain_dp_cluster.cuh), of the lanes body's longest row, rows a
+    warp in registers and thread rule, and of the entries' L guard."""
     src = (CSRC / "chain_dp_cluster.cuh").read_text()
     assert int(re.search(r"constexpr int kClusterMax = (\d+);", src).group(1)) == \
         chain_dp_cuda.CLUSTER_MAX
     assert int(re.search(r"constexpr long long kSmemLimit = (\d+);", src).group(1)) == \
         chain_dp_cuda.SMEM_LIMIT
     assert "return 2LL * M * 4 + (R > 32 ? (long long)R * L * (2 * state_bytes + 1) : 0);" in src
-    assert "kPath == kOneRow ? 32 * R : lanes_max_threads<C, kPath>()" in src
+    assert ("dim3(kPath == kRegRows ? 32 * ((R + kP - 1) / kP) : lanes_max_threads<C, kPath>())"
+            in src)
     lanes = (CSRC / "chain_dp_lanes.cuh").read_text()
-    assert ("return kPath == kOneRow || C <= 5 || (C == 6 && kPath == kRowsDense) ? 1024 : 512;"
+    max_c = int(re.search(r"constexpr int kLanesMaxC = (\d+);", lanes).group(1))
+    assert 32 * max_c == chain_dp_cuda.LANES_MAX_L == 512
+    assert "return C <= 8 ? 1 : 2;" in lanes and chain_dp_cuda.LANES_LONG_L == 32 * 8
+    assert all(f"SD_LANES_CASE({c})" in lanes for c in range(1, max_c + 1))
+    assert f"SD_LANES_CASE({max_c + 1})" not in lanes
+    assert all(f"SD_CLUSTER_CASE({c})" in src for c in range(1, max_c + 1))
+    assert f"SD_CLUSTER_CASE({max_c + 1})" not in src
+    assert "L > 32 * kLanesMaxC" in (CSRC / "chain_dp_lanes.cu").read_text()
+    assert "L <= 32 * kLanesMaxC" in (CSRC / "chain_dp_cluster.cu").read_text()
+    assert ("return kPath == kRegRows ? 1024 / lanes_reg_rows<C>()\n"
+            "                           : (C <= 5 || (C == 6 && kPath == kRowsDense) ? 1024 : 512);"
             in lanes)
 
 

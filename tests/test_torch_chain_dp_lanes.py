@@ -129,32 +129,40 @@ def test_sweep_lanes_matches_jax_on_fixtures(random_cases, idx):
 
 
 def test_kernel_body_rule():
-    """The shared route runs the lanes body at L <= 256 and the chunked body
-    above; the large route runs the cluster body at L <= 256 where a cluster
+    """The shared route runs the lanes body at L <= 512 and the chunked body
+    above; the large route runs the cluster body at L <= 512 where a cluster
     of up to 16 blocks holds the rows, else the chunked body ("large");
     int16's wider shared route takes the lanes body too. A pure function of
     (M, L, state bytes)."""
     body = chain_dp_cuda.body
-    assert chain_dp_cuda.LANES_MAX_L == 256
+    assert chain_dp_cuda.LANES_MAX_L == 512
     for M, L, sb, want in ((24, 192, 4, "lanes"), (1, 1, 4, "lanes"), (32, 256, 4, "lanes"),
                            (33, 40, 4, "lanes"), (133, 192, 4, "lanes"), (134, 192, 4, "cluster"),
                            (264, 192, 4, "cluster"), (240, 192, 2, "lanes"),
-                           (241, 192, 2, "cluster"), (24, 264, 4, "chunked"),
-                           (20, 320, 2, "chunked"), (2905, 8, 4, "lanes"), (2906, 8, 4, "cluster"),
-                           (90, 320, 4, "large"), (264, 360, 4, "large"),
-                           (2000, 192, 4, "cluster"), (2100, 192, 4, "large")):
+                           (241, 192, 2, "cluster"), (24, 264, 4, "lanes"),
+                           (20, 320, 2, "lanes"), (24, 360, 4, "lanes"), (50, 512, 4, "lanes"),
+                           (24, 513, 4, "chunked"), (24, 528, 2, "chunked"),
+                           (2905, 8, 4, "lanes"), (2906, 8, 4, "cluster"),
+                           (90, 320, 4, "cluster"), (264, 360, 4, "cluster"),
+                           (150, 360, 4, "cluster"), (150, 360, 2, "cluster"),
+                           (51, 512, 4, "cluster"), (150, 528, 4, "large"),
+                           (1400, 512, 2, "large"), (2000, 192, 4, "cluster"),
+                           (2100, 192, 4, "large")):
         assert body(M, L, sb) == want, (M, L, sb)
         assert (want in ("cluster", "large")) == (chain_dp_cuda.route(M, L, sb) == "large")
         assert body(M, L, sb) == body(M, L, sb)
 
 
 def test_cpu_dispatch_counts_no_lanes_launch():
-    args = _problem(np.random.default_rng(3), 2, 30, 3, 24, 4, per_window=False)
     fn = chain_dp_cuda.chain_dp_forward_cuda
-    before = (fn.launches_lanes, fn.launches_lanes_int16, fn.launches, fn.launches_int16)
-    for dt in ("int32", "int16"):
-        got = fn(*args, state_dtype=dt, return_debug=True)
-        want = plain.chain_dp_forward(*args, state_dtype=dt, return_debug=True)
-        for g, w in zip(got[:2] + got[2], want[:2] + want[2]):
-            assert torch.equal(g, w)
-    assert (fn.launches_lanes, fn.launches_lanes_int16, fn.launches, fn.launches_int16) == before
+    names = ("launches_lanes", "launches_lanes_int16", "launches_lanes_long",
+             "launches_lanes_long_int16", "launches", "launches_int16")
+    before = [getattr(fn, n) for n in names]
+    for L in (24, 300):
+        args = _problem(np.random.default_rng(3), 2, 30, 3, L, 4, per_window=False)
+        for dt in ("int32", "int16"):
+            got = fn(*args, state_dtype=dt, return_debug=True)
+            want = plain.chain_dp_forward(*args, state_dtype=dt, return_debug=True)
+            for g, w in zip(got[:2] + got[2], want[:2] + want[2]):
+                assert torch.equal(g, w)
+    assert [getattr(fn, n) for n in names] == before
