@@ -5,7 +5,10 @@ Builds the hand-written kernels from csrc/, checks each against its plain
 PyTorch twin on the card (bit-equal: all outputs are integers) and against
 the reference fixtures, drives the golden CLI run through the kernels and
 a 1.6 Mbp synthetic assembly through both routes, drives the --ed_thr
-pre-filter (K3) and a HOR-scale monomer library (`hor_library`, 264
+pre-filter (K3: its thread route on the DXZ1 monomers and the library, its
+warp route past 512 bp on the DXZ1 trimers, its wide route past 16,384 bp
+on a ~17 kbp unit of 100 DXZ1 monomers, each against the plain twin and the
+mirror `hw_distance_myers`) and a HOR-scale monomer library (`hor_library`, 264
 monomers with RC, which takes K1's large route unfiltered, on its cluster
 body), drives the golden read against DXZ1 dimers (`workloads.joined_set`,
 L = 360: K1's lanes body at C = 12) and against 150 dimer variants
@@ -50,7 +53,7 @@ FIXTURES = os.path.join(HERE, "tests", "fixtures")
 VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")  # ops/chain_dp.VARIANTS
 ABLATE = tuple(f"ablate_{'large_' if large else ''}{v}" for large in (False, True) for v in VARIANTS)
 KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "nw_identity_cross", "hw_filter",
-           "banded_final_column", "banded_myers", "semi_ends", "banded_myers_wide", "semi_ends_wide",
+           "hw_filter_warp", "hw_filter_wide", "banded_final_column", "banded_myers", "semi_ends", "banded_myers_wide", "semi_ends_wide",
            "int16_probe", "chain_dp_int16",
            "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16", "chain_dp_cluster",
            "chain_dp_cluster_int16", "chain_dp_lanes_long", "chain_dp_lanes_long_int16",
@@ -73,11 +76,20 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #   K2, 11: match test 1, three candidates 3, two min 2, the column count's
 #     preference 2 compares + 2 selects + 1 add (matches = columns - D is
 #     one subtraction a pair, not a cell);
-#   K3 and K4, 6: match test 1, three candidates 3, two min 2;
+#   K4, 6: match test 1, three candidates 3, two min 2 (also K3's cell-DP
+#     bound, printed beside its Myers bound);
 #   K5 and K6, 17 per word: one Myers step (Eq lookup, Xv, Xh, Ph, Mh, the
 #     add's carry, shifts);
+#   K3, 10 per word: the HW step as the H100 can issue it, one instruction
+#     each for X = Eq | VN, T = X & VP, the add with carry (IADD3), D0 =
+#     (sum ^ VP) | X and HP = VN | ~(D0 | VP) (LOP3), HN = D0 & VP, the two
+#     up-shifts of HP and HN (SHF funnel shifts), VP' = HN' | ~(D0 | HP')
+#     (LOP3) and VN' = D0 & HP'. K3 computes its function bit-parallel, so
+#     its bound counts a word per 32 monomer rows a window column, the least
+#     work known for it; the 17-a-word figure is printed beside it, to
+#     compare with K5 and K6;
 #   the walk and P, 2 per element: compare, select.
-OPS_PER_CELL = {"k1": 15, "k2": 11, "hw": 6, "myers_word": 17, "scan": 2}
+OPS_PER_CELL = {"k1": 15, "k2": 11, "hw": 6, "myers_word": 17, "k3_word": 10, "scan": 2}
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -221,6 +233,7 @@ def main() -> int:
         int16_probe_cuda, int16_probe_plain, int16_state_supported, route,
     )
     from stringdecomposer_tpu_torch.ops.chain_dp_cuda import body as k1_body
+    from stringdecomposer_tpu_torch.ops import hw_filter_cuda as k3
     from stringdecomposer_tpu_torch.ops.hw_filter_cuda import hw_distance_batch_cuda
     from stringdecomposer_tpu_torch.ops.identity_cuda import (
         C_MAX, nw_identity_batch_cuda, nw_identity_cross_cuda, nw_identity_packed_both,
@@ -252,6 +265,8 @@ def main() -> int:
                 "nw_identity": (nw_identity_batch_cuda, "launches"),
                 "nw_identity_cross": (nw_identity_cross_cuda, "launches"),
                 "hw_filter": (hw_distance_batch_cuda, "launches"),
+                "hw_filter_warp": (hw_distance_batch_cuda, "launches_warp"),
+                "hw_filter_wide": (hw_distance_batch_cuda, "launches_wide"),
                 "banded_final_column": (banded_final_column_cuda, "launches"),
                 "banded_myers": (banded_myers_cuda, "launches"),
                 "semi_ends": (semi_ends_cuda, "launches"),
@@ -875,6 +890,29 @@ def main() -> int:
 
     def k3_checks():
         rng = np.random.default_rng(11)
+        k3_counters = ("launches", "launches_warp", "launches_wide")
+        route_counter = dict(zip(k3_plain.ROUTES, k3_counters))
+
+        def k3_launch(args, what, route="auto", seg_cols=None):
+            """K3 on the card, held to the plain twin and to the mirror at the
+            route and plan it took; exactly one launch, on that route."""
+            L = args[2].shape[1]
+            took = k3_plain.hw_route(L, route)
+            before = [getattr(hw_distance_batch_cuda, c) for c in k3_counters]
+            got = hw_distance_batch_cuda(*args, route=route, seg_cols=seg_cols)
+            after = [getattr(hw_distance_batch_cuda, c) for c in k3_counters]
+            want_launch = [int(c == route_counter[took]) for c in k3_counters]
+            if [x - y for x, y in zip(after, before)] != want_launch:
+                raise AssertionError(f"{what}: launches {before} -> {after} on the {took} route")
+            name = "hw_filter" + ("" if took == "thread" else "_" + took)
+            smoke.same(name, what, got, k3_plain.hw_distance_batch(*args))
+            if seg_cols is None:
+                seg_cols = 0 if took == "wide" else k3.plan(
+                    args[0].shape[0], *args[2].shape, args[0].shape[1], 0, took)[2]
+                seg_cols = 0 if seg_cols >= args[0].shape[1] else seg_cols
+            smoke.same(name, what + " (mirror)", got,
+                       k3_plain.hw_distance_myers(*args, route=took, seg_cols=seg_cols))
+            return got
 
         def rand_case(B, W, M, L, alphabet=5):
             """Random codes (N included) with ragged lengths: the first
@@ -891,14 +929,78 @@ def main() -> int:
                 mono[m, : ml[m]] = rng.integers(0, alphabet, ml[m])
             return [torch.from_numpy(a).to(dev) for a in (win, wl, mono, ml)]
 
+        def sized_case(wlens, mlens, L, W):
+            """Random codes, windows and monomers of the given lengths."""
+            win = np.full((len(wlens), W), k1_plain.READ_PAD, dtype=np.int8)
+            for b, n in enumerate(wlens):
+                win[b, :n] = rng.integers(0, 5, n)
+            mono = np.full((len(mlens), L), 5, dtype=np.int8)
+            for m, n in enumerate(mlens):
+                mono[m, :n] = rng.integers(0, 5, n)
+            return [torch.from_numpy(a).to(dev) for a in
+                    (win, np.asarray(wlens, np.int32), mono, np.asarray(mlens, np.int32))]
+
         shapes = [(3, 70, 5, 24), (4, 1, 6, 9), (2, 333, 17, 1), (5, 401, 24, 192),
                   (3, 257, 11, 512), (2, 150, 4, 700), (8, 1000, 13, 130)]
         for B, W, M, L in shapes:
-            args = rand_case(B, W, M, L)
-            smoke.same("hw_filter", f"random B={B} W={W} M={M} L={L}",
-                       hw_distance_batch_cuda(*args), k3_plain.hw_distance_batch(*args))
+            k3_launch(rand_case(B, W, M, L), f"random B={B} W={W} M={M} L={L}")
         print(f"K3: {len(shapes)} random shapes (window length 1, monomer length 1, N codes, "
-              "L = 512 and 700 through the segmented column) bit-equal to the plain twin")
+              "L = 512 on the thread route, 700 on the warp route) bit-equal to the plain twin "
+              "and the mirror")
+        # the word seams (R = 1, 2, 3, 16 words a thread; 513 on the warp
+        # route), every route that holds L at the card's plan and at forced
+        # segments; windows shorter than the monomers and past them
+        n = 0
+        for L in (1, 31, 32, 33, 63, 64, 65, 511, 512, 513):
+            mlens = sorted({L, max(1, L - 1), 1, int(rng.integers(1, L + 1))}, reverse=True)
+            args = sized_case([600, 1, 33, 17, 1100], mlens, L, 1100)
+            for route in k3_plain.ROUTES:
+                if route == "thread" and L > k3_plain.THREAD_MAX_L:
+                    continue
+                for sc in (None, 0, 16, 48) if route != "wide" else (None,):
+                    k3_launch(args, f"seam L={L} {route} seg_cols={sc}", route, sc)
+                    n += 1
+        # window lengths at a segment multiple and one either side, and
+        # windows shorter than a monomer's warm-up, cut into segments
+        for S in (16, 32, 64):
+            wlens = [1, S - 1, S, S + 1, 2 * S - 1, 2 * S, 2 * S + 1, 3 * S + 1, 45]
+            args = sized_case(wlens, [40, 24, 7, 1], 40, 3 * S + 8)
+            for route in ("thread", "warp"):
+                k3_launch(args, f"segment edges S={S} {route}", route, S)
+                n += 1
+        # all N: N matches N, READ_PAD nothing
+        win = np.full((2, 600), k1_plain.READ_PAD, dtype=np.int8)
+        win[0], win[1, :300] = 4, 4
+        mono = np.full((2, 520), 5, dtype=np.int8)
+        mono[0], mono[1, :100] = 4, 4
+        args = [torch.from_numpy(a).to(dev) for a in (win, np.array([600, 300], np.int32), mono,
+                                                       np.array([520, 100], np.int32))]
+        for route in ("warp", "wide"):
+            got = k3_launch(args, f"all N {route}", route).cpu().tolist()
+            if got != [[0, 0], [220, 0]]:
+                raise AssertionError(f"all N on the {route} route: {got}")
+        # codes outside 0-4 (READ_PAD, 7, negative) in monomers and windows
+        # compare as equal codes: the kernels' slow path
+        odd = np.array([0, 1, 2, 3, 4, k1_plain.READ_PAD, 7, -3], dtype=np.int8)
+        for L, routes in ((40, ("thread", "warp", "wide")), (600, ("warp", "wide"))):
+            args = [torch.from_numpy(a).to(dev) for a in (
+                rng.choice(odd, (3, 700)), np.array([700, 333, 5], np.int32),
+                rng.choice(odd, (3, L)), np.array([L, L // 2, 1], np.int32))]
+            for route in routes:
+                for sc in (None, 16) if route != "wide" else (None,):
+                    k3_launch(args, f"codes outside 0-4 L={L} {route} seg_cols={sc}", route, sc)
+                    n += 1
+        print(f"K3: {n} seam, segment-edge and odd-code launches (L = 1 .. 600, every route, "
+              "the card's plan and forced segments, codes outside 0-4) and all-N windows "
+              "bit-equal to the plain twin and the mirror")
+        # past the warp route's 16,384 bp: the wide route, in one band of
+        # stages and past 131,072 bp in two
+        k3_launch(rand_case(2, 600, 2, 16400), "wide L=16400")
+        if k3_plain.wide_shape(131100)[1] != 2:
+            raise AssertionError(f"wide L=131100: {k3_plain.wide_shape(131100)}, not two bands")
+        k3_launch(rand_case(2, 300, 2, 131100), "wide L=131100, two bands")
+        print("K3: one launch on each route (thread, warp at L = 513 .. 2,000, wide at L = "
+              "16,400 and at 131,100 in two bands), each counted on its own counter")
         cases = []
         for name in ("edlib_cases.json", "edlib_cases_b.json"):
             with open(os.path.join(FIXTURES, name)) as f:
@@ -907,21 +1009,20 @@ def main() -> int:
         wb, wl = k1_plain.build_window_batch([encode(t) for t in ts], max(map(len, ts)))
         mono, lens = pad_monomers([Record(f"q{i}", q) for i, q in enumerate(qs)])
         args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
-        got = hw_distance_batch_cuda(*args)
-        smoke.same("hw_filter", "edlib cases all pairs", got, k3_plain.hw_distance_batch(*args))
+        got = k3_launch(args, "edlib cases all pairs")
         diag = got.diagonal().cpu().numpy()
         for i, (q, t) in enumerate(zip(qs, ts)):
             if int(diag[i]) != hw_brute(q, t):
                 raise AssertionError(f"edlib case {i}: K3 {int(diag[i])}, brute force {hw_brute(q, t)}")
-        print(f"K3: {len(cases)} x {len(cases)} edlib fixture pairs bit-equal to the plain twin, "
-              "the matching pairs equal to a brute-force infix DP")
+        print(f"K3: {len(cases)} x {len(cases)} edlib fixture pairs (L = {mono.shape[1]}, the "
+              f"{k3_plain.hw_route(mono.shape[1])} route) bit-equal to the plain twin, the "
+              "matching pairs equal to a brute-force infix DP")
         codes = encode(load_fasta(assembly_fa())[0].seq)
         wins = [codes[o : o + n] for o, n in make_windows(len(codes), 5000, 500)][:64]
         wb, wl = k1_plain.build_window_batch(wins, 5500)
         _, (mono, lens) = mono_set(library)
         args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
-        dist = hw_distance_batch_cuda(*args)
-        smoke.same("hw_filter", "64 windows x 5500 x library", dist, k3_plain.hw_distance_batch(*args))
+        dist = k3_launch(args, "64 windows x 5500 x library")
         dist_np = dist.cpu().numpy()
         for thr in (0, 3, 10, 1000):
             mono_w, lens_w, perm = k3_plain.filter_monomers_device(dist, args[2], args[3], thr)
@@ -936,7 +1037,8 @@ def main() -> int:
                     raise AssertionError(f"filter_monomers_device, ed_thr {thr}, window {b}")
             print(f"filter on the card == host filter at ed_thr {thr}: rows kept per window "
                   f"{min(kept)}-{max(kept)} of {len(lens)}")
-        print("K3: 64 windows x 5500 x the 264-monomer library bit-equal to the plain twin")
+        print(f"K3: 64 windows x 5500 x the 264-monomer library (plan "
+              f"{k3.plan(64, *mono.shape, 5500, 0)}) bit-equal to the plain twin and the mirror")
 
     def ed_thr_run():
         cases = []
@@ -992,6 +1094,63 @@ def main() -> int:
             print(f"run (ii) golden x library --ed_thr {ed}: three TSVs equal between routes; "
                   f"{n_rows(os.path.join(out, f'ii_{ed}_kernel'))} assignments; kernel route "
                   f"{secs['kernel']:.3f} s, plain route {secs['plain']:.3f} s")
+
+    def wide_case():
+        """A macrosatellite-like workload past the K3 warp route's 16,384 bp:
+        one unit of 100 DXZ1 monomers (~17 kbp, `workloads.joined_set`) and
+        a read of two copies of it with 1 % of bases substituted (seed 0)."""
+        unit = joined_set(load_fasta(dxz1), 100)[0]
+        r = np.random.default_rng(0)
+        seq = np.array(list(unit.seq * 2))
+        hit = r.choice(len(seq), len(seq) // 100, replace=False)
+        seq[hit] = [("ACGT".replace(c, ""))[int(r.integers(3))] for c in seq[hit]]
+        return [Record("read_x2", "".join(seq))], add_reverse_complement([Record("dxz1_x100", unit.seq)])
+
+    def ed_thr_long():
+        """--ed_thr past the thread route: the golden read against the DXZ1
+        trimers (CLI, L = 528: K3's warp route) and the ~17 kbp unit against
+        two copies of itself (decompose_reads: the wide route), each with
+        output equal to the route with K3's plain twin."""
+        out = work.name
+        fa = joined["trimers"][1]
+        d = {r: os.path.join(out, f"trimers_ed_{r}") for r in ("kernel", "plain")}
+
+        def cli_run():
+            rc = cli.main([read_fa, fa, "-o", d["kernel"], "--second-best", "--ed_thr", "10"])
+            if rc != 0:
+                raise AssertionError(f"CLI trimers --ed_thr 10 exit code {rc}")
+
+        got = drive("golden x DXZ1 trimers --ed_thr 10 (CLI, kernel route)", cli_run)
+        if got["hw_filter_warp"] <= 0 or got["hw_filter"] or got["hw_filter_wide"]:
+            raise AssertionError(f"trimers --ed_thr 10: K3 launches {got}")
+        launches["hw_filter_warp"] = got["hw_filter_warp"]
+        pipeline.run(read_fa, fa, out_dir=d["plain"], second_best=True, device="cuda", ed_thr=10,
+                     hw_fn=k3_plain.hw_distance_batch)
+        torch.cuda.synchronize()
+        same_files(d["kernel"], d["plain"], "trimers --ed_thr 10")
+        print(f"golden x DXZ1 trimers --ed_thr 10: K3's warp route, three TSVs equal to the route "
+              f"with K3's plain twin; {n_rows(d['kernel'])} assignments")
+        reads, monos = wide_case()
+        cfg = pipeline.PipelineConfig(ed_thr=10)
+        res = {}
+
+        def wide_run():
+            res["kernel"] = pipeline.decompose_reads(reads, monos, cfg, "cuda")
+
+        got = drive(f"{len(reads[0].seq)} bp x a {len(monos[0].seq)} bp unit --ed_thr 10 "
+                    "(decompose_reads)", wide_run)
+        if got["hw_filter_wide"] <= 0 or got["hw_filter"] or got["hw_filter_warp"]:
+            raise AssertionError(f"wide --ed_thr 10: K3 launches {got}")
+        launches["hw_filter_wide"] = got["hw_filter_wide"]
+        res["plain"] = pipeline.decompose_reads(reads, monos, cfg, "cuda",
+                                                hw_fn=k3_plain.hw_distance_batch)
+        names = [m.name for m in monos]
+        raw = {k: "".join(r + "\n" for rn, b in v for r in format_raw_rows(rn, b, names))
+               for k, v in res.items()}
+        if raw["kernel"] != raw["plain"] or not raw["kernel"]:
+            raise AssertionError("wide --ed_thr 10: raw rows differ from the route with K3's plain twin")
+        print(f"{len(reads[0].seq)} bp x {len(monos[0].seq)} bp unit --ed_thr 10: K3's wide route, "
+              f"raw rows equal to the route with K3's plain twin; {raw['kernel'].count(chr(10))} rows")
 
     def library_run():
         fa = assembly_fa()
@@ -1259,18 +1418,52 @@ def main() -> int:
                                      OPS_PER_CELL["scan"] * cols * M)
         print(f"walk alone on the same end/spend: kernel {spread(k)}; plain {spread(p)}; bound "
               f"{bounds['block_walk'][0]:.6f} ms ({bounds['block_walk'][1]})")
-        # K3 and K1's cluster body at the golden windows x the library
+        # K3 on each route: the thread route at the golden windows x DXZ1,
+        # x the library (its kernels-line row) and 64 windows of the 1.6 Mbp
+        # assembly x the library (run (iii)'s batch); the warp route at the
+        # golden windows x the DXZ1 trimers (L = 528); the wide route at the
+        # ~17 kbp unit's run
+        asm_codes = encode(load_fasta(assembly_fa())[0].seq)
+        wb64, wl64 = k1_plain.build_window_batch(
+            [asm_codes[o : o + n] for o, n in make_windows(len(asm_codes), 5000, 500)][:64], 5500)
+        wreads, wmonos = wide_case()
+        wcodes = encode(wreads[0].seq)
+        wbw, wlw = k1_plain.build_window_batch(
+            [wcodes[o : o + n] for o, n in make_windows(len(wcodes), 5000, 500)], 5500)
+        for name, what, (wb_, wl_), records, reps, keep in (
+                ("hw_filter", "golden windows x DXZ1", (wb, wl), load_fasta(dxz1), 10, False),
+                ("hw_filter", "golden windows x library", (wb, wl), library, 10, True),
+                ("hw_filter", "64 windows x library", (wb64, wl64), library, 10, False),
+                ("hw_filter_warp", "golden windows x DXZ1 trimers", (wb, wl), trimers, 5, True),
+                ("hw_filter_wide", "unit x2 windows x the unit", (wbw, wlw), wmonos, 3, True)):
+            if name == "hw_filter_wide":
+                mono, lens = pad_monomers(records)
+            else:
+                _, (mono, lens) = mono_set(records)
+            args = [torch.from_numpy(a).to(dev) for a in (wb_, wl_, mono, lens)]
+            k, got = timed(lambda: hw_distance_batch_cuda(*args), reps)
+            p, want = timed(lambda: k3_plain.hw_distance_batch(*args), 0)
+            smoke.same(name, what, got, want)
+            W, (M, L) = args[0].shape[1], mono.shape
+            wl_sum = int(args[1].clamp(0, W).sum())
+            ml = args[3].clamp(0, L)
+            nbytes = args[0].numel() + args[2].numel() + 4 * got.numel()
+            words = wl_sum * int(((ml + 31) // 32).sum())
+            bd = bound(nbytes, OPS_PER_CELL["k3_word"] * words)
+            bd17 = bound(nbytes, OPS_PER_CELL["myers_word"] * words)
+            cell_bd = bound(nbytes, OPS_PER_CELL["hw"] * wl_sum * int(ml.sum()))
+            if keep:
+                timing[name] = (statistics.median(k), statistics.median(p))
+                bounds[name] = bd
+            print(f"K3 {name}, {what} (B={args[0].shape[0]}, W={W}, M={M}, L={L}; plan "
+                  f"{k3.plan(args[0].shape[0], M, L, W, 0)}): kernel {spread(k)}; plain "
+                  f"{spread(p)}; bound {bd[0]:.4f} ms ({bd[1]}, Myers words at "
+                  f"{OPS_PER_CELL['k3_word']} ops), {100 * bd[0] / statistics.median(k):.2f} % "
+                  f"of it; at {OPS_PER_CELL['myers_word']} ops a word {bd17[0]:.4f} ms; the cell "
+                  f"DP's bound {cell_bd[0]:.4f} ms")
+        # K1's cluster body at the golden windows x the library
         _, (mono, lens) = mono_set(library)
         args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
-        k, got = timed(lambda: hw_distance_batch_cuda(*args), 5)
-        p, want = timed(lambda: k3_plain.hw_distance_batch(*args), 0)
-        smoke.same("hw_filter", "golden windows x library", got, want)
-        timing["hw_filter"] = (statistics.median(k), statistics.median(p))
-        cells = int(args[1].sum()) * int(args[3].sum())
-        bounds["hw_filter"] = bound(args[0].numel() + args[2].numel() + 4 * got.numel(),
-                                    OPS_PER_CELL["hw"] * cells)
-        print(f"K3 hw_distance, {len(wins)} windows x 5500 x M={mono.shape[0]}, L={mono.shape[1]}: "
-              f"kernel {spread(k)}; plain {spread(p)}")
         plan = plan_at(*mono.shape, 4, len(wins))
         if k1_body(*mono.shape) != "cluster":
             raise AssertionError(f"library: body {k1_body(*mono.shape)}")
@@ -1844,6 +2037,7 @@ def main() -> int:
     smoke.phase("scale", scale_run)
     smoke.phase("k3", k3_checks)
     smoke.phase("ed_thr", ed_thr_run)
+    smoke.phase("ed_thr_long", ed_thr_long)
     smoke.phase("library", library_run)
     smoke.phase("k4", k4_checks)
     smoke.phase("k5", k5_checks)
@@ -1867,6 +2061,8 @@ def main() -> int:
             ("nw_identity_cross", src + "nw_identity.cu",
              "stringdecomposer_tpu/ops/identity_pallas.py:63"),
             ("hw_filter", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
+            ("hw_filter_warp", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
+            ("hw_filter_wide", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
             ("banded_final_column", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:59"),
             ("banded_myers", src + "myers_warp.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),
             ("semi_ends", src + "myers_warp.cu", "stringdecomposer_tpu/ops/banded_pallas.py:510"),

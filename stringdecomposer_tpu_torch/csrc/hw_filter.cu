@@ -2,199 +2,548 @@
 // window, the --ed_thr monomer pre-filter.
 //
 // Replaces stringdecomposer_tpu/ops/hw_filter.py::_hw_kernel (reached
-// through hw_distance_batch_pallas). Same recurrence as the lax.scan twin
-// hw_distance_batch in that file, over the monomer column i = 0..mono_len for
-// each window char j = 1..window_len:
+// through hw_distance_batch_pallas). The function, as the lax.scan twin
+// hw_distance_batch in that file computes it, over the monomer rows i =
+// 0..mono_len and window columns j = 0..window_len:
 //   D[0][j] = 0,  D[i][0] = i
-//   cand[i] = min(D[i][j-1] + 1, D[i-1][j-1] + (mono[i-1] != win[j-1]))
-//   D[i][j] = i + prefix-min_i(cand - i)        (the folded "up" chain)
+//   D[i][j] = min(D[i-1][j-1] + (mono[i-1] != win[j-1]), D[i-1][j] + 1, D[i][j-1] + 1)
 //   dist = min over 0 <= j <= window_len of D[mono_len][j]
-// Equality is on codes, so N (4) matches N; window padding is never read
-// (the loop stops at window_len) and rows past mono_len never reach it.
+// Codes 0-4 (A, C, G, T, N) match equal codes; a window code outside 0-4
+// (READ_PAD) matches nothing. Monomer rows hold codes 0-4 (io/fasta.encode);
+// any other code is compared as the twin compares it, on a slow path that
+// builds the Peq word of such a window char from the monomer's bytes.
 //
-// What bounds it on the H100: integer ALU work, B * M * W * L cells (about
-// 17 G cells for 64 windows x 5,500 x 264 monomers of ~185 bp), while the
-// device-memory traffic is only the window chars, the monomers and the
-// [B, M] output. The design keeps the work in registers: one warp per
-// (window, monomer) pair, each lane holding a contiguous run of C cells of
-// the column, so a window char costs C cells of serial work per lane, one
-// shuffle for the diagonal and a 5-step shuffle scan for the up chain (the
-// pattern of K1's deletion fold). A block holds one window and eight
-// monomers and stages the window's chars in shared memory, tile by tile.
-// Columns longer than 32 * 8 = 256 cells (monomers above 255 bp) are streamed
-// through the registers 256 cells at a time from a per-pair device-memory
-// scratch, carrying the diagonal and the running minimum across segments,
-// so no length is refused.
+// What bounds it on the H100: integer operations. The value is unique (no
+// tie rule), so the bit-parallel form of Myers / Hyyro computes the same
+// integers with one step per 32-row word of the monomer column instead of
+// one per cell. The data it reads (window chars, monomers) and writes ([B,
+// M] ints) are a few MB; the work is B * M * W * ceil(L / 32) word steps.
+// The design keeps the column in registers and gives the card enough
+// independent columns to hide each one's chain:
+//   - Thread route (padded L <= 512, hw_thread_kernel<R>): one thread per
+//     (window, monomer, target segment), the column's R = ceil(L / 32) words
+//     of VP and VN in registers. A word step is ~10 integer operations; the
+//     add's carry ripples through the hardware carry flag (add.cc / addc),
+//     the HP / HN up-shift through funnel shifts, with no shuffle or barrier
+//     in a column. The monomer is right-aligned in the 32 R rows: rows
+//     1..k (k = 32 R - mono_len) are wildcards that match every code, so they
+//     stay 0 like row 0, and row mono_len of the monomer is bit 31 of word
+//     R - 1, whose HP / HN bits move the score with no select. A block holds
+//     one monomer: its Peq words (planes for codes 0-4 and one for every
+//     other code, the wildcard rows set in all six) are built once in shared
+//     memory at an odd stride, so the threads' different chars read
+//     different banks. Threads read their window 16 chars at a time (one
+//     16-byte load; segment starts aligned to 16). A block whose monomer
+//     holds a code outside 0-4 runs its columns one at a time instead,
+//     the Peq word of a window char outside 0-4 built from the monomer.
+//   - Target segments. A window's columns are cut into segments of S (a
+//     multiple of 16), one thread each, so that a batch of few pairs still
+//     fills the card. A segment starts fresh (D(i, j0) = i) at j0 =
+//     max(0, e_s - 2 mono_len) rounded down to 16 and takes its minimum over
+//     every column it runs. That is exact: an optimal alignment ending at
+//     column j costs at most mono_len, so it spans at most 2 mono_len
+//     columns and starts at or after j0 when j is one of the segment's own
+//     columns; a fresh sweep from j0 never finds less than the whole one,
+//     since its alignments are alignments of the whole. The pair's result
+//     is the minimum of its segments' (atomicMin on the output, which the
+//     wrapper fills with BIG first; a min does not depend on the order).
+//     ops/hw_filter_cuda.hw_segment_plan picks S from the card.
+//   - Warp route (512 < L <= 16,384, hw_warp_kernel<R>): one warp per
+//     (pair, segment), R = ceil(ceil(L / 32) / 32) words a lane, the column
+//     step of K6's warp route (myers_warp.cuh: the carry across lanes by
+//     two ballots and an add, the seam by one shuffle), the monomer from
+//     row 1 up and the score read at bit mono_len - 1 of its word. Each lane
+//     builds its Peq words from the monomer in registers; where the monomer
+//     holds a code outside 0-4, a window char outside 0-4 gets its words
+//     from the monomer's bytes.
+//   - Wide route (L > 16,384, hw_wide_kernel): a block per pair, its
+//     column cut into stages of kWideR words, one a thread, in registers.
+//     The stages run as a pipeline: at step t stage s steps column t - s,
+//     the thread route's column step on its words, and hands the next stage
+//     its link (the add's carry out and the HP / HN bits of its top row):
+//     up a lane by a shuffle, from lane 31 to the next warp's lane 0
+//     through shared memory, one barrier a step. Up to 512 stages (131,072
+//     bp) run at once; a longer column runs in bands of 512 stages one
+//     after the other, each band's top link a column kept in device memory
+//     for the next band. The monomer is right-aligned as in the thread
+//     route; the Peq planes of codes 0-4 come from a prologue in device
+//     memory, a window char outside 0-4 its words from the monomer's bytes.
+//     No length is refused.
+// The Pallas kernel's right-aligned lanes and 128-lane roll ladder are the
+// cell DP on the TPU's vector unit and are not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "myers_warp.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBig = 1 << 28;
-constexpr int kWarps = 8;    // monomers (warps) per block
-constexpr int kTile = 2048;  // window chars staged per shared-memory tile
-constexpr int kSegCells = 32 * 8;
+using sd_warp::kFull;
+constexpr int kThreads = 64;  // thread route: threads a block, all of one monomer
+constexpr int kPlanes = 6;    // Peq planes: codes 0..4, then every other code
+constexpr int kNoCode = 256;  // a code that no int8 equals
+constexpr int kWarps = 8;     // warp route: warps a block
+constexpr int kWideR = 8;            // wide route: words a stage (thread); two uint4 loads
+constexpr int kWideMaxStages = 512;   // wide route: stages a band (threads a block; 128
+                                      // registers a thread, no spill)
 
-// One window char over one 32 * C-cell segment of the column, rows
-// base + lane * C + c. `d` holds the segment's column j - 1 on entry and
-// column j on exit. carry_old is D[base - 1][j - 1] and carry_min the
-// prefix min of (cand - i) through row base - 1 (kBig for the first
-// segment); both are updated for the next segment. `best` is the running
-// distance, kept by the lane that holds row mlen.
-template <int C>
-__device__ __forceinline__ void segment_step(int (&d)[C], const int8_t (&mc)[C],
-                                             int ch, int lane, int base,
-                                             int mlen, int& carry_old,
-                                             int& carry_min, int& best) {
-  const int up = __shfl_up_sync(kFull, d[C - 1], 1);
-  const int next_old = __shfl_sync(kFull, d[C - 1], 31);
-  int prev = lane == 0 ? carry_old : up;  // D[i - 1][j - 1]
-  int t[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int i = base + lane * C + c;
-    const int diag = prev + (mc[c] == ch ? 0 : 1);
-    prev = d[c];
-    const int cand = i == 0 ? 0 : min(d[c] + 1, diag);
-    t[c] = cand - i;
-    if (c > 0) t[c] = min(t[c], t[c - 1]);
-  }
-  // exclusive prefix min of the lanes' totals, seeded with the carry
-  int tot = t[C - 1];
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(kFull, tot, o);
-    if (lane >= o) tot = min(tot, u);
-  }
-  int excl = __shfl_up_sync(kFull, tot, 1);
-  if (lane == 0) excl = kBig;
-  excl = min(excl, carry_min);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int i = base + lane * C + c;
-    d[c] = min(t[c], excl) + i;
-    if (i == mlen) best = min(best, d[c]);
-  }
-  carry_min = min(__shfl_sync(kFull, tot, 31), carry_min);
-  carry_old = next_old;
+// The Peq plane of a window char read as an unsigned byte: codes 0..4 their
+// own, every other code (READ_PAD, negative codes) plane 5.
+__device__ __forceinline__ unsigned plane_of(unsigned byte) { return min(byte, 5u); }
+
+// Mask of the bits below bit n of a word (n in 0..32).
+__device__ __forceinline__ unsigned below(int n) {
+  return n >= 32 ? kFull : (1u << max(n, 0)) - 1u;
 }
 
-// The monomer code of column row i (row 0 is the boundary and matches no
-// window char; rows past L match none either).
-__device__ __forceinline__ int8_t row_code(const int8_t* q, int i, int L) {
-  return (i >= 1 && i <= L) ? q[i - 1] : (int8_t)-1;
+// Whether window code c (an int8) is one of 0..4, which have Peq planes.
+__device__ __forceinline__ bool own_code(int c) { return (unsigned)c < 5u; }
+
+// The Peq word r for window code `code` of a monomer right-aligned in `rows`
+// rows: bit b is row 32 r + b, a wildcard below row k = rows - mlen, else
+// monomer index 32 r + b - k, set where that holds `code`.
+__device__ __forceinline__ unsigned peq_word(const int8_t* q, int mlen, int rows, int code,
+                                             int r) {
+  const int k = rows - mlen;
+  unsigned w = below(k - 32 * r);
+  if (code != kNoCode) {
+    for (int b = max(k - 32 * r, 0); b < 32; ++b)
+      w |= (unsigned)(q[32 * r + b - k] == code) << b;
+  }
+  return w;
 }
 
-// kSeg = false: the whole column (L + 1 <= 32 * C cells) stays in registers.
-// kSeg = true: C = 8 and the column lives in scratch rows of seg_cells ints
-// per pair, each 256-cell segment stored lane-interleaved (coalesced).
-template <int C, bool kSeg>
-__global__ void __launch_bounds__(32 * kWarps)
-hw_kernel(const int8_t* __restrict__ windows,  // [B, W]
-          const int* __restrict__ wlens,       // [B]
-          const int8_t* __restrict__ mono,     // [M, L]
-          const int* __restrict__ mono_lens,   // [M]
-          int* scratch,                        // [B * M, seg_cells] (kSeg)
-          int* __restrict__ out,               // [B, M]
-          int W, int M, int L, int seg_cells) {
-  __shared__ int8_t tile[kTile];
-  const int groups = (M + kWarps - 1) / kWarps;
-  const int b = blockIdx.x / groups;
-  const int lane = threadIdx.x & 31;
-  const int m = (blockIdx.x % groups) * kWarps + (threadIdx.x >> 5);
-  const bool live = m < M;
-  const int wlen = min(max(wlens[b], 0), W);
-  const int mlen = live ? min(max(mono_lens[m], 0), L) : 0;
-  const int8_t* q = mono + (long long)(live ? m : 0) * L;
-  const int8_t* win = windows + (long long)b * W;
-  int best = mlen;  // j = 0: D[mlen][0] = mlen
-  int d[C];
-  int8_t mc[C];
-  int* col = kSeg ? scratch + ((long long)b * M + (live ? m : 0)) * seg_cells : nullptr;
-  const int nseg = kSeg ? (mlen + kSegCells) / kSegCells : 1;
-  if (kSeg) {
-    if (live)
-      for (int s = 0; s < nseg; ++s)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          col[s * kSegCells + c * 32 + lane] = s * kSegCells + lane * C + c;
+// The warp route's Peq word for window code `code` at monomer indices base
+// .. base + 31 (the monomer from row 1 up, nothing past mlen).
+__device__ __forceinline__ unsigned code_word(const int8_t* q, int mlen, int base, int code) {
+  unsigned w = 0;
+  for (int b = 0; b < 32 && base + b < mlen; ++b) w |= (unsigned)(q[base + b] == code) << b;
+  return w;
+}
+
+// sum = a + b over R words (word 0 lowest), mod 2^(32 R): the carry ripples
+// through the hardware carry flag.
+template <int R>
+__device__ __forceinline__ void add_words(unsigned (&s)[R], const unsigned (&a)[R],
+                                          const unsigned (&b)[R]) {
+  if constexpr (R == 1) {
+    s[0] = a[0] + b[0];
   } else {
+    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(s[0]) : "r"(a[0]), "r"(b[0]));
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      d[c] = lane * C + c;
-      mc[c] = row_code(q, lane * C + c, L);
-    }
-  }
-  for (int j0 = 0; j0 < wlen; j0 += kTile) {
-    const int n = min(kTile, wlen - j0);
-    __syncthreads();  // the previous tile is consumed
-    for (int x = threadIdx.x; x < n; x += blockDim.x) tile[x] = win[j0 + x];
-    __syncthreads();
-    if (!live) continue;
-    for (int jj = 0; jj < n; ++jj) {
-      const int ch = tile[jj];
-      int carry_old = kBig, carry_min = kBig;
-      if (!kSeg) {
-        segment_step<C>(d, mc, ch, lane, 0, mlen, carry_old, carry_min, best);
-        continue;
-      }
-      for (int s = 0; s < nseg; ++s) {
-        const int base = s * kSegCells;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          d[c] = col[base + c * 32 + lane];
-          mc[c] = row_code(q, base + lane * C + c, L);
-        }
-        segment_step<C>(d, mc, ch, lane, base, mlen, carry_old, carry_min, best);
-#pragma unroll
-        for (int c = 0; c < C; ++c) col[base + c * 32 + lane] = d[c];
-      }
-    }
-  }
-  if (live) {
-    // the lane holding row mlen kept the distance; the others hold mlen or more
-    int r = best;
-    for (int o = 16; o > 0; o >>= 1) r = min(r, __shfl_xor_sync(kFull, r, o));
-    if (lane == 0) out[(long long)b * M + m] = r;
+    for (int r = 1; r < R - 1; ++r)
+      asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(s[r]) : "r"(a[r]), "r"(b[r]));
+    asm volatile("addc.u32 %0, %1, %2;" : "=r"(s[R - 1]) : "r"(a[R - 1]), "r"(b[R - 1]));
   }
 }
 
-template <int C, bool kSeg>
-int launch(const void* windows, const void* wlens, const void* mono,
-           const void* mono_lens, void* scratch, void* out, int B, int W,
-           int M, int L, int seg_cells, cudaStream_t stream) {
-  const long long blocks = (long long)B * ((M + kWarps - 1) / kWarps);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  hw_kernel<C, kSeg><<<(unsigned)blocks, 32 * kWarps, 0, stream>>>(
-      (const int8_t*)windows, (const int*)wlens, (const int8_t*)mono,
-      (const int*)mono_lens, (int*)scratch, (int*)out, W, M, L, seg_cells);
+// One window column on a thread's R words, given the column's Peq words
+// pl[0..R-1]; the score moves by the HP / HN bits of bit 31 of word R - 1.
+// kChain false (thread route): the words are the whole column, row 0's
+// horizontal delta 0 (HW). kChain true (a wide-route stage): `link` enters
+// with the carry into word 0 (bit 0) and the HP / HN bits of the row below
+// it (bits 1, 2), and leaves with the same out of word R - 1.
+template <int R, bool kChain = false>
+__device__ __forceinline__ void thread_column(unsigned (&vp)[R], unsigned (&vn)[R],
+                                              const unsigned* pl, unsigned& link, int& score,
+                                              int& best) {
+  unsigned x[R], t[R], sum[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    x[r] = pl[r] | vn[r];
+    t[r] = x[r] & vp[r];
+  }
+  unsigned hpp = 0, hnp = 0;
+  if constexpr (kChain) {
+    unsigned carry = link & 1u;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const unsigned s1 = t[r] + vp[r];
+      sum[r] = s1 + carry;
+      carry = (s1 < vp[r]) | (sum[r] < s1);
+    }
+    hpp = (link & 2u) << 30;
+    hnp = (link & 4u) << 29;
+    link = carry;
+  } else {
+    add_words<R>(sum, t, vp);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const unsigned d0 = (sum[r] ^ vp[r]) | x[r];
+    const unsigned hp = vn[r] | ~(d0 | vp[r]);
+    const unsigned hn = d0 & vp[r];
+    const unsigned hpsh = __funnelshift_l(hpp, hp, 1), hnsh = __funnelshift_l(hnp, hn, 1);
+    vp[r] = hnsh | ~(d0 | hpsh);
+    vn[r] = d0 & hpsh;
+    hpp = hp;
+    hnp = hn;
+  }
+  if constexpr (kChain) link |= (hpp >> 31) << 1 | (hnp >> 31) << 2;
+  score += (int)(hpp >> 31) - (int)(hnp >> 31);
+  best = min(best, score);
+}
+
+// The columns of 16 chars packed in v (char i in byte i % 4 of word i / 4),
+// the first n of them (n = 16: all, unpredicated).
+template <int R, bool kAll>
+__device__ __forceinline__ void thread_chunk(unsigned (&vp)[R], unsigned (&vn)[R],
+                                             const unsigned* peq, uint4 v, int n, int& score,
+                                             int& best) {
+  constexpr int kStride = R | 1;
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  unsigned link = 0u;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if (kAll || i < n) {
+      const unsigned p = plane_of((w[i >> 2] >> (8 * (i & 3))) & 0xffu);
+      thread_column<R>(vp, vn, peq + p * kStride, link, score, best);
+    }
+  }
+}
+
+// Thread route: blockIdx.x is the monomer m; thread g = blockIdx.y *
+// kThreads + threadIdx.x runs segment g % nseg of window g / nseg, output
+// columns (chars) [s S, s S + S) of the window's first window_len.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    hw_thread_kernel(const int8_t* __restrict__ windows,  // [B, Wp], Wp % 16 == 0
+                     const int* __restrict__ wlens,       // [B]
+                     const int8_t* __restrict__ mono,     // [M, L]
+                     const int* __restrict__ mono_lens,   // [M]
+                     int* __restrict__ out,               // [B, M]
+                     int B, int W, int Wp, int M, int L, int nseg, int S) {
+  constexpr int kStride = R | 1;  // odd: the six planes' words in distinct banks
+  __shared__ unsigned peq[kPlanes * kStride];
+  const int m = blockIdx.x;
+  const int mlen = min(max(mono_lens[m], 0), L);
+  const int8_t* q = mono + (long long)m * L;
+  for (int x = threadIdx.x; x < kPlanes * R; x += kThreads)
+    peq[(x / R) * kStride + x % R] = peq_word(q, mlen, 32 * R, x / R < 5 ? x / R : kNoCode, x % R);
+  int odd = 0;  // a monomer code outside 0..4
+  for (int i = threadIdx.x; i < mlen; i += kThreads) odd |= !own_code(q[i]);
+  const bool exotic = __syncthreads_or(odd);
+  const int g = blockIdx.y * kThreads + threadIdx.x;
+  if (g >= B * nseg) return;
+  const int b = g / nseg, e_s = (g - b * nseg) * S;
+  const int c_end = min(min(max(wlens[b], 0), W), e_s + S);
+  int best = mlen;  // j = 0: D[mono_len][0] = mono_len
+  if (e_s < c_end) {
+    // column j0: D(i, j0) = i, the wildcard rows below k at 0
+    const int k = 32 * R - mlen;
+    unsigned vp[R], vn[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      vp[r] = ~below(k - 32 * r);
+      vn[r] = 0u;
+    }
+    int score = mlen;
+    const int8_t* row = windows + (long long)b * Wp;
+    const int c0 = max(0, e_s - 2 * mlen) & ~15;
+    if (exotic) {  // one column at a time, any code compared as it is
+      for (int c = c0; c < c_end; ++c) {
+        const int ch = row[c];
+        unsigned pl[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          pl[r] = own_code(ch) ? peq[ch * kStride + r] : peq_word(q, mlen, 32 * R, ch, r);
+        unsigned link = 0u;
+        thread_column<R>(vp, vn, pl, link, score, best);
+      }
+    } else {
+      for (int c = c0; c < c_end; c += 16) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + c));
+        if (c_end - c >= 16)
+          thread_chunk<R, true>(vp, vn, peq, v, 16, score, best);
+        else
+          thread_chunk<R, false>(vp, vn, peq, v, c_end - c, score, best);
+      }
+    }
+  }
+  if (nseg == 1)
+    out[(long long)b * M + m] = best;
+  else
+    atomicMin(out + (long long)b * M + m, best);
+}
+
+// Warp route: warp g (over M * B * nseg, monomer-major) runs segment s of
+// window b against monomer m. Lane l owns words l*R .. l*R + R - 1; the
+// monomer's row i is global bit i - 1, the score row mono_len bit
+// mono_len - 1 (myers_warp.cuh semi_column).
+template <int R>
+__global__ void __launch_bounds__(32 * kWarps)
+    hw_warp_kernel(const int8_t* __restrict__ windows,  // [B, Wp]
+                   const int* __restrict__ wlens,       // [B]
+                   const int8_t* __restrict__ mono,     // [M, L]
+                   const int* __restrict__ mono_lens,   // [M]
+                   int* __restrict__ out,               // [B, M]
+                   int B, int W, int Wp, int M, int L, int nseg, int S) {
+  const int lane = threadIdx.x & 31;
+  const long long g = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long per_m = (long long)B * nseg;
+  if (g >= per_m * M) return;  // the whole warp
+  const int m = (int)(g / per_m), bs = (int)(g % per_m);
+  const int b = bs / nseg, e_s = (bs % nseg) * S;
+  const int c_end = min(min(max(wlens[b], 0), W), e_s + S);
+  const int mlen = min(max(mono_lens[m], 0), L);
+  int best = mlen;
+  if (e_s < c_end) {  // the whole warp
+    const int8_t* q = mono + (long long)m * L;
+    unsigned pq0[R], pq1[R], pq2[R], pq3[R], pq4[R], vp[R], vn[R];
+    int odd = 0;  // a monomer code outside 0..4
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      unsigned w0 = 0, w1 = 0, w2 = 0, w3 = 0, w4 = 0;
+      const int base = 32 * (lane * R + r);
+      for (int bit = 0; bit < 32 && base + bit < mlen; ++bit) {
+        const int c = q[base + bit];
+        w0 |= (unsigned)(c == 0) << bit;
+        w1 |= (unsigned)(c == 1) << bit;
+        w2 |= (unsigned)(c == 2) << bit;
+        w3 |= (unsigned)(c == 3) << bit;
+        w4 |= (unsigned)(c == 4) << bit;
+        odd |= !own_code(c);
+      }
+      pq0[r] = w0;
+      pq1[r] = w1;
+      pq2[r] = w2;
+      pq3[r] = w3;
+      pq4[r] = w4;
+      vp[r] = kFull;  // column j0: all +1
+      vn[r] = 0u;
+    }
+    const bool exotic = __any_sync(kFull, odd);
+    // the score row's word, its owner and bit; without one the score stays 0
+    const int hot_w = mlen > 0 ? (mlen - 1) >> 5 : -1;
+    const int hot_lane = hot_w >= 0 ? hot_w / R : 0, hot_r = hot_w >= 0 ? hot_w % R : -1;
+    const int hot_b = (mlen - 1) & 31;
+    int score = mlen;
+    const int8_t* row = windows + (long long)b * Wp;
+    const int c0 = max(0, e_s - 2 * mlen);
+    // the chars of columns c0 .. c0 + 63, char c in slot (c - c0) & 31
+    int tcur = c0 + lane < c_end ? row[c0 + lane] : -1;
+    int tnxt = c0 + 32 + lane < c_end ? row[c0 + 32 + lane] : -1;
+    for (int c = c0; c < c_end; ++c) {
+      const int i = c - c0;
+      const int tc = __shfl_sync(kFull, tcur, i & 31);
+      if ((i & 31) == 31) {
+        tcur = tnxt;
+        tnxt = c + 33 + lane < c_end ? row[c + 33 + lane] : -1;
+      }
+      unsigned eq[R];
+      if (exotic && !own_code(tc)) {  // any code compared as it is
+#pragma unroll
+        for (int r = 0; r < R; ++r) eq[r] = code_word(q, mlen, 32 * (lane * R + r), tc);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          eq[r] = tc == 0 ? pq0[r] : tc == 1 ? pq1[r] : tc == 2 ? pq2[r] : tc == 3 ? pq3[r]
+                  : tc == 4 ? pq4[r] : 0u;
+      }
+      score += sd_warp::semi_column<R>(vp, vn, eq, lane, 0u, hot_lane, hot_r, hot_b);
+      best = min(best, score);
+    }
+  }
+  if (lane == 0) {
+    if (nseg == 1)
+      out[(long long)b * M + m] = best;
+    else
+      atomicMin(out + (long long)b * M + m, best);
+  }
+}
+
+// The wide route's Peq planes of codes 0..4, [M, 5, NW] words: the thread
+// route's layout (right-aligned in 32 NW rows, wildcards below) at NW words.
+__global__ void hw_peq_kernel(const int8_t* __restrict__ mono, const int* __restrict__ mono_lens,
+                              unsigned* __restrict__ peq, int M, int L, int NW) {
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= (long long)M * 5 * NW) return;
+  const int m = (int)(x / (5 * NW)), p = (int)(x / NW % 5), r = (int)(x % NW);
+  const int mlen = min(max(mono_lens[m], 0), L);
+  peq[x] = peq_word(mono + (long long)m * L, mlen, 32 * NW, p, r);
+}
+
+// Wide route: block `pair` (monomer-major, pair = m * B + b) runs the pair's
+// column as `stages` threads of kWideR words each, NW = bands * stages *
+// kWideR words right-aligned; thread s is stage s of every band.
+__global__ void __launch_bounds__(kWideMaxStages)
+    hw_wide_kernel(const int8_t* __restrict__ windows,  // [B, Wp]
+                   const int* __restrict__ wlens,       // [B]
+                   const int8_t* __restrict__ mono,     // [M, L]
+                   const int* __restrict__ mono_lens,   // [M]
+                   const unsigned* __restrict__ peq,    // [M, 5, NW]
+                   uint8_t* __restrict__ top,           // [B * M, Wp] (bands > 1)
+                   int* __restrict__ out,               // [B, M]
+                   int B, int W, int Wp, int M, int L, int stages, int bands) {
+  __shared__ unsigned hand[2][kWideMaxStages / 32];  // lane 31 of warp w -> lane 0 of w + 1
+  const long long pair = blockIdx.x;
+  const int m = (int)(pair / B), b = (int)(pair % B);
+  const int s = threadIdx.x, lane = s & 31, warp = s >> 5;
+  const int mlen = min(max(mono_lens[m], 0), L);
+  const int wl = min(max(wlens[b], 0), W);
+  const int NW = bands * stages * kWideR, k = 32 * NW - mlen;
+  const int8_t* row = windows + (long long)b * Wp;
+  const int8_t* q = mono + (long long)m * L;
+  const unsigned* planes = peq + (long long)m * 5 * NW;
+  uint8_t* tops = bands > 1 ? top + pair * Wp : nullptr;
+  int best = mlen;
+  for (int band = 0; band < bands; ++band) {
+    const int w0 = (band * stages + s) * kWideR;  // the stage's first word
+    unsigned vp[kWideR], vn[kWideR];
+#pragma unroll
+    for (int r = 0; r < kWideR; ++r) {  // column 0: D(i, 0) = i, the wildcard rows at 0
+      vp[r] = ~below(k - 32 * (w0 + r));
+      vn[r] = 0u;
+    }
+    int score = mlen;
+    best = mlen;  // the last band's top stage holds the score row
+    unsigned in = 0u;  // the link from the stage below, for this step's column
+    for (int t = 0; t < wl + stages - 1; ++t) {
+      const int c = t - s;
+      const bool act = c >= 0 && c < wl;
+      unsigned link = s > 0 ? in : band > 0 && act ? tops[c] : 0u;
+      if (act) {
+        const int ch = row[c];
+        unsigned pl[kWideR];
+        if (own_code(ch)) {  // the stage's 8 words, 32-byte aligned
+          const uint4* pv = reinterpret_cast<const uint4*>(planes + ch * NW + w0);
+          const uint4 lo = __ldg(pv), hi = __ldg(pv + 1);
+          pl[0] = lo.x, pl[1] = lo.y, pl[2] = lo.z, pl[3] = lo.w;
+          pl[4] = hi.x, pl[5] = hi.y, pl[6] = hi.z, pl[7] = hi.w;
+        } else {
+#pragma unroll
+          for (int r = 0; r < kWideR; ++r) pl[r] = peq_word(q, mlen, 32 * NW, ch, w0 + r);
+        }
+        thread_column<kWideR, true>(vp, vn, pl, link, score, best);
+        if (s == stages - 1 && band + 1 < bands) tops[c] = (uint8_t)link;
+      }
+      const unsigned up = __shfl_up_sync(kFull, link, 1);
+      if (lane == 31) hand[t & 1][warp] = link;
+      __syncthreads();
+      in = lane > 0 ? up : warp > 0 ? hand[t & 1][warp - 1] : 0u;
+    }
+  }
+  if (s == stages - 1) out[(long long)b * M + m] = best;
+}
+
+template <int R>
+int thread_launch(const void* windows, const void* wlens, const void* mono,
+                  const void* mono_lens, void* out, int B, int W, int Wp, int M, int L, int nseg,
+                  int S, cudaStream_t st) {
+  const long long y = ((long long)B * nseg + kThreads - 1) / kThreads;
+  if (y > 65535) return (int)cudaErrorInvalidConfiguration;
+  hw_thread_kernel<R><<<dim3((unsigned)M, (unsigned)y), kThreads, 0, st>>>(
+      (const int8_t*)windows, (const int*)wlens, (const int8_t*)mono, (const int*)mono_lens,
+      (int*)out, B, W, Wp, M, L, nseg, S);
   return (int)cudaGetLastError();
+}
+
+template <int R>
+int warp_launch(const void* windows, const void* wlens, const void* mono, const void* mono_lens,
+                void* out, int B, int W, int Wp, int M, int L, int nseg, int S,
+                cudaStream_t st) {
+  const long long blocks = ((long long)M * B * nseg + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  hw_warp_kernel<R><<<(unsigned)blocks, 32 * kWarps, 0, st>>>(
+      (const int8_t*)windows, (const int*)wlens, (const int8_t*)mono, (const int*)mono_lens,
+      (int*)out, B, W, Wp, M, L, nseg, S);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int thread_occupancy(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, hw_thread_kernel<R>,
+                                                             kThreads, 0);
+}
+
+template <int R>
+int warp_occupancy(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, hw_warp_kernel<R>,
+                                                             32 * kWarps, 0);
+}
+
+// Words a thread (route 0) or a lane (route 1) holds at monomers padded to L.
+int route_words(int route, int L) {
+  const int nw = L > 0 ? (L + 31) / 32 : 1;
+  return route == 0 ? nw : (nw + 31) / 32;
 }
 
 }  // namespace
 
-// seg_cells = 0: L + 1 <= 256 and no scratch. Otherwise scratch holds
-// B * M rows of seg_cells (a multiple of 256, >= L + 1) ints.
-extern "C" int sd_hw_distance(const void* windows, const void* wlens,
-                              const void* mono, const void* mono_lens,
-                              void* scratch, void* out, int B, int W, int M,
-                              int L, int seg_cells, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (seg_cells > 0)
-    return launch<8, true>(windows, wlens, mono, mono_lens, scratch, out, B, W,
-                           M, L, seg_cells, s);
-  const int cells = L + 1;
-  if (cells <= 32)
-    return launch<1, false>(windows, wlens, mono, mono_lens, scratch, out, B,
-                            W, M, L, 0, s);
-  if (cells <= 64)
-    return launch<2, false>(windows, wlens, mono, mono_lens, scratch, out, B,
-                            W, M, L, 0, s);
-  if (cells <= 128)
-    return launch<4, false>(windows, wlens, mono, mono_lens, scratch, out, B,
-                            W, M, L, 0, s);
-  return launch<8, false>(windows, wlens, mono, mono_lens, scratch, out, B, W,
-                          M, L, 0, s);
+#define SD_R_CASES(CALL) \
+  CALL(1) CALL(2) CALL(3) CALL(4) CALL(5) CALL(6) CALL(7) CALL(8) \
+  CALL(9) CALL(10) CALL(11) CALL(12) CALL(13) CALL(14) CALL(15) CALL(16)
+
+// K3. windows [B, Wp] int8 (Wp a multiple of 16 and the rows 16-byte
+// aligned; W <= Wp columns are read), wlens [B], mono [M, L] int8,
+// mono_lens [M] int32, out [B, M] int32. route 0 (thread, L <= 512) and 1
+// (warp, L <= 16,384) take nseg segments of S columns a pair (S a multiple
+// of 16, nseg * S >= W; nseg > 1 needs out filled with values >= every
+// distance first). Route 2 (wide, any L) runs a block a pair: nseg is its
+// bands and S its stages a band (ops/hw_filter.wide_shape), NW = bands *
+// stages * kWideR words >= L / 32; it takes peq [M, 5, NW] words and, where
+// bands > 1, top [B * M, Wp] bytes.
+extern "C" int sd_hw_distance(int route, const void* windows, const void* wlens,
+                              const void* mono, const void* mono_lens, void* peq, void* top,
+                              void* out, int B, int W, int Wp, int M, int L, int nseg, int S,
+                              void* stream) {
+  if (B <= 0 || M <= 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (W < 0 || Wp < W || Wp % 16 || L < 0) return (int)cudaErrorInvalidValue;
+  if (route == 2) {
+    const int bands = nseg, stages = S;
+    const long long NW = (long long)bands * stages * kWideR, P = (long long)B * M;
+    if (bands < 1 || stages < 32 || stages > kWideMaxStages || stages % 32 || 32 * NW < L ||
+        32 * NW > 0x7fffffffLL || P > 0x7fffffffLL || (bands > 1 && !top))
+      return (int)cudaErrorInvalidValue;
+    const long long words = M * 5 * NW;
+    hw_peq_kernel<<<(unsigned)((words + 255) / 256), 256, 0, st>>>(
+        (const int8_t*)mono, (const int*)mono_lens, (unsigned*)peq, M, L, (int)NW);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    hw_wide_kernel<<<(unsigned)P, stages, 0, st>>>(
+        (const int8_t*)windows, (const int*)wlens, (const int8_t*)mono, (const int*)mono_lens,
+        (const unsigned*)peq, (uint8_t*)top, (int*)out, B, W, Wp, M, L, stages, bands);
+    return (int)cudaGetLastError();
+  }
+  if ((route != 0 && route != 1) || nseg < 1 || S < 16 || S % 16 || (long long)nseg * S < W)
+    return (int)cudaErrorInvalidValue;
+  const int R = route_words(route, L);
+#define SD_THREAD_CASE(RR) \
+  case RR:                 \
+    return thread_launch<RR>(windows, wlens, mono, mono_lens, out, B, W, Wp, M, L, nseg, S, st);
+#define SD_WARP_CASE(RR) \
+  case RR:               \
+    return warp_launch<RR>(windows, wlens, mono, mono_lens, out, B, W, Wp, M, L, nseg, S, st);
+  if (route == 0) {
+    switch (R) {
+      SD_R_CASES(SD_THREAD_CASE)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (R) {
+    SD_R_CASES(SD_WARP_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SD_THREAD_CASE
+#undef SD_WARP_CASE
+}
+
+// Blocks of route 0 (kThreads threads each) or route 1 (kWarps warps each)
+// at monomers padded to L that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the kernel's registers).
+extern "C" int sd_hw_occupancy(int route, int L, int* blocks) {
+  const int R = route_words(route, L);
+#define SD_OCC_CASE(RR)                                                      \
+  case RR:                                                                   \
+    return route == 0 ? thread_occupancy<RR>(blocks) : warp_occupancy<RR>(blocks);
+  switch (R) {
+    SD_R_CASES(SD_OCC_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SD_OCC_CASE
 }

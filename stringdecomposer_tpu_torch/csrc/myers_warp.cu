@@ -54,13 +54,18 @@
 //     each, which start fresh max(0, e_s - 2 * q_len) columns before their
 //     first output (the wrapper's segment_plan picks S; see semi_warp_kernel
 //     for why that is exact). SHW runs one warp a pair.
+// lane_carries and K6's column step (semi_column) live in myers_warp.cuh,
+// which K3's warp route (hw_filter.cu) shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "myers_warp.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using sd_warp::kFull;
+using sd_warp::lane_carries;
 constexpr int kWarps = 8;  // pairs (K6: segments) a block
 constexpr int kMaxR = 16;  // words a lane: the route takes W <= 512 words
 
@@ -68,33 +73,6 @@ constexpr int kMaxR = 16;  // words a lane: the route takes W <= 512 words
 __device__ __forceinline__ unsigned lowmask(int w, int b0) {
   const int n = min(max(b0 + 1 - 32 * w, 0), 32);
   return n >= 32 ? kFull : (1u << n) - 1u;
-}
-
-// The carries of the warp's addition part = a + b over all its words, from
-// each lane's R per-word sums `part` (mod 2^32): bit r of the result is the
-// carry into the lane's word r. gb / pb enter as the words' generate and
-// propagate bits, 1 << r where word r overflowed / is all ones (the two are
-// exclusive). The lane's own words are added as R-bit masks: with A = G | P
-// over the words, (A + G + c) ^ A ^ G holds the carries given the carry c
-// into word 0, and bit R of A + G is the lane's carry out with none
-// entering. Across lanes the same identity runs on the ballots: bit l of
-// (A + G) ^ A ^ G, A = G | P over the lanes, is the carry into lane l (none
-// into lane 0).
-template <int R>
-__device__ __forceinline__ unsigned lane_carries(unsigned (&gb)[R], unsigned (&pb)[R], int lane) {
-#pragma unroll
-  for (int s = 1; s < R; s <<= 1) {
-#pragma unroll
-    for (int r = 0; r + s < R; r += 2 * s) {
-      gb[r] |= gb[r + s];
-      pb[r] |= pb[r + s];
-    }
-  }
-  const unsigned gm = gb[0], am = gm | pb[0];
-  const unsigned G = __ballot_sync(kFull, ((am + gm) >> R) & 1u);
-  const unsigned A = G | __ballot_sync(kFull, pb[0] == (1u << R) - 1u);
-  const unsigned c = (((A + G) ^ A ^ G) >> lane) & 1u;
-  return (am + gm + c) ^ am ^ gm;
 }
 
 // Per-code bitmaps of the query, [P, 4, NB] words: bit b of word m of plane
@@ -372,49 +350,13 @@ __global__ void __launch_bounds__(32 * kWarps)
       tnxt = j + 33 + lane < e_e ? __ldg(tp + j + 33 + lane) : -1;
     }
     tcn = __shfl_sync(kFull, tcur, (i + 1) & 31);
-    unsigned x[R], part[R], gb[R], pb[R];
+    unsigned eq[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const unsigned eq = tc == 0 ? pq0[r] : tc == 1 ? pq1[r] : tc == 2 ? pq2[r]
-                                                              : tc == 3 ? pq3[r] : 0u;
-      x[r] = eq | vn[r];
-      part[r] = (x[r] & vp[r]) + vp[r];
-      gb[r] = part[r] < vp[r] ? 1u << r : 0u;
-      pb[r] = part[r] == kFull ? 1u << r : 0u;
-    }
-    const unsigned cm = lane_carries<R>(gb, pb, lane);
-    unsigned d00 = 0, hpw0 = 0, hnw0 = 0, hpp = 0, hnp = 0, hph = 0, hnh = 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const unsigned d0 = ((part[r] + ((cm >> r) & 1u)) ^ vp[r]) | x[r];
-      const unsigned hp = vn[r] | ~(d0 | vp[r]);
-      const unsigned hn = d0 & vp[r];
-      if (r == hot_r) {
-        hph = hp;
-        hnh = hn;
-      }
-      if (r == 0) {
-        d00 = d0;
-        hpw0 = hp;
-        hnw0 = hn;
-      } else {
-        const unsigned hpsh = __funnelshift_l(hpp, hp, 1), hnsh = __funnelshift_l(hnp, hn, 1);
-        vp[r] = hnsh | ~(d0 | hpsh);
-        vn[r] = d0 & hpsh;
-      }
-      hpp = hp;
-      hnp = hn;
-    }
-    // HP in bit 0, HN in bit 31
-    unsigned below = __shfl_up_sync(kFull, (hpp >> 31) | (hnp & 0x80000000u), 1);
-    if (lane == 0) below = hp0;  // row 0: HW 0, SHW +1
-    const unsigned hpsh = (hpw0 << 1) | (below & 1u), hnsh = __funnelshift_l(below, hnw0, 1);
-    vp[0] = hnsh | ~(d00 | hpsh);
-    vn[0] = d00 & hpsh;
+    for (int r = 0; r < R; ++r)
+      eq[r] = tc == 0 ? pq0[r] : tc == 1 ? pq1[r] : tc == 2 ? pq2[r] : tc == 3 ? pq3[r] : 0u;
     // the end score: the owner's delta to every lane; lane e & 31 keeps
     // column e's, and 32 columns go out in one store
-    const int delta = (int)((hph >> hot_b) & 1u) - (int)((hnh >> hot_b) & 1u);
-    score += __shfl_sync(kFull, delta, hot_lane);
+    score += sd_warp::semi_column<R>(vp, vn, eq, lane, hp0, hot_lane, hot_r, hot_b);
     if (j >= e_s) {
       if ((j & 31) == lane) buf = score;
       if ((j & 31) == 31 || j == e_e - 1) {

@@ -43,7 +43,8 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_block_walk": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sd_int16_probe": (_I, [_P, _P, _I, _I, _P]),
-    "sd_hw_distance": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "sd_hw_distance": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_hw_occupancy": (_I, [_I, _I, ctypes.POINTER(_I)]),
     "sd_nw_identity": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "sd_nw_identity_cross": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sd_banded_column": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
