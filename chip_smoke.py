@@ -14,8 +14,12 @@ body), drives the golden read against DXZ1 dimers (`workloads.joined_set`,
 L = 360: K1's lanes body at C = 12) and against 150 dimer variants
 (`workloads.joined_variants`, too large for the shared route: the cluster
 body at L = 360), and against DXZ1 trimers and 150 trimer variants (L =
-528, past the lanes and cluster bodies' 512: K1's chunked body on the
-shared and the large route), drives the
+528, past the lanes and cluster bodies' 512: K1's tiled body on the shared
+route and its tiled cluster body on the large route) and against the DXZ1
+HOR unit (`workloads.hor_unit`, L = 2,056: the tiled body, a row over two
+warps), drives a ~17 kbp unit through decompose_reads unfiltered (the tiled
+cluster body, a row a block), holds K1's chunked body to its plain twin at
+the shapes it keeps (phase `chunked`), drives the
 general alignment API through K4, K5 and K6 (the reference edlib fixtures,
 a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
 cut sizes against the scan route; K5 and K6 on their warp routes, K6's HW
@@ -57,10 +61,15 @@ KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "nw_identi
            "int16_probe", "chain_dp_int16",
            "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16", "chain_dp_cluster",
            "chain_dp_cluster_int16", "chain_dp_lanes_long", "chain_dp_lanes_long_int16",
-           "chain_dp_cluster_long", "chain_dp_cluster_long_int16") + ABLATE
+           "chain_dp_cluster_long", "chain_dp_cluster_long_int16", "chain_dp_tiled",
+           "chain_dp_tiled_int16", "chain_dp_cluster_tiled",
+           "chain_dp_cluster_tiled_int16") + ABLATE
 # K1's kernel bodies (ops/chain_dp_cuda.body) -> chip_smoke kernel names
 K1_NAMES = {"lanes": "chain_dp_lanes", "chunked": "chain_dp", "large": "chain_dp_large",
-            "cluster": "chain_dp_cluster"}
+            "cluster": "chain_dp_cluster", "tiled": "chain_dp_tiled",
+            "cluster_tiled": "chain_dp_cluster_tiled"}
+# every K1 body's kernel names (and launch counters), int32 and int16
+K1_BODY_NAMES = tuple(k for k in KERNELS if k.startswith("chain_dp"))
 # The card's peak rates for the bounds (H100 SXM datasheet, 700 W): HBM at
 # 3.35 TB/s; int32 at 64 INT32 lanes per SM per clock (half the 128 FP32
 # lanes behind the datasheet's 67 TFLOP/s float32, which counts an FMA as 2)
@@ -242,7 +251,7 @@ def main() -> int:
     from stringdecomposer_tpu_torch.report import format_raw_rows
     from stringdecomposer_tpu_torch.runtime import build
     from stringdecomposer_tpu_torch.scripts.workloads import (
-        align_pairs, hor_library, joined_set, joined_variants, synth_pair, synthesize,
+        align_pairs, hor_library, hor_unit, joined_set, joined_variants, synth_pair, synthesize,
     )
 
     def k1_name(body: str, L: int, state_bytes: int) -> str:
@@ -283,7 +292,12 @@ def main() -> int:
                 "chain_dp_lanes_long_int16": (chain_dp_forward_cuda, "launches_lanes_long_int16"),
                 "chain_dp_cluster_long": (chain_dp_large_cuda, "launches_cluster_long"),
                 "chain_dp_cluster_long_int16": (chain_dp_large_cuda,
-                                                "launches_cluster_long_int16")}
+                                                "launches_cluster_long_int16"),
+                "chain_dp_tiled": (chain_dp_forward_cuda, "launches_tiled"),
+                "chain_dp_tiled_int16": (chain_dp_forward_cuda, "launches_tiled_int16"),
+                "chain_dp_cluster_tiled": (chain_dp_large_cuda, "launches_cluster_tiled"),
+                "chain_dp_cluster_tiled_int16": (chain_dp_large_cuda,
+                                                 "launches_cluster_tiled_int16")}
     counters.update({f"ablate_{'large_' if large else ''}{v}":
                      (chain_dp_ablate_cuda, k1.ablate_counter(v, large))
                      for large in (False, True) for v in VARIANTS})
@@ -301,16 +315,18 @@ def main() -> int:
     write_fasta(library_fa, library)
     # K1's long rows: the DXZ1 dimers (M = 24, L = 360: the lanes body) and
     # 150 variants of them (the cluster body); the trimers (L = 528, past
-    # 512: the chunked body) and 150 variants of them (the chunked large route)
+    # 512: the tiled body) and 150 variants of them (the tiled cluster body);
+    # the HOR unit (M = 2, L = 2,056: the tiled body, a row over two warps)
     joined = {}
     for k, what in ((2, "dimers"), (3, "trimers")):
         units = joined_set(load_fasta(dxz1), k)
         units_v = joined_variants(load_fasta(dxz1), k, 150, np.random.default_rng(0))
         joined[what] = (units, os.path.join(work.name, f"dxz1_{what}.fa"))
         joined[what + " variants"] = (units_v, os.path.join(work.name, f"dxz1_{what}_variants.fa"))
+    joined["hor unit"] = (hor_unit(load_fasta(dxz1)), os.path.join(work.name, "dxz1_hor_unit.fa"))
     for records, path in joined.values():
         write_fasta(path, records)
-    dimers, trimers = joined["dimers"][0], joined["trimers"][0]
+    dimers, trimers, hor = joined["dimers"][0], joined["trimers"][0], joined["hor unit"][0]
     variants, trimer_variants = joined["dimers variants"][0], joined["trimers variants"][0]
     cache: dict[str, object] = {}
 
@@ -388,7 +404,8 @@ def main() -> int:
     def large_name(M, L, state_bytes, cluster_size=None):
         """The kernel name of the body chain_dp_large_cuda runs."""
         cluster = cluster_size is not None or k1.cluster_plan(M, L, state_bytes) is not None
-        return k1_name("cluster" if cluster else "large", L, state_bytes)
+        kind = ("cluster_tiled" if L > k1.LANES_MAX_L else "cluster") if cluster else "large"
+        return k1_name(kind, L, state_bytes)
 
     plain_memo: dict = {}
 
@@ -431,13 +448,13 @@ def main() -> int:
 
     def k1_case(windows_np, wlens_np, mono_np, lens_np, sc, what, max_blocks=0,
                 fn=chain_dp_forward_cuda, kernel=None, want=None, int16=False,
-                cluster_size=None):
+                cluster_size=None, body=None):
         """One K1 route (`fn`, whose errors count under `kernel`, by default
         the body chain_dp_forward_cuda takes; chain_dp_large_cuda at
-        `cluster_size` where given) against the plain twin, or against
-        `want` when given (another route's outputs on the same inputs).
-        Returns the kernel's outputs. With int16, both routes' int16 state
-        instead (k1_int16_case)."""
+        `cluster_size` where given; the body `body` names where given)
+        against the plain twin, or against `want` when given (another route's
+        outputs on the same inputs). Returns the kernel's outputs. With
+        int16, both routes' int16 state instead (k1_int16_case)."""
         arrays = (windows_np, wlens_np, mono_np, lens_np)
         args = [torch.from_numpy(a).to(dev) for a in arrays]
         kernel = kernel or k1_name(k1_body(*mono_np.shape[-2:]), mono_np.shape[-1], 4)
@@ -447,7 +464,8 @@ def main() -> int:
                              .encode() + b"".join(a.tobytes() for a in arrays)).hexdigest()
         if int16:
             return k1_int16_case(args, kw, lens_np, what, cluster_size, key)
-        got = fn(*args, **kw) if cluster_size is None else fn(*args, cluster_size=cluster_size, **kw)
+        extra = {k: v for k, v in (("cluster_size", cluster_size), ("body", body)) if v is not None}
+        got = fn(*args, **extra, **kw)
         if want is None:
             want = plain_k1(key, args, kw, "auto")
         torch.cuda.synchronize()
@@ -516,7 +534,8 @@ def main() -> int:
         # to C = 8, two above, an odd M leaving the last warp one) and in
         # shared memory (M >= 33, with L a multiple of 32 or not), at C = 1
         # (L = 8), 8 (L = 256), 10, 12 and 16 (L = 512), up to the int32
-        # shared limit (M = 133 at L = 192); the chunked body at L = 544
+        # shared limit (M = 133 at L = 192); the tiled body at L = 544 (a warp
+        # a row, C = 17) and 1,040 (two rows, each over two warps)
         shapes = [("golden-like M=24 L=192", 12, 150, 188, 24, 6, 1200),
                   ("M=128 L=40 W=96", 64, 20, 41, 128, 4, 96),
                   ("M=128 L=192", 64, 150, 190, 128, 3, 600),
@@ -531,9 +550,13 @@ def main() -> int:
                   ("M=16 L=512", 8, 400, 513, 16, 2, 2048),
                   ("M=33 L=360", 17, 300, 358, 33, 2, 1440),
                   ("M=40 L=384", 20, 320, 385, 40, 2, 1536),
-                  ("M=20 L=544 (chunked body)", 10, 500, 545, 20, 2, 2176)]
-        # the shapes on which the large route is also held to the shared one
-        shapes_vs_large = [what for what, *_ in shapes[:3]] + ["M=17 L=304"]
+                  ("M=20 L=544 (tiled body)", 10, 500, 545, 20, 2, 2176),
+                  ("M=2 L=1040 (tiled body, 2 warps a row)", 1, 1000, 1041, 2, 2, 2200)]
+        # the shapes on which the large route is also held to the shared one,
+        # and those on which the tiled body is held to the lanes body
+        shapes_vs_large = [what for what, *_ in shapes[:3]] + ["M=17 L=304",
+                                                               "M=20 L=544 (tiled body)"]
+        tiled_vs_lanes = ("M=33 L=360", "M=16 L=512")
         if int16:  # shared route in int16, large route in int32
             shapes.append(("M=200 L=192", 100, 150, 190, 200, 3, 768))
         for what, nf, lo, hi, rows, B, W in shapes:
@@ -546,30 +569,40 @@ def main() -> int:
             # window, and the last rows masked to length 0
             perm = np.stack([rng.permutation(len(lens)) for _ in range(B)])
             mono_w, lens_w = mono[perm], lens[perm].copy()
-            lens_w[:, -2:] = 0
+            lens_w[:, -min(2, rows - 1):] = 0  # one row stays real: the sentinels differ by state
             if int(lens.max()) != hi - 1 or mono.shape[0] != rows:
                 raise AssertionError(f"{what}: mono {mono.shape}, longest {int(lens.max())}")
             k1_case(wb, wl, mono_w, lens_w, (-2, -1, -1, 2), what + " per-window", int16=int16)
+            if int16:  # the int16 state's overflow runs at the library and the variants below
+                continue
             counts = k1_case(wb, wl, mono, lens, (-1, -2, -1, 1), what + " max_blocks=1",
-                             max_blocks=1, int16=int16)[1]
+                             max_blocks=1)[1]
             if int(counts.max()) <= 1:
                 raise AssertionError(f"{what}: the overflow case did not overflow")
-            if int16:
-                continue
+            if what in tiled_vs_lanes:  # the tiled body where the lanes body runs
+                for mw, lw, sc in ((mono, lens, (-1, -1, -1, 1)),
+                                   (mono_w, lens_w, (-2, -1, -1, 2))):
+                    lanes = k1_case(wb, wl, mw, lw, sc, what + " lanes body")
+                    k1_case(wb, wl, mw, lw, sc, f"{what} tiled body vs the lanes body",
+                            kernel="chain_dp_tiled", want=lanes, body="tiled")
             if what not in shapes_vs_large:
                 continue
-            # the cluster body on a set that fits, against the lanes body
+            # the cluster body on a set that fits, against the lanes body (the
+            # tiled cluster body against the tiled body past 512)
             for mw, lw, sc in ((mono, lens, (-1, -1, -1, 1)), (mono_w, lens_w, (-2, -1, -1, 2))):
                 shared = k1_case(wb, wl, mw, lw, sc, what + " shared route")
                 for cs in (2, 4):
-                    k1_case(wb, wl, mw, lw, sc, f"{what} cluster body cs={cs} vs the lanes body",
-                            fn=chain_dp_large_cuda, kernel=k1_name("cluster", mw.shape[-1], 4),
+                    k1_case(wb, wl, mw, lw, sc, f"{what} cluster body cs={cs} vs the shared one",
+                            fn=chain_dp_large_cuda, kernel=large_name(*mw.shape[-2:], 4, cs),
                             want=shared, cluster_size=cs)
         print(f"K1 {mode}: random shapes (shared and per-window monomers; M = 24, 32, 33, 128, "
               "133 at L = 192, L = 8, 40, 176, 256, 304, 320, 360, 384, 512 on the lanes body, "
-              "L = 544 on the chunked body; max_blocks=1 overflow) bit-equal to the plain twin; the "
-              "cluster body at cs = 2 and 4 bit-equal to the lanes body on M = 24 and 128 at "
-              "L = 192 and M = 17 at L = 304")
+              "L = 544 and 1,040 on the tiled body) bit-equal to the plain twin" + (
+                  "" if int16 else
+                  "; max_blocks=1 overflow; the cluster body at cs = 2 and 4 bit-equal to the "
+                  "lanes body on M = 24 and 128 at L = 192 and M = 17 at L = 304, the tiled "
+                  "cluster body to the tiled body at L = 544, the tiled body to the lanes body "
+                  "at L = 360 and 512"))
         # the cluster body: the HOR-scale library (M = 264 at L = 192, past
         # the shared route), its first 200 and 134 rows, at the plan's
         # cluster sizes for 3, 19 and 64 windows, at 2 and at a non-portable
@@ -610,12 +643,12 @@ def main() -> int:
               f"rows ({'; '.join(held)}), shared and per-window monomers, "
               "rows of length 0, max_blocks=1 overflow, bit-equal to the plain twin")
         # 150 DXZ1 dimer variants (L = 360): the cluster body at the plan's
-        # sizes for 2 and 19 windows, and at 3 (rows in shared memory) and 16
-        # where they fit and the card schedules them; 150 trimer variants (L
-        # = 528): the chunked large route
+        # sizes for 2 and 19 windows, and at 3 (rows in shared memory), 5 and
+        # 16 where they fit and the card schedules them; 150 trimer variants
+        # (L = 528): the tiled cluster body at the same sizes
         held = []
         for what, records, body in (("dimer variants", variants, "cluster"),
-                                    ("trimer variants", trimer_variants, "large")):
+                                    ("trimer variants", trimer_variants, "cluster_tiled")):
             _, (mono, lens) = mono_set(records)
             M, L = mono.shape
             if k1_body(M, L, sb) != body:
@@ -625,9 +658,9 @@ def main() -> int:
             mono_w, lens_w = mono[perm], lens[perm].copy()
             lens_w[:, -4:] = 0
             sizes = [None]
-            if body == "cluster":
+            if body in ("cluster", "cluster_tiled"):
                 sizes = []
-                for cs in [plan_at(M, L, sb, B)[0] for B in (2, 19)] + [3, 16]:
+                for cs in [plan_at(M, L, sb, B)[0] for B in (2, 19)] + [3, 5, 16]:
                     if cs not in sizes and k1.cluster_shape(M, L, sb, cs) is not None \
                             and k1.cluster_occupancy(M, L, sb, cs, 2) > 0:
                         sizes.append(cs)
@@ -641,8 +674,7 @@ def main() -> int:
                                  max_blocks=1, **kern)[1]
                 if int(counts.max()) <= 1:
                     raise AssertionError(f"{tag}: the overflow case did not overflow")
-            held.append(f"{what} (L = {L}) on the {k1_name(body, L, sb)} body"
-                        + (f" at cs {sizes}" if body == "cluster" else ""))
+            held.append(f"{what} (L = {L}) on the {k1_name(body, L, sb)} body at cs {sizes}")
         print(f"K1 {mode}: {'; '.join(held)}: shared and per-window monomers, max_blocks=1 "
               "overflow, bit-equal to the plain twin")
         plain_memo.clear()
@@ -805,21 +837,28 @@ def main() -> int:
               f"(first run in this process, kernels already built)")
 
     def joined_runs():
-        """The golden read against the DXZ1 dimers and trimers and 150
-        variants of each (`--second-best`): the dimers through the CLI on
-        K1's lanes body at L = 360, their variants on the cluster body, the
-        trimers (L = 528) through the CLI on the chunked shared route and
-        their variants on the chunked large route. Each run launches its K1
-        body and no other, and its three TSVs equal those of the plain route
-        (the sets) or of the route with K1's plain twin (the variants)."""
+        """The golden read against the DXZ1 dimers and trimers, 150 variants
+        of each, and the DXZ1 HOR unit (`--second-best`): the dimers through
+        the CLI on K1's lanes body at L = 360, their variants on the cluster
+        body, the trimers (L = 528) through the CLI on the tiled body, their
+        variants on the tiled cluster body, the HOR unit (L = 2,056) through
+        the CLI on the tiled body. Each run launches its K1 body and no
+        other, and its three TSVs equal those of the plain route (the sets)
+        or of the route with K1's plain twin (the variants). Then the ~17 kbp
+        unit against two copies of itself (`decompose_reads`, unfiltered) on
+        the tiled cluster body, its raw rows equal to the route with K1's
+        plain twin."""
         from stringdecomposer_tpu_torch.ops.identity_cuda import cells_per_lane
 
         out = work.name
         bodies = ("chain_dp", "chain_dp_large", "chain_dp_lanes", "chain_dp_cluster",
-                  "chain_dp_lanes_long", "chain_dp_cluster_long")
+                  "chain_dp_lanes_long", "chain_dp_cluster_long", "chain_dp_tiled",
+                  "chain_dp_cluster_tiled")
         for what, body in (("dimers", "chain_dp_lanes_long"),
                            ("dimers variants", "chain_dp_cluster_long"),
-                           ("trimers", "chain_dp"), ("trimers variants", "chain_dp_large")):
+                           ("trimers", "chain_dp_tiled"),
+                           ("trimers variants", "chain_dp_cluster_tiled"),
+                           ("hor unit", "chain_dp_tiled")):
             records, fa = joined[what]
             kernel_dir, plain_dir = (os.path.join(out, what.replace(" ", "_") + r)
                                      for r in ("_kernel", "_plain"))
@@ -858,6 +897,83 @@ def main() -> int:
                   f"the other {time.perf_counter() - t0:.3f} s; K2 for the longest block "
                   f"({longest} bp): C = {cells_per_lane(longest)} rows a lane, "
                   f"{'strips' if longest > 32 * C_MAX else 'one strip'} of {32 * C_MAX} rows")
+        reads, monos = wide_case()
+        res = {}
+
+        def unit_run():
+            t0 = time.perf_counter()
+            res["kernel"] = pipeline.decompose_reads(reads, monos, pipeline.PipelineConfig(),
+                                                     "cuda")
+            torch.cuda.synchronize()
+            res["secs"] = time.perf_counter() - t0
+
+        got = drive(f"{len(reads[0].seq)} bp x a {len(monos[0].seq)} bp unit (decompose_reads)",
+                    unit_run)
+        body = "chain_dp_cluster_tiled"
+        if got[body] <= 0 or any(got[k] for k in bodies if k != body):
+            raise AssertionError(f"17 kbp unit: K1 launches {got}")
+        launches[body] = launches.get(body, 0) + got[body]
+        t0 = time.perf_counter()
+        res["plain"] = pipeline.decompose_reads(reads, monos, pipeline.PipelineConfig(), "cuda",
+                                                forward_fn=k1_plain.chain_dp_forward)
+        secs = time.perf_counter() - t0
+        names = [m.name for m in monos]
+        raw = {k: "".join(r + "\n" for rn, b in res[k] for r in format_raw_rows(rn, b, names))
+               for k in ("kernel", "plain")}
+        if raw["kernel"] != raw["plain"] or not raw["kernel"]:
+            raise AssertionError("17 kbp unit: raw rows differ from the route with K1's plain twin")
+        print(f"{len(reads[0].seq)} bp x {len(monos[0].seq)} bp unit (M={len(monos)}, {body}): "
+              f"raw rows equal to the route with K1's plain twin; "
+              f"{raw['kernel'].count(chr(10))} rows; kernel route {res['secs']:.3f} s, the "
+              f"other {secs:.3f} s")
+
+    def chunked_run():
+        """K1's chunked body at the shapes it keeps, through
+        chain_dp_forward_cuda on short windows, each against the plain twin:
+        a row the tiled form cannot hold in one block (M = 1, L = 25,800 on
+        the shared route: `chain_dp`), more rows than 16 blocks hold (800
+        int32 rows of 528 bp: `chain_dp_large`; 1,400 int16 rows:
+        `chain_dp_large_int16`), and, since the int16 range check leaves it
+        no shared-route set, 20 rows of 544 bp with body="chunked"
+        (`chain_dp_int16`)."""
+        rng = np.random.default_rng(12)
+        cases = (("M=1 L=25800", 1, 25800, 48, "int32", None, "chain_dp"),
+                 ("M=800 L=528", 800, 528, 64, "int32", None, "chain_dp_large"),
+                 ("M=1400 L=528 int16", 1400, 528, 64, "int16", None, "chain_dp_large_int16"),
+                 ("M=20 L=544 int16, body='chunked'", 20, 544, 400, "int16", "chunked",
+                  "chain_dp_int16"))
+        inputs, outs = {}, {}
+        for what, M, L, W, *_ in cases:
+            lens = rng.integers(L // 2, L + 1, M).astype(np.int32)
+            lens[0] = L
+            mono = np.full((M, L), 5, dtype=np.int8)
+            for m in range(M):
+                mono[m, : lens[m]] = rng.integers(0, 4, lens[m])
+            win = rng.integers(0, 4, (2, W)).astype(np.int8)
+            wl = np.array([W, W - 7], dtype=np.int32)
+            win[1, W - 7 :] = k1_plain.READ_PAD
+            inputs[what] = [torch.from_numpy(a).to(dev) for a in (win, wl, mono, lens)]
+
+        def path():
+            for what, _, _, _, dt, body, _ in cases:
+                outs[what] = chain_dp_forward_cuda(*inputs[what], return_debug=True,
+                                                   state_dtype=dt, body=body)
+
+        got = drive("K1's chunked body at the shapes it keeps (chain_dp_forward_cuda)", path)
+        names = [name for *_, name in cases]
+        if any(got[k] <= 0 for k in names) or any(
+                got[k] for k in K1_BODY_NAMES if k not in names):
+            raise AssertionError(f"chunked body: launches {got}")
+        launches.update({k: got[k] for k in names})
+        for what, _, _, _, dt, _, name in cases:
+            (bk, ck, (chk, ek, sk)) = outs[what]
+            bp, cp, (chp, ep, spp) = k1_plain.chain_dp_forward(*inputs[what], return_debug=True,
+                                                               state_dtype=dt)
+            for nm, g, w in (("blocks", bk, bp), ("counts", ck, cp), ("chain", chk, chp),
+                             ("end", ek, ep), ("spend", sk, spp)):
+                smoke.same(name, f"{what} {nm}", g, w)
+        print("K1's chunked body: " + "; ".join(f"{what} ({name})" for what, *_, name in cases)
+              + ": launched through chain_dp_forward_cuda, bit-equal to the plain twin")
 
     def scale_run():
         monomers_fwd = load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"))
@@ -1231,8 +1347,9 @@ def main() -> int:
         264-monomer library (the cluster body), x its first 200 rows (int16:
         the lanes body, int32: the cluster body), x the DXZ1 dimers (L = 360:
         the lanes body's long rows), x the 150 dimer variants (the cluster
-        body's), x the DXZ1 trimers (L = 528: the chunked body), x the 150
-        trimer variants (the chunked large route)."""
+        body's), x the DXZ1 trimers (L = 528: the tiled body), x the 150
+        trimer variants (the tiled cluster body), x the DXZ1 HOR unit (L =
+        2,056: the tiled body)."""
         reads = load_fasta(read_fa)
         codes = encode(reads[0].seq)
         wins = [codes[o : o + n] for o, n in make_windows(len(codes), 5000, 500)]
@@ -1242,7 +1359,7 @@ def main() -> int:
         out = [("golden x DXZ1 M=24", wb, wl, m24, l24),
                ("golden x library M=264", wb, wl, mlib, llib),
                ("golden x library[:200] M=200", wb, wl, mlib[:200], llib[:200])]
-        for what in ("dimers", "dimers variants", "trimers", "trimers variants"):
+        for what in ("dimers", "dimers variants", "trimers", "trimers variants", "hor unit"):
             _, (mono, lens) = mono_set(joined[what][0])
             out.append((f"golden x DXZ1 {what} M={mono.shape[0]} L={mono.shape[1]}", wb, wl,
                         mono, lens))
@@ -1260,10 +1377,11 @@ def main() -> int:
                 chain_dp_forward_cuda(*args, max_blocks=cap, state_dtype="int16")
 
         got = drive("int16 K1 path: golden windows x DXZ1, x library, x library[:200], "
-                    "x DXZ1 dimers, trimers and their variants, state_dtype='int16'", path)
-        need = ("int16_probe", "chain_dp_lanes_int16", "chain_dp_int16", "chain_dp_large_int16",
-                "chain_dp_cluster_int16", "chain_dp_lanes_long_int16",
-                "chain_dp_cluster_long_int16", "block_walk")
+                    "x DXZ1 dimers, trimers and their variants, x the DXZ1 HOR unit, "
+                    "state_dtype='int16'", path)
+        need = ("int16_probe", "chain_dp_lanes_int16", "chain_dp_tiled_int16",
+                "chain_dp_cluster_tiled_int16", "chain_dp_cluster_int16",
+                "chain_dp_lanes_long_int16", "chain_dp_cluster_long_int16", "block_walk")
         bad = [k for k in need if got[k] <= 0]
         if bad:
             raise AssertionError(f"int16 K1 path: kernels not launched: {bad}")
@@ -1272,6 +1390,9 @@ def main() -> int:
             args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
             M, L = mono.shape
             name = k1_name(k1_body(M, L, 2), L, 2)
+            # the first shape of a body is its row of the kernels line, and only
+            # a row's shape runs the plain twin (the time limit)
+            keep = name not in timing and not what.startswith("golden x library[:200]")
             b32, c32, (_, e32, s32) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
             b16, c16, (_, e16, s16) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True,
                                                             state_dtype="int16")
@@ -1284,20 +1405,32 @@ def main() -> int:
             k32, _ = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 5)
             k16, got16 = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap,
                                                              state_dtype="int16"), 5)
-            p16, want16 = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap,
-                                                                  state_dtype="int16"), 0)
-            smoke.same(name, f"{what}: int16 blocks vs the int16 twin", got16[0], want16[0])
-            smoke.same(name, f"{what}: int16 counts vs the int16 twin", got16[1], want16[1])
             blocks_out = args[0].shape[0] * (cap * 16 + 4)
             bd16 = k1_bound(args[0], args[2], args[3], 2, blocks_out=blocks_out)
             bd32 = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
-            if not what.startswith("golden x library[:200]"):
+            line = (f"K1 + walk, {what} ({len(wb)} windows x 5500, L={L}; int16 body "
+                    f"{k1_body(M, L, 2)}, int32 body {k1_body(M, L, 4)}): int32 kernel "
+                    f"{spread(k32)} (bound {bd32[0]:.3f} ms, {bd32[1]}); int16 kernel "
+                    f"{spread(k16)} (bound {bd16[0]:.3f} ms, {bd16[1]})")
+            if keep:
+                p16, want16 = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap,
+                                                                      state_dtype="int16"), 0)
+                smoke.same(name, f"{what}: int16 blocks vs the int16 twin", got16[0], want16[0])
+                smoke.same(name, f"{what}: int16 counts vs the int16 twin", got16[1], want16[1])
                 timing[name] = (statistics.median(k16), statistics.median(p16))
                 bounds[name] = bd16
-            print(f"K1 + walk, {what} ({len(wb)} windows x 5500, L={L}; int16 body "
-                  f"{k1_body(M, L, 2)}, int32 body {k1_body(M, L, 4)}): int32 kernel {spread(k32)} "
-                  f"(bound {bd32[0]:.3f} ms, {bd32[1]}); int16 kernel {spread(k16)} (bound "
-                  f"{bd16[0]:.3f} ms, {bd16[1]}); int16 plain {spread(p16)}")
+                line += f"; int16 plain {spread(p16)}"
+            chunked = {"tiled": "chunked", "cluster_tiled": "large"}.get(k1_body(M, L, 2))
+            if keep and chunked:  # the chunked body's int16 row, at the same shape
+                cname = k1_name(chunked, L, 2)
+                kc, gotc = timed(lambda: chain_dp_forward_cuda(
+                    *args, max_blocks=cap, state_dtype="int16", body=chunked), 3)
+                smoke.same(cname, f"{what}: int16 blocks vs the int16 twin", gotc[0], want16[0])
+                smoke.same(cname, f"{what}: int16 counts vs the int16 twin", gotc[1], want16[1])
+                timing[cname] = (statistics.median(kc), statistics.median(p16))
+                bounds[cname] = bd16
+                line += f"; the {chunked} body in int16 {spread(kc)}"
+            print(line)
 
     def ablate_run():
         from stringdecomposer_tpu_torch.scripts import ablate_chain as ab
@@ -1369,25 +1502,38 @@ def main() -> int:
                   f"kernel {spread(k)}; bound {bd[0]:.3f} ms ({bd[1]}), "
                   f"{100 * bd[0] / statistics.median(k):.2f} % of it; the cluster body at cs = "
                   f"{plan_at(M, mlib.shape[1], 4, len(wins))[0]}: {spread(kc)}")
-        def k1_time(name, what, records, fn=chain_dp_forward_cuda, reps=5, plain=True):
-            """K1 + walk at the golden windows x `records` with RC, timed; with
-            `plain`, held to the plain twin and kept as `name`'s row of the
-            kernels line, else timed only."""
+        plain_runs = {}  # what -> (plain ms, plain outputs): one plain run a shape
+
+        def k1_time(name, what, records, fn=chain_dp_forward_cuda, reps=5, plain=True, body=None,
+                    windows=None):
+            """K1 + walk at the golden windows (or `windows`) x `records` with
+            RC, timed, on the body the rule picks or on `body`; with `plain`,
+            held to the plain twin (run once a shape) and kept as `name`'s row
+            of the kernels line, else timed only."""
+            wb_, wl_ = windows or (wb, wl)
             _, (mono_np, lens_np) = mono_set(records)
-            a = [torch.from_numpy(x).to(dev) for x in (wb, wl, mono_np, lens_np)]
+            a = [torch.from_numpy(x).to(dev) for x in (wb_, wl_, mono_np, lens_np)]
             M, L = mono_np.shape
-            if k1_name(k1_body(M, L), L, 4) != name:
-                raise AssertionError(f"{what} (M={M}, L={L}): body {k1_body(M, L)}, not {name}")
-            k, got = timed(lambda: fn(*a, max_blocks=cap), reps)
-            bd = k1_bound(a[0], a[2], a[3], 4, blocks_out=blocks_out)
-            line = f"K1 {name} + walk, {len(wins)} windows x 5500, {what} (M={M}, L={L})"
-            if k1_body(M, L) == "cluster":
-                plan = plan_at(M, L, 4, len(wins))
+            kind = body or k1_body(M, L)
+            if k1_name(kind, L, 4) != name:
+                raise AssertionError(f"{what} (M={M}, L={L}): body {kind}, not {name}")
+            extra = {"body": body} if body else {}
+            k, got = timed(lambda: fn(*a, max_blocks=cap, **extra), reps)
+            bd = k1_bound(a[0], a[2], a[3], 4, blocks_out=len(wb_) * (cap * 16 + 4))
+            line = f"K1 {name} + walk, {len(wb_)} windows x 5500, {what} (M={M}, L={L})"
+            if kind in ("cluster", "cluster_tiled"):
+                plan = plan_at(M, L, 4, len(wb_))
                 line += (f" (cs = {plan[0]}, R = {plan[1]}, {plan[2]}, {plan[3]} threads; "
-                         f"{k1.cluster_occupancy(M, L, 4, plan[0], len(wins))} clusters at once)")
+                         f"{k1.cluster_occupancy(M, L, 4, plan[0], len(wb_))} clusters at once)")
+            if kind in ("tiled", "cluster_tiled"):
+                G, C, _ = k1.tiled_layout(M if kind == "tiled" else plan[1], L)
+                line += f" (G = {G} warps a row, C = {C})"
             line += f": kernel {spread(k)}"
             if plain:
-                p, want = timed(lambda: k1_plain.chain_dp_forward(*a, max_blocks=cap), 0)
+                if what not in plain_runs:
+                    plain_runs[what] = timed(lambda: k1_plain.chain_dp_forward(
+                        *a, max_blocks=cap), 0)
+                p, want = plain_runs[what]
                 smoke.same(name, f"golden windows x {what} blocks", got[0], want[0])
                 smoke.same(name, f"golden windows x {what} counts", got[1], want[1])
                 timing[name] = (statistics.median(k), statistics.median(p))
@@ -1396,13 +1542,16 @@ def main() -> int:
             print(f"{line}; bound {bd[0]:.3f} ms ({bd[1]}), "
                   f"{100 * bd[0] / statistics.median(k):.2f} % of it")
 
-        # the lanes body's long rows (L = 360 and 512) and the chunked body
-        # past them (L = 528): the golden windows x the DXZ1 dimers, the
-        # trimers cut to 512 bp and the trimers
+        # the lanes body's long rows (L = 360 and 512) and the tiled body past
+        # them (L = 528, and the HOR unit at 2,056), beside the chunked body
+        # on the trimers: the golden windows x the DXZ1 dimers, the trimers
+        # cut to 512 bp, the trimers and the HOR unit
         k1_time("chain_dp_lanes_long", "DXZ1 dimers", dimers)
         k1_time("chain_dp_lanes_long", "DXZ1 trimers cut to 512 bp",
                 [Record(r.name, r.seq[:512]) for r in trimers], plain=False)
-        k1_time("chain_dp", "DXZ1 trimers", trimers)
+        k1_time("chain_dp_tiled", "DXZ1 trimers", trimers)
+        k1_time("chain_dp", "DXZ1 trimers", trimers, body="chunked")
+        k1_time("chain_dp_tiled", "DXZ1 HOR unit", hor, plain=False)
         _, _, (_, end, spend) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
         k, got = timed(lambda: block_walk_cuda(end, spend, args[1], cap), 10)
         p, want = timed(lambda: k1_plain.block_walk(end, spend, args[1], cap), 0)
@@ -1479,13 +1628,17 @@ def main() -> int:
               f"{plan[4]} bytes of shared memory; {k1.cluster_occupancy(*mono.shape, 4, plan[0], 19)} "
               f"clusters at once): kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
               f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
-        # the cluster body's long rows and the chunked large route past
-        # them: the golden windows x the 150 dimer variants (L = 360), x the
-        # 150 trimer variants cut to 512 bp and x the trimer variants (L = 528)
+        # the cluster body's long rows and the tiled cluster body past them,
+        # beside the chunked large route: the golden windows x the 150 dimer
+        # variants (L = 360), x the 150 trimer variants cut to 512 bp and x
+        # the trimer variants (L = 528); the ~17 kbp unit's windows x the unit
         k1_time("chain_dp_cluster_long", "150 dimer variants", variants)
         k1_time("chain_dp_cluster_long", "150 trimer variants cut to 512 bp",
                 [Record(r.name, r.seq[:512]) for r in trimer_variants], plain=False)
-        k1_time("chain_dp_large", "150 trimer variants", trimer_variants, reps=3)
+        k1_time("chain_dp_cluster_tiled", "150 trimer variants", trimer_variants)
+        k1_time("chain_dp_large", "150 trimer variants", trimer_variants, reps=3, body="large")
+        k1_time("chain_dp_cluster_tiled", "the ~17 kbp unit", wmonos[:1], plain=False,
+                windows=(wbw, wlw))
         print("times: every timed kernel output bit-equal to its plain version's")
 
     banded_kernels = ("banded_final_column", "banded_myers", "semi_ends")
@@ -2034,6 +2187,7 @@ def main() -> int:
     smoke.phase("k2", k2_checks)
     smoke.phase("golden", golden_run)
     smoke.phase("joined", joined_runs)
+    smoke.phase("chunked", chunked_run)
     smoke.phase("scale", scale_run)
     smoke.phase("k3", k3_checks)
     smoke.phase("ed_thr", ed_thr_run)
@@ -2078,6 +2232,9 @@ def main() -> int:
     meta += [(n, src + "chain_dp_cluster.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
              for n in ("chain_dp_cluster", "chain_dp_cluster_int16", "chain_dp_cluster_long",
                        "chain_dp_cluster_long_int16")]
+    meta += [(n, src + "chain_dp_tiled.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
+             for n in ("chain_dp_tiled", "chain_dp_tiled_int16", "chain_dp_cluster_tiled",
+                       "chain_dp_cluster_tiled_int16")]
     meta += [(n, src + ("chain_dp.cuh" if n.endswith("_base") else "chain_dp_ablate.cu"),
               "scripts/ablate_chain.py:31") for n in ABLATE]
     print(json.dumps({"kernels": [

@@ -19,6 +19,7 @@ import torch
 INF = -1_000_000  # src/main.cpp:156
 NEG = -(1 << 30)
 NEG16 = -(1 << 13)  # the int16 state's sentinel (chain_dp_pallas.py _neg)
+INT32_MIN = -(1 << 31)  # the tiled bodies' empty carry: below every score
 READ_PAD = 6  # never equals any monomer code (monomer pad is 5)
 # the ablation variants of K1 (csrc/chain_dp_ablate.cu); "base" is K1
 VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")
@@ -274,13 +275,126 @@ class _LanesRows:
         self.sp = torch.where(own, in_c, ex_c).reshape(B, M, P)
 
 
-def sweep_lanes(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane):
-    """`sweep` computed as K1's lanes body (csrc/chain_dp_lanes.cuh) splits
-    it (`_LanesRows`, C = `cells_per_lane`); test-only, nothing on the main
-    path calls it. End and spend come out in dp0's type. Same outputs as
-    `sweep`."""
+class _TiledRows:
+    """A set of rows stepped as K1's tiled bodies (csrc/chain_dp_tiled.cu)
+    step them; `sweep_tiled` and `sweep_cluster` (with `warps_per_row`)
+    share it. Each row is padded to P = G warps x 32 lanes x C cells (P >=
+    L); lane l of warp g owns cells k = g*32C + l*C + c. Stored, as in the
+    kernel's shared memory: each cell's in-lane prefix of the last position
+    and each lane's carry, (INT_MIN, 0) at column 0. At each position a cell's
+    value at i - 1 is its stored prefix where that is strictly greater than
+    its lane's carry, else the carry (the lazy fix-up); the diag neighbour of
+    a lane's first cell is the previous lane's (or warp's) last cell at i - 1.
+    Then: the payload from the cell's own candidate (ins, unguarded at k ==
+    0; diag; enter); the sequential in-lane pair prefix, walked in tiles of
+    `tile` cells with the prefix carried from tile to tile; one pair scan
+    over each warp's 32 lane totals, shifted to an exclusive prefix; the
+    warp's carry, the earliest argmax of the earlier warps' totals; and each
+    lane's new carry, its warp's earlier lanes' prefix where strictly
+    greater than the warp's carry, else that. Arithmetic is int32."""
+
+    def __init__(self, windows, mono_b, lens_b, dp0, ins, dele, mismatch, match,
+                 cells_per_lane, warps_per_row, tile):
+        B = windows.shape[0]
+        M, L = mono_b.shape[1], mono_b.shape[2]
+        C, G = cells_per_lane, warps_per_row
+        P = 32 * G * C
+        if P < L or tile < 1:
+            raise ValueError(f"{G} warps x 32 lanes x {C} cells do not cover L={L} "
+                             f"(or tile {tile} < 1)")
+        dev = windows.device
+        i32 = torch.int32
+        self.neg = state_neg(dp0.dtype)
+        self.shape, self.C, self.G, self.tile = (B, M, P), C, G, tile
+        self.dele = dele
+        k = torch.arange(P, dtype=i32, device=dev)
+        self.n = lens_b.to(i32).clamp(0, L)[:, :, None]  # [B, M, 1]
+        codes = torch.full((B, M, P), -1, dtype=i32, device=dev)
+        codes[:, :, :L] = mono_b.to(i32)
+        self.codes = codes.view(B, M, 32 * G, C)
+        q = torch.full((B, M, P), self.neg, dtype=i32, device=dev)
+        q[:, :, :L] = dp0.to(i32) - k[:L] * dele  # folded: q = dp - k * del
+        self.q = q.view(B, M, 32 * G, C)  # [B, M, lane of the row, cell]
+        self.s = torch.zeros_like(self.q)
+        self.ct = torch.full((B, M, 32 * G), INT32_MIN, dtype=i32, device=dev)
+        self.cc = torch.zeros_like(self.ct)
+        self.first = (torch.arange(32 * G, device=dev) == 0)[:, None] & \
+            (torch.arange(C, device=dev) == 0)  # [lanes, C]: k == 0
+        self.end_idx = (self.n - 1).clamp(min=0).long()
+        self.windows = windows
+        self.scores = (ins, mismatch, match)
+
+    def values(self):
+        """Every cell's (q, s) after the lazy fix-up: the state at the last
+        position, [B, M, P]."""
+        keep = self.q > self.ct[..., None]
+        q = torch.where(keep, self.q, self.ct[..., None])
+        s = torch.where(keep, self.s, self.cc[..., None])
+        B, M, P = self.shape
+        return q.reshape(B, M, P), s.reshape(B, M, P)
+
+    def emit(self):
+        """(end, spend) [B, M] int32 of each row's end cell, unfolded; rows of
+        length 0 emit (the sentinel, 0)."""
+        q, s = self.values()
+        has = self.n[:, :, 0] > 0
+        e = q.gather(2, self.end_idx)[:, :, 0] + self.end_idx[:, :, 0].to(torch.int32) * self.dele
+        return torch.where(has, e, self.neg), torch.where(has, s.gather(2, self.end_idx)[:, :, 0], 0)
+
+    def step(self, i: int, chain: torch.Tensor) -> None:
+        """Read position i, from the chain score [B] int32 (the max of every
+        row's end score at i - 1)."""
+        B, M, P = self.shape
+        C, G, neg = self.C, self.G, self.neg
+        ins, mismatch, match = self.scores
+        dele = self.dele
+        qo, so = self.values()  # the cells at i - 1
+        qo, so = qo.view(B, M, 32 * G, C), so.view(B, M, 32 * G, C)
+        # the previous cell at i - 1: in the lane, else the previous lane's
+        # (or warp's) last; none at k == 0
+        up_q = torch.cat([torch.full_like(qo[:, :, :1, -1:], neg), qo[:, :, :-1, -1:]], dim=2)
+        up_s = torch.cat([torch.zeros_like(so[:, :, :1, -1:]), so[:, :, :-1, -1:]], dim=2)
+        rc = self.windows[:, i].to(torch.int32)[:, None, None, None]
+        y = self.codes == rc
+        enter = chain[:, None, None, None] + torch.where(y, match, mismatch).to(torch.int32)
+        diag_add = torch.where(y, match - dele, mismatch - dele).to(torch.int32)
+        run_t = torch.full_like(qo[..., 0], INT32_MIN)
+        run_c = torch.zeros_like(run_t)
+        new_q, new_s = [], []
+        for c0 in range(0, C, self.tile):  # a tile's cells, the prefix carried between tiles
+            for c in range(c0, min(C, c0 + self.tile)):
+                first = self.first[:, c]
+                if c > 0:
+                    up_q, up_s = qo[..., c - 1 : c], so[..., c - 1 : c]
+                diag = torch.where(first, neg, up_q[..., 0] + diag_add[..., c])
+                ins_u = qo[..., c] + ins  # unguarded: the payload's ins check at k == 0
+                t = torch.maximum(enter[..., c],
+                                  torch.maximum(diag, torch.where(first, neg, ins_u)))
+                cs = torch.where(t == ins_u, so[..., c], torch.where(t == diag, up_s[..., 0], i))
+                take = t > run_t  # a later cell wins only when strictly greater
+                run_t = torch.where(take, t, run_t)
+                run_c = torch.where(take, cs, run_c)
+                new_q.append(run_t)
+                new_s.append(run_c)
+        self.q = torch.stack(new_q, dim=-1)
+        self.s = torch.stack(new_s, dim=-1)
+        # each warp's 32 lane totals: inclusive pair scan, then exclusive
+        tot_t, (tot_c,) = pair_scan(run_t.view(B, M, G, 32), [run_c.view(B, M, G, 32)], torch.gt)
+        et = torch.cat([torch.full_like(tot_t[..., :1], INT32_MIN), tot_t[..., :-1]], dim=-1)
+        ec = torch.cat([torch.zeros_like(tot_c[..., :1]), tot_c[..., :-1]], dim=-1)
+        # each warp's carry: the earliest argmax of the earlier warps' totals
+        wt, (wc,) = pair_scan(tot_t[..., -1], [tot_c[..., -1]], torch.gt)  # [B, M, G]
+        wt = torch.cat([torch.full_like(wt[..., :1], INT32_MIN), wt[..., :-1]], dim=-1)[..., None]
+        wc = torch.cat([torch.zeros_like(wc[..., :1]), wc[..., :-1]], dim=-1)[..., None]
+        later = et > wt  # the earlier warps win ties
+        self.ct = torch.where(later, et, wt).reshape(B, M, 32 * G)
+        self.cc = torch.where(later, ec, wc).reshape(B, M, 32 * G)
+
+
+def _rows_sweep(rows, windows, dtype):
+    """The read-position loop over one `_LanesRows` or `_TiledRows`:
+    (chain [B, W] int32, end and spend [B, W, M] in `dtype`)."""
     W = windows.shape[1]
-    rows = _LanesRows(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane)
     chains = [torch.full((windows.shape[0],), INF, dtype=torch.int32, device=windows.device)]
     out = [rows.emit()]
     for i in range(1, W):
@@ -288,17 +402,41 @@ def sweep_lanes(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_
         rows.step(i, chain)
         chains.append(chain)
         out.append(rows.emit())
-    return (torch.stack(chains, dim=1), torch.stack([e for e, _ in out], dim=1).to(dp0.dtype),
-            torch.stack([s for _, s in out], dim=1).to(dp0.dtype))
+    return (torch.stack(chains, dim=1), torch.stack([e for e, _ in out], dim=1).to(dtype),
+            torch.stack([s for _, s in out], dim=1).to(dtype))
+
+
+def sweep_tiled(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane,
+                warps_per_row, tile=8):
+    """`sweep` computed as K1's tiled body (csrc/chain_dp_tiled.cu) splits
+    it (`_TiledRows`: C = `cells_per_lane`, G = `warps_per_row`, register
+    tiles of `tile` cells; the kernel's are ops/chain_dp_cuda.tiled_layout's
+    and 8); test-only, nothing on the main path calls it. End and spend come
+    out in dp0's type. Same outputs as `sweep`."""
+    rows = _TiledRows(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane,
+                      warps_per_row, tile)
+    return _rows_sweep(rows, windows, dp0.dtype)
+
+
+def sweep_lanes(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane):
+    """`sweep` computed as K1's lanes body (csrc/chain_dp_lanes.cuh) splits
+    it (`_LanesRows`, C = `cells_per_lane`); test-only, nothing on the main
+    path calls it. End and spend come out in dp0's type. Same outputs as
+    `sweep`."""
+    rows = _LanesRows(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cells_per_lane)
+    return _rows_sweep(rows, windows, dp0.dtype)
 
 
 def sweep_cluster(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cluster_size,
-                  cells_per_lane):
+                  cells_per_lane, warps_per_row=None, tile=8):
     """`sweep` computed as K1's cluster body (csrc/chain_dp_cluster.cuh)
-    splits it; test-only, nothing on the main path calls it. The M rows go
-    to cs = `cluster_size` slices of R = ceil(M / cs) rows, each with at
-    least one (else ValueError); each slice steps its rows as the lanes body
-    does (`_LanesRows`, C = `cells_per_lane`) and keeps its own copy of the
+    splits it, or with `warps_per_row` as the tiled cluster body
+    (csrc/chain_dp_tiled.cu) does; test-only, nothing on the main path calls
+    it. The M rows go to cs = `cluster_size` slices of R = ceil(M / cs)
+    rows, each with at least one (else ValueError); each slice steps its
+    rows as the lanes body does (`_LanesRows`, C = `cells_per_lane`), or the
+    tiled body (`_TiledRows`, G = `warps_per_row`, tiles of `tile`), and
+    keeps its own copy of the
     [2, M] parity buffers of every row's end score. At position i each slice
     takes its chain score from its own buffer (i - 1) & 1, then writes its
     rows' end scores into buffer i & 1 of every slice; rows of length 0 are
@@ -312,8 +450,14 @@ def sweep_cluster(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, clus
         raise ValueError(f"{cs} slices of {R} rows leave a slice of M={M} rows empty")
     dev, neg = windows.device, state_neg(dp0.dtype)
     cuts = [(r * R, min(M, (r + 1) * R)) for r in range(cs)]
-    slices = [_LanesRows(windows, mono_b[:, a:z], lens_b[:, a:z], dp0[:, a:z], ins, dele,
-                         mismatch, match, cells_per_lane) for a, z in cuts]
+    def slice_rows(a, z):
+        args = (windows, mono_b[:, a:z], lens_b[:, a:z], dp0[:, a:z], ins, dele, mismatch, match,
+                cells_per_lane)
+        if warps_per_row is None:
+            return _LanesRows(*args)
+        return _TiledRows(*args, warps_per_row, tile)
+
+    slices = [slice_rows(a, z) for a, z in cuts]
     real = lens_b.to(torch.int32) > 0  # [B, M]: the rows that store an end score
     ends0 = torch.cat([rows.emit()[0] for rows in slices], dim=1)
     bufs = [torch.stack([ends0, torch.full_like(ends0, neg)], dim=1) for _ in cuts]  # [B, 2, M]

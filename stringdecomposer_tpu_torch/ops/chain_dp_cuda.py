@@ -10,20 +10,30 @@ counts are meant to leave the device.
 K1 has two routes with the same recurrence and tie rules. A monomer set
 whose [M, L] column fits one block's shared memory (`smem_bytes`) takes the
 shared route; a larger one takes the large route (`chain_dp_large_cuda`).
-Each route has two kernel bodies (`body`). The shared route runs the lanes
+`body` names the kernel body a set runs. The shared route runs the lanes
 body at L <= 512 (csrc/chain_dp_lanes.cuh: each lane owns C = ceil(L / 32)
 <= 16 whole cells of a row, one pair scan per row, one barrier per
-position) and the chunked body above it (csrc/chain_dp.cuh). The large
-route runs the cluster body at L <= 512 where a cluster of at most 16
-blocks holds the rows (csrc/chain_dp_cluster.cuh, `cluster_plan`: a
-window's rows spread over a thread block cluster, the lanes body's row
-step in each block, the end scores exchanged through distributed shared
-memory) and the chunked body otherwise, with the column in a device-memory
-scratch; the ablation runs the chunked body too. A C outside 1..16 is
-refused by the lanes and cluster entries, never run on another body. Each
-body and route counts its own launches, int32 and int16 state apart, and
-the lanes and cluster bodies' rows past LANES_LONG_L (C = 9..16, two rows
-a warp in registers) apart from the shorter ones.
+position) and the tiled body above it (csrc/chain_dp_tiled.cu: the lanes
+body's row step over cells stepped from shared memory in register tiles,
+long rows split over G warps, `tiled_layout`). The large route runs the
+cluster body at L <= 512 where a cluster of at most 16 blocks holds the
+rows (csrc/chain_dp_cluster.cuh, `cluster_plan`: a window's rows spread
+over a thread block cluster, the lanes body's row step in each block, the
+end scores exchanged through distributed shared memory) and the tiled
+cluster body above it (the tiled body's rows in each block of a cluster,
+`cluster_plan` with the tiled form's shared memory). The chunked body
+(csrc/chain_dp.cuh) keeps what neither takes: a row too long for one
+block's shared memory in the tiled form (on the shared route, or with its
+column in a device-memory scratch on the large route), a set past 16
+blocks' shared memory, and the ablation's base. A shared-route set whose
+tiled form does not fit one block (the padding of its rows) runs the tiled
+cluster body. A C outside 1..16 is refused by the lanes and cluster
+entries, a shape past one block by the tiled entries, never run on another
+body; `body=` on the wrappers names a body for the checks and the A/B, and
+raises where that body cannot take the set. Each body and route counts its
+own launches, int32 and int16 state apart, and the lanes and cluster
+bodies' rows past LANES_LONG_L (C = 9..16, two rows a warp in registers)
+apart from the shorter ones.
 
 state_dtype="int16" (not the default: "auto" is int32) stores the column
 and emits end / spend as int16, which halves K1's output bytes and lets
@@ -59,6 +69,17 @@ LANES_LONG_L = 256
 # the cluster body's largest cluster (csrc/chain_dp_cluster.cuh kClusterMax;
 # above 8 blocks the launch allows a non-portable size)
 CLUSTER_MAX = 16
+# the tiled bodies' warps a block at most (csrc/chain_dp_tiled.cu kTiledWarps)
+TILED_WARPS = 32
+# `tiled_layout`'s model of a position's integer instructions on one SM: a
+# cell's, a warp's row segment's fixed part (the chain max, the scan, the
+# emit), and the warp carry's where a row is split; the SM issues them on 4
+# schedulers
+TILED_CELL_OPS, TILED_SEGMENT_OPS, TILED_SPLIT_OPS = 22, 250, 60
+# the tiled cluster body's fixed part of a position (the chain max, a scan,
+# the exchange and the barrier), in padded cells a block steps in the same
+# time: `cluster_plan` weighs it against a block's rows
+TILED_FIXED_CELLS = 5000
 # ablation variant -> csrc/chain_dp.cuh Variant (base is the chunked body's launch)
 _VARIANT_CODES = {v: i for i, v in enumerate(plain.VARIANTS)}
 
@@ -89,17 +110,73 @@ def reg_rows(L: int) -> int:
     return 1 if L <= LANES_LONG_L else 2
 
 
-def cluster_shape(M: int, L: int, state_bytes: int, cs: int):
-    """The cluster body's launch for M rows padded to L over clusters of cs
-    blocks: (R, form, threads, smem), or None where it does not fit. Block r
-    owns rows r*R .. min(M, (r+1)*R) - 1, R = ceil(M / cs), and must own at
-    least one. R <= 32 rows live in registers ("regs"), a warp for every
-    `reg_rows(L)` rows (32 * ceil(R / reg_rows) threads); more live in
-    shared memory, lane-contiguous ("rows_dense" where L is 32 lanes x C
-    cells, else "rows"), on the lanes body's 1,024 or 512 threads. The
-    shared memory (csrc/chain_dp_cluster.cuh cluster_smem_bytes): 8 * M
-    bytes of parity buffers, plus the R rows' (2 * state bytes + 1) * L
-    bytes in the shared-memory forms, within SMEM_LIMIT."""
+def tiled_layout(R: int, L: int) -> tuple[int, int, int]:
+    """(G, C, threads) of the tiled bodies for R rows a block padded to L:
+    G warps a row, C = ceil(L / (32 G)) cells a lane, G then cut to the
+    fewest warps that cover L at that C; a warp a row segment, at most
+    TILED_WARPS warps (32 or more rows take one warp each in turn, G = 1).
+    The bodies are bound by the SM's integer issue (PERF.md §6), so G
+    is the one (up to floor(32 / R)) with the fewest instructions on the
+    busiest of the 4 schedulers a position: ceil(R G / 4) segments of
+    TILED_CELL_OPS x C + TILED_SEGMENT_OPS (+ TILED_SPLIT_OPS where G > 1),
+    ties to fewer warps. So rows are split where a block has few of them:
+    the 2,056 bp HOR unit's 2 rows take 2 warps each (C = 33), a block of
+    one 17 kbp row 4 (C = 134), the 24 trimers one warp each."""
+    def load(g):
+        c = -(-L // (32 * g))
+        return -(-R * g // 4) * (TILED_CELL_OPS * c + TILED_SEGMENT_OPS
+                                 + (TILED_SPLIT_OPS if g > 1 else 0))
+
+    top = 1 if R >= TILED_WARPS else max(1, min(TILED_WARPS // R, -(-L // 32)))
+    G = min(range(1, top + 1), key=lambda g: (load(g), g))
+    C = -(-L // (32 * G))
+    G = -(-L // (32 * C))
+    return G, C, 32 * min(TILED_WARPS, R * G)
+
+
+def tiled_smem_bytes(M: int, R: int, G: int, C: int, state_bytes: int) -> int:
+    """Shared memory of one block of the tiled bodies (csrc/chain_dp_tiled.cu
+    tiled_smem_bytes): 8 * M bytes of parity buffers; 256 bytes of lane
+    carries a row segment (R * G of them), and 24 more where G > 1 (a warp
+    total, two boundary cells); the R rows' scores and pointers, P = 32 G C
+    cells of the state type each, and their codes, ceil(C / 4) words a
+    lane."""
+    P, S = 32 * G * C, R * G
+    return 8 * M + S * (256 + (24 if G > 1 else 0)) + R * (2 * state_bytes * P
+                                                          + 128 * G * -(-C // 4))
+
+
+def tiled_shape(M: int, L: int, state_bytes: int, cs: int):
+    """The tiled bodies' launch for M rows padded to L over cs blocks (cs = 1:
+    the shared route's tiled body): (R, "tiled", threads, smem), or None
+    where it does not fit. Block r owns rows r*R .. min(M, (r+1)*R) - 1, R =
+    ceil(M / cs), at least one; G and C from `tiled_layout(R, L)`; shared
+    memory `tiled_smem_bytes` within SMEM_LIMIT."""
+    if not (1 <= cs <= CLUSTER_MAX and L >= 1 and M >= 1):
+        return None
+    R = -(-M // cs)
+    if (cs - 1) * R >= M:
+        return None
+    G, C, threads = tiled_layout(R, L)
+    smem = tiled_smem_bytes(M, R, G, C, state_bytes)
+    return (R, "tiled", threads, smem) if smem <= SMEM_LIMIT else None
+
+
+def cluster_shape(M: int, L: int, state_bytes: int, cs: int, tiled: bool | None = None):
+    """The large route's cluster launch for M rows padded to L over clusters
+    of cs blocks: (R, form, threads, smem), or None where it does not fit.
+    Past LANES_MAX_L (or with `tiled`) it is the tiled cluster body's,
+    `tiled_shape`. Else the cluster body's: block r owns rows r*R .. min(M,
+    (r+1)*R) - 1, R = ceil(M / cs), and must own at least one. R <= 32 rows
+    live in registers ("regs"), a warp for every `reg_rows(L)` rows (32 *
+    ceil(R / reg_rows) threads); more live in shared memory, lane-contiguous
+    ("rows_dense" where L is 32 lanes x C cells, else "rows"), on the lanes
+    body's 1,024 or 512 threads. The shared memory
+    (csrc/chain_dp_cluster.cuh cluster_smem_bytes): 8 * M bytes of parity
+    buffers, plus the R rows' (2 * state bytes + 1) * L bytes in the
+    shared-memory forms, within SMEM_LIMIT."""
+    if tiled or (tiled is None and L > LANES_MAX_L):
+        return tiled_shape(M, L, state_bytes, cs)
     if not (1 <= cs <= CLUSTER_MAX and 1 <= L <= LANES_MAX_L and M >= 1):
         return None
     R = -(-M // cs)
@@ -116,12 +193,17 @@ def cluster_shape(M: int, L: int, state_bytes: int, cs: int):
 
 
 def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = None,
-                 active=None):
-    """(cs, R, form, threads, smem) of the cluster body for a monomer set,
-    or None where no cluster of up to CLUSTER_MAX blocks fits (L >
-    LANES_MAX_L, or the rows too many for 16 blocks' shared memory). A pure
-    function of its arguments. The rule: the fewest waves x (1 + rows a
-    warp steps a position), ties to the fewest blocks a cluster. A launch of
+                 active=None, tiled: bool | None = None):
+    """(cs, R, form, threads, smem) of the large route's cluster launch for a
+    monomer set: the cluster body's at L <= LANES_MAX_L, the tiled cluster
+    body's above (or with `tiled`); None where no cluster of up to
+    CLUSTER_MAX blocks fits (the rows too many for 16 blocks' shared
+    memory, or a row too long for one block's). A pure function of its
+    arguments. The rule: the fewest waves x (1 + rows a warp steps a
+    position) for the cluster body, waves x (1 + R * 32 G C /
+    TILED_FIXED_CELLS), the padded cells a block steps a position against
+    the fixed part, for the tiled one; ties to the fewest blocks a
+    cluster. A launch of
     `windows` clusters runs in ceil(windows / active(cs)) waves, `active`
     giving how many clusters of cs blocks the card runs at once (the
     wrapper passes cudaOccupancyMaxActiveClusters; sizes it says 0 for are
@@ -135,7 +217,7 @@ def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = Non
     size at 19 and 64 windows of M = 264 and at 64 of M = 200, and one
     within 9 % of it at 19 of M = 200."""
     shapes = [(cs, *shape) for cs in range(1, CLUSTER_MAX + 1)
-              if (shape := cluster_shape(M, L, state_bytes, cs)) is not None]
+              if (shape := cluster_shape(M, L, state_bytes, cs, tiled)) is not None]
     if windows is not None and active is not None:
         runs = {cs: active(cs) for cs, *_ in shapes}
         shapes = [plan for plan in shapes if runs[plan[0]] > 0] or shapes[:1]
@@ -143,22 +225,42 @@ def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = Non
         runs = None
 
     def cost(plan):
-        cs, R, _, threads, _ = plan
+        cs, R, form, threads, _ = plan
         waves = -(-windows // runs[cs]) if runs and runs[cs] > 0 else 1
+        if form == "tiled":
+            G, C, _ = tiled_layout(R, L)
+            return waves * (1 + R * 32 * G * C / TILED_FIXED_CELLS), cs
         return waves * (1 + -(-R // (threads // 32))), cs
 
     return min(shapes, key=cost) if shapes else None
 
 
 def body(M: int, L: int, state_bytes: int = 4) -> str:
-    """The K1 kernel body a monomer set runs: on the shared route "lanes"
-    (L <= LANES_MAX_L) or "chunked" (above it); on the large route
-    "cluster" (where `cluster_plan` finds a cluster: L <= LANES_MAX_L and
-    rows that 16 blocks hold) or "large" (the chunked body with its
-    device-memory scratch)."""
-    if route(M, L, state_bytes) == "shared":
-        return "lanes" if L <= LANES_MAX_L else "chunked"
-    return "cluster" if cluster_plan(M, L, state_bytes) is not None else "large"
+    """The K1 kernel body a monomer set runs. At L <= LANES_MAX_L: on the
+    shared route "lanes"; on the large route "cluster" where `cluster_plan`
+    finds a cluster of at most 16 blocks, else "large" (the chunked body
+    with its device-memory scratch). Above: on the shared route "tiled"
+    where the tiled form fits one block; else "cluster_tiled" where
+    `cluster_plan` finds a cluster of the tiled form (the large route, and
+    the shared-route sets whose padded rows do not fit one block); else the
+    chunked body, "chunked" on the shared route and "large" on the large
+    one (a row past one block's shared memory, a set past 16 blocks')."""
+    shared = route(M, L, state_bytes) == "shared"
+    if L <= LANES_MAX_L:
+        if shared:
+            return "lanes"
+        return "cluster" if cluster_plan(M, L, state_bytes) is not None else "large"
+    if shared and tiled_shape(M, L, state_bytes, 1) is not None:
+        return "tiled"
+    if cluster_plan(M, L, state_bytes) is not None:
+        return "cluster_tiled"
+    return "chunked" if shared else "large"
+
+
+_rule = body  # the wrappers' `body=` argument shadows the rule's name
+# the bodies of each route, as `body` and the wrappers' `body=` name them
+SHARED_BODIES = ("lanes", "tiled", "chunked")
+LARGE_BODIES = ("cluster", "cluster_tiled", "large")
 
 
 def check_monomer_set(M: int, L: int) -> None:
@@ -295,8 +397,9 @@ def _launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, scratch
 
 def _counter(dt: torch.dtype, kind: str = "", L: int = 0) -> str:
     """The launch counter of a K1 body (`kind`: "" for the chunked body,
-    "lanes" or "cluster"), rows past LANES_LONG_L and int16 state apart."""
-    long = "_long" if kind and L > LANES_LONG_L else ""
+    "lanes", "cluster", "tiled" or "cluster_tiled"), the lanes and cluster
+    bodies' rows past LANES_LONG_L and int16 state apart."""
+    long = "_long" if kind in ("lanes", "cluster") and L > LANES_LONG_L else ""
     return f"launches{'_' + kind if kind else ''}{long}{'_int16' if dt == torch.int16 else ''}"
 
 
@@ -312,38 +415,53 @@ def chain_dp_forward_cuda(
     max_blocks: int = 0,
     return_debug: bool = False,
     state_dtype: str = "auto",
+    body: str | None = None,
 ):
-    """Same contract and outputs as ops/chain_dp.chain_dp_forward. Monomer
-    sets too large for the shared route (in the chosen state type) go to
-    chain_dp_large_cuda; the shared route runs the body `body` names."""
+    """Same contract and outputs as ops/chain_dp.chain_dp_forward. The set
+    runs the body `body(M, L, state bytes)` names, or the one `body=` names
+    (for the checks and the A/B: "lanes" at L <= LANES_MAX_L, "tiled" where
+    its form fits one block, "chunked" where the column does; a large-route
+    body goes to chain_dp_large_cuda); a body that cannot take the set
+    raises, on any device. The large route's bodies run in
+    chain_dp_large_cuda."""
     kw = dict(ins=ins, dele=dele, mismatch=mismatch, match=match, max_blocks=max_blocks,
               return_debug=return_debug, state_dtype=state_dtype)
     dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
+    M, L = mono.shape[-2], mono.shape[-1]
+    kind = body or _rule(M, L, dt.itemsize)
+    if kind in LARGE_BODIES:
+        return chain_dp_large_cuda(windows, window_lens, mono, mono_lens, body=body, **kw)
+    _require(kind in SHARED_BODIES, f"unknown K1 body {kind!r}; known: "
+             f"{', '.join(SHARED_BODIES + LARGE_BODIES)}")
+    fits = {"lanes": route(M, L, dt.itemsize) == "shared" and L <= LANES_MAX_L,
+            "tiled": tiled_shape(M, L, dt.itemsize, 1) is not None,
+            "chunked": route(M, L, dt.itemsize) == "shared"}[kind]
+    _require(fits, f"the {kind} body cannot take M={M}, L={L} at {dt.itemsize} state bytes")
     if not windows.is_cuda:
         return plain.chain_dp_forward(windows, window_lens, mono, mono_lens, **kw)
-    kind = body(mono.shape[-2], mono.shape[-1], dt.itemsize)
-    if kind in ("cluster", "large"):
-        return chain_dp_large_cuda(windows, window_lens, mono, mono_lens, **kw)
     B, W = windows.shape
-    L = mono.shape[-1]
     windows, mono, mono_lens, dp0, end, spend = _prologue(
         windows, window_lens, mono, mono_lens, dele, mismatch, match, dt)
     if B > 0:
-        lanes = kind == "lanes"
-        fn, lead, scratch = ((library().sd_chain_dp_lanes, (dt.itemsize,), ()) if lanes else
-                             (library().sd_chain_dp, (0, dt.itemsize), (None,)))
+        lib = library()
+        fn, lead, scratch = {"lanes": (lib.sd_chain_dp_lanes, (dt.itemsize,), ()),
+                             "tiled": (lib.sd_chain_dp_tiled,
+                                       (dt.itemsize, *tiled_layout(M, L)[:2]), ()),
+                             "chunked": (lib.sd_chain_dp, (0, dt.itemsize), (None,))}[kind]
         check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, 0, B, scratch,
                       ins, dele, mismatch, match), f"chain_dp {kind} kernel")
-        count_launch(chain_dp_forward_cuda, _counter(dt, "lanes" if lanes else "", L))
+        count_launch(chain_dp_forward_cuda, _counter(dt, "" if kind == "chunked" else kind, L))
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
-chain_dp_forward_cuda.launches = 0  # the chunked body (shared route, L > 512)
+chain_dp_forward_cuda.launches = 0  # the chunked body (shared route, past the tiled form)
 chain_dp_forward_cuda.launches_int16 = 0
 chain_dp_forward_cuda.launches_lanes = 0  # the lanes body (shared route, L <= 256)
 chain_dp_forward_cuda.launches_lanes_int16 = 0
 chain_dp_forward_cuda.launches_lanes_long = 0  # the lanes body at 256 < L <= 512
 chain_dp_forward_cuda.launches_lanes_long_int16 = 0
+chain_dp_forward_cuda.launches_tiled = 0  # the tiled body (shared route, L > 512)
+chain_dp_forward_cuda.launches_tiled_int16 = 0
 
 
 def _groups(B: int, M: int, L: int, dt: torch.dtype) -> int:
@@ -352,20 +470,27 @@ def _groups(B: int, M: int, L: int, dt: torch.dtype) -> int:
     return max(1, min(B, LARGE_SCRATCH_BYTES // (2 * dt.itemsize * M * L)))
 
 
-def cluster_occupancy(M: int, L: int, state_bytes: int, cluster_size: int, B: int = 1) -> int:
-    """cudaOccupancyMaxActiveClusters for the cluster body's launch of B
-    windows at (M, L) over clusters of `cluster_size` blocks, on the current
-    device: how many such clusters the card runs at once (0: none)."""
-    shape = cluster_shape(M, L, state_bytes, cluster_size)
+def cluster_occupancy(M: int, L: int, state_bytes: int, cluster_size: int, B: int = 1,
+                      tiled: bool | None = None) -> int:
+    """cudaOccupancyMaxActiveClusters for the large route's cluster launch of
+    B windows at (M, L) over clusters of `cluster_size` blocks (the tiled
+    cluster body's past LANES_MAX_L or with `tiled`), on the current device:
+    how many such clusters the card runs at once (0: none)."""
+    shape = cluster_shape(M, L, state_bytes, cluster_size, tiled)
     _require(shape is not None, f"cluster_size={cluster_size} does not fit M={M}, L={L}")
+    lead = (state_bytes, cluster_size, shape[0])
+    if shape[1] == "tiled":
+        fn, lead = library().sd_chain_dp_cluster_tiled_occupancy, (*lead,
+                                                                   *tiled_layout(shape[0], L)[:2])
+    else:
+        fn = library().sd_chain_dp_cluster_occupancy
     n = ctypes.c_int(0)
-    check(library().sd_chain_dp_cluster_occupancy(state_bytes, cluster_size, shape[0], B, M, L,
-                                                  ctypes.byref(n)),
-          "chain_dp cluster occupancy")
+    check(fn(*lead, B, M, L, ctypes.byref(n)), "chain_dp cluster occupancy")
     return n.value
 
 
-def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None):
+def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None,
+                    tiled: bool | None = None):
     """The large route's cluster launch (cs, R, form, threads, smem): the
     plan's for `windows` clusters on the current device (or, without them,
     the plan's default), or `cluster_size`'s where given, which must fit;
@@ -374,13 +499,14 @@ def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None
         active = None
         if windows:
             def active(cs):
-                return cluster_occupancy(M, L, state_bytes, cs, windows)
-        return cluster_plan(M, L, state_bytes, windows or None, active)
-    shape = cluster_shape(M, L, state_bytes, cluster_size)
+                return cluster_occupancy(M, L, state_bytes, cs, windows, tiled)
+        return cluster_plan(M, L, state_bytes, windows or None, active, tiled)
+    shape = cluster_shape(M, L, state_bytes, cluster_size, tiled)
     _require(shape is not None,
              f"cluster_size={cluster_size} is not admitted for M={M}, L={L}, state bytes "
-             f"{state_bytes}: it needs 1 <= cluster_size <= {CLUSTER_MAX}, L <= {LANES_MAX_L}, "
-             f"at least one row a block and the shared memory within {SMEM_LIMIT} bytes")
+             f"{state_bytes}: it needs 1 <= cluster_size <= {CLUSTER_MAX}, at least one row a "
+             f"block and the shared memory within {SMEM_LIMIT} bytes (the cluster body: L <= "
+             f"{LANES_MAX_L})")
     return (cluster_size, *shape)
 
 
@@ -397,19 +523,33 @@ def chain_dp_large_cuda(
     return_debug: bool = False,
     state_dtype: str = "auto",
     cluster_size: int | None = None,
+    body: str | None = None,
 ):
     """K1's large route, for any monomer-set size (chain_dp_forward_cuda
     takes it when the shared route does not fit; it is called directly to
     check it against the shared route and to sweep cluster sizes). Same
-    contract and outputs. At L <= LANES_MAX_L it runs the cluster body over
-    clusters of `cluster_plan`'s size, or of `cluster_size` where given
-    (checked against what shared memory admits, on any device); above, or
-    where no cluster fits, the chunked body with its device-memory scratch.
-    A cluster the card cannot schedule raises; it never falls back."""
+    contract and outputs. It runs the cluster body at L <= LANES_MAX_L and
+    the tiled cluster body above, over clusters of `cluster_plan`'s size, or
+    of `cluster_size` where given (checked against what shared memory
+    admits, on any device); where no cluster fits, the chunked body with its
+    device-memory scratch. `body=` names one for the checks and the A/B:
+    "cluster" (L <= LANES_MAX_L), "cluster_tiled" (any L) or "large" (the
+    chunked body); one that cannot take the set raises. A cluster the card
+    cannot schedule raises; it never falls back."""
     dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
     B, W = windows.shape
     M, L = mono.shape[-2], mono.shape[-1]
-    plan = _cluster_launch(M, L, dt.itemsize, cluster_size, B if windows.is_cuda else None)
+    _require(body in (None,) + LARGE_BODIES,
+             f"the large route runs {', '.join(LARGE_BODIES)}, not {body!r}")
+    _require(body != "cluster" or L <= LANES_MAX_L,
+             f"the cluster body takes L <= {LANES_MAX_L}, not {L}")
+    _require(body != "large" or cluster_size is None, "the chunked body takes no cluster_size")
+    plan = None
+    if body != "large":
+        plan = _cluster_launch(M, L, dt.itemsize, cluster_size, B if windows.is_cuda else None,
+                               True if body == "cluster_tiled" else None)
+        _require(plan is not None or body is None,
+                 f"the {body} body cannot take M={M}, L={L} at {dt.itemsize} state bytes")
     if not windows.is_cuda:
         return plain.chain_dp_forward(
             windows, window_lens, mono, mono_lens, ins=ins, dele=dele, mismatch=mismatch,
@@ -419,17 +559,21 @@ def chain_dp_large_cuda(
         windows, window_lens, mono, mono_lens, dele, mismatch, match, dt)
     lib = library()
     if plan is not None:
-        cs, R, _, threads, smem = plan
+        cs, R, form, threads, smem = plan
+        tiled = form == "tiled"
+        kind = "cluster_tiled" if tiled else "cluster"
         if B > 0:
-            if cluster_occupancy(M, L, dt.itemsize, cs, B) == 0:
+            if cluster_occupancy(M, L, dt.itemsize, cs, B, tiled) == 0:
                 raise RuntimeError(
-                    f"chain_dp cluster body cannot be scheduled: cudaOccupancyMaxActiveClusters "
+                    f"chain_dp {kind} body cannot be scheduled: cudaOccupancyMaxActiveClusters "
                     f"is 0 for M={M}, L={L}, cluster_size={cs} ({R} rows, {threads} threads "
                     f"and {smem} bytes of shared memory a block)")
-            check(_launch(lib.sd_chain_dp_cluster, (dt.itemsize, cs, R), windows, mono,
-                          mono_lens, dp0, end, spend, 0, B, (), ins, dele, mismatch, match),
-                  "chain_dp cluster kernel")
-            count_launch(chain_dp_large_cuda, _counter(dt, "cluster", L))
+            fn, lead = ((lib.sd_chain_dp_cluster_tiled,
+                         (dt.itemsize, cs, R, *tiled_layout(R, L)[:2])) if tiled else
+                        (lib.sd_chain_dp_cluster, (dt.itemsize, cs, R)))
+            check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, 0, B, (), ins,
+                          dele, mismatch, match), f"chain_dp {kind} kernel")
+            count_launch(chain_dp_large_cuda, _counter(dt, kind, L))
         return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
     group = _groups(B, M, L, dt)
     sp = torch.empty((group, M, L), dtype=dt, device=windows.device)
@@ -442,12 +586,14 @@ def chain_dp_large_cuda(
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
-chain_dp_large_cuda.launches = 0  # the chunked body (L > 512, or no cluster fits)
+chain_dp_large_cuda.launches = 0  # the chunked body (no cluster fits)
 chain_dp_large_cuda.launches_int16 = 0
 chain_dp_large_cuda.launches_cluster = 0  # the cluster body (L <= 256)
 chain_dp_large_cuda.launches_cluster_int16 = 0
 chain_dp_large_cuda.launches_cluster_long = 0  # the cluster body at 256 < L <= 512
 chain_dp_large_cuda.launches_cluster_long_int16 = 0
+chain_dp_large_cuda.launches_cluster_tiled = 0  # the tiled cluster body (L > 512)
+chain_dp_large_cuda.launches_cluster_tiled_int16 = 0
 
 
 def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: bool,

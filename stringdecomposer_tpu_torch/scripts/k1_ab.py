@@ -29,18 +29,33 @@ windows (B = 19) and the first 64 windows of the 1.6 Mbp synthetic assembly
 rows past 256 bp: the golden windows against the DXZ1 dimers with RC (M =
 24, L = 360: the shared route) and 150 dimer variants (M = 150: the large
 route; workloads.joined_set and joined_variants, seed 0), in int32 and
-int16 state, and against the trimers and 150 trimer variants cut to 512 bp
-(M = 24 and 150, L = 512), int32: a parent before the lanes and cluster
-bodies took L > 256 runs them on its chunked body. With `--sweep` (a
+int16 state, against the trimers and 150 trimer variants cut to 512 bp
+(M = 24 and 150, L = 512), int32 (a parent before the lanes and cluster
+bodies took L > 256 runs them on its chunked body), against the trimers
+and their variants whole (L = 528) and the DXZ1 HOR unit (workloads.
+hor_unit, M = 2, L = 2,056), int32 and int16, and the ~17 kbp unit of 100
+DXZ1 monomers against its 7 windows of a read of two copies of it with 1 %
+of bases substituted (seed 0; M = 2, L = 17,136), int32 (int16 is refused
+there): a parent before the tiled bodies runs those on its chunked body.
+With `--sweep` (a
 checkout that has the cluster body), the `--large` shapes and the golden
 windows x the 150 dimer variants (L = 360) through `chain_dp_large_cuda`
 at every cluster size the shared memory admits, each with its
 cudaOccupancyMaxActiveClusters and its digest against the plan's, then the
 golden windows against the library's first 64 and 128 rows on the lanes
 body and on the cluster body at each cluster size (sets the shared route
-takes, timed on both bodies). With `--e2e`, the script instead runs the
+takes, timed on both bodies). With `--tiled` (a checkout that has the
+tiled bodies), the golden windows x the DXZ1 HOR unit (the tiled body)
+and the ~17 kbp unit's windows (the tiled cluster body, a row a block) at
+1, 2, 4, 8, 16 and 32 warps a row (`tiled_layout` replaced for the run,
+C = ceil(L / 32 G)), each with its digest against the rule's, then the
+golden windows x the DXZ1 trimers and their 150 variants on the tiled
+cluster body at every cluster size the shared memory admits
+(`body="cluster_tiled"`), with its cudaOccupancyMaxActiveClusters, against
+the rule's body. With `--e2e`, the script instead runs the
 port end to end on the golden read against DXZ1 (`pipeline.run`,
-`--second-best`, on the card), plain and with `ed_thr=10` (run (i)), and the
+`--second-best`, on the card), plain and with `ed_thr=10` (run (i)), the
+golden read against the DXZ1 trimers and against the DXZ1 HOR unit, and the
 1.6 Mbp assembly against the library unfiltered (run (iii)): one warm-up
 run, then E2E_REPS (run (iii): E2E_REPS_III) runs timed on the host clock up
 to a synchronize, then one run with the stage timer on for its spans
@@ -119,12 +134,35 @@ def large_shapes(fasta, oracle, chain_dp, workloads):
     return out
 
 
+def unit_case(fasta, oracle, chain_dp, workloads):
+    """The ~17 kbp unit's shape: its windows (5,000 bp, 500 bp overlap,
+    padded to 5,500) of a read of two copies of the unit of 100 DXZ1
+    monomers with 1 % of its bases substituted (numpy seed 0, as chip_smoke's
+    `wide_case`), and the unit with RC padded to a multiple of 8."""
+    import numpy as np
+
+    dxz1 = fasta.load_fasta(str(DATA / "DXZ1_star_monomers.fa"))
+    unit = workloads.joined_set(dxz1, 100)[0]
+    r = np.random.default_rng(0)
+    seq = np.array(list(unit.seq * 2))
+    hit = r.choice(len(seq), len(seq) // 100, replace=False)
+    seq[hit] = [("ACGT".replace(c, ""))[int(r.integers(3))] for c in seq[hit]]
+    codes = fasta.encode("".join(seq))
+    wins = [codes[o : o + n] for o, n in oracle.make_windows(len(codes), 5000, 500)]
+    wb, wl = chain_dp.build_window_batch(wins, 5500)
+    mono, lens = fasta.pad_monomers(fasta.add_reverse_complement([unit]),
+                                    pad_to=(len(unit.seq) + 7) // 8 * 8)
+    return wb, wl, mono, lens
+
+
 def long_shapes(fasta, oracle, chain_dp, workloads, cut=None):
     """(name, windows, window lens, mono, mono lens, state) of `--long`: the
     golden windows x the DXZ1 dimers and their 150 variants (L = 360), int32
-    and int16, and x the trimers and their 150 variants cut to 512 bp (L =
-    512), int32. With `cut`, only the sets of that name ("dimers variants"
-    for `--sweep`), int32."""
+    and int16, x the trimers and their 150 variants cut to 512 bp (L = 512),
+    int32, x the trimers and their variants whole (L = 528) and the HOR unit
+    (L = 2,056), int32 and int16; the ~17 kbp unit's windows x the unit, int32.
+    With `cut`, only the sets of that name ("dimers variants" for
+    `--sweep`), int32."""
     import numpy as np
 
     dxz1 = fasta.load_fasta(str(DATA / "DXZ1_star_monomers.fa"))
@@ -132,7 +170,8 @@ def long_shapes(fasta, oracle, chain_dp, workloads, cut=None):
     wins = [codes[o : o + n] for o, n in oracle.make_windows(len(codes), 5000, 500)]
     wb, wl = chain_dp.build_window_batch(wins, 5500)
     out = []
-    for k, width, states in ((2, 360, ("int32", "int16")), (3, 512, ("int32",))):
+    both = ("int32", "int16")
+    for k, width, states in ((2, 360, both), (3, 512, ("int32",)), (3, 528, both)):
         for what, records in ((f"{'di' if k == 2 else 'tri'}mers", workloads.joined_set(dxz1, k)),
                               (f"{'di' if k == 2 else 'tri'}mers variants",
                                workloads.joined_variants(dxz1, k, 150, np.random.default_rng(0)))):
@@ -142,6 +181,25 @@ def long_shapes(fasta, oracle, chain_dp, workloads, cut=None):
             mono, lens = fasta.pad_monomers(fasta.add_reverse_complement(records), pad_to=width)
             for dt in (("int32",) if cut else states):
                 out.append((f"golden x {what} M={len(lens)} L={width}", wb, wl, mono, lens, dt))
+    if cut is None:
+        mono, lens = fasta.pad_monomers(
+            fasta.add_reverse_complement(workloads.hor_unit(dxz1)), pad_to=2056)
+        out += [("golden x HOR unit M=2 L=2056", wb, wl, mono, lens, dt) for dt in both]
+        wb2, wl2, mono, lens = unit_case(fasta, oracle, chain_dp, workloads)
+        out.append((f"17 kbp unit x its {len(wb2)} windows M=2 L={mono.shape[1]}", wb2, wl2, mono,
+                    lens, "int32"))
+    return out
+
+
+def joined_fastas(fasta, workloads, d):
+    """The DXZ1 trimers and the DXZ1 HOR unit as FASTAs in directory d (the
+    runs add RC): the golden read's e2e sets past 512 bp."""
+    dxz1 = fasta.load_fasta(str(DATA / "DXZ1_star_monomers.fa"))
+    out = {}
+    for name, records in (("trimers", workloads.joined_set(dxz1, 3)),
+                          ("hor_unit", workloads.hor_unit(dxz1))):
+        out[name] = f"{d}/{name}.fa"
+        fasta.write_fasta(out[name], records)
     return out
 
 
@@ -208,6 +266,53 @@ def sweep(torch, k1, shapes, dev, cap):
     return out
 
 
+def tiled_sweep(torch, k1, fasta, oracle, chain_dp, workloads, dev, cap):
+    """`--tiled`: the warps a row of the tiled bodies at the HOR unit and
+    the ~17 kbp unit, then the trimers on the tiled cluster body at every
+    admissible cluster size against the tiled body."""
+    golden = [sh for sh in long_shapes(fasta, oracle, chain_dp, workloads)
+              if sh[5] == "int32" and ("HOR" in sh[0] or "17 kbp" in sh[0]
+                                        or sh[0].endswith("L=528"))]
+    out, rule = {}, k1.tiled_layout
+    for name, *arrays, _ in golden:
+        a = [torch.from_numpy(x).to(dev) for x in arrays]
+        M, L = arrays[2].shape
+        want = digest(*k1.chain_dp_forward_cuda(*a, max_blocks=cap))
+        row = {"body": k1.body(M, L), "rule_ms": ms(
+            torch, lambda: k1.chain_dp_forward_cuda(*a, max_blocks=cap), SWEEP_REPS)}
+        if "trimers" in name:  # every cluster size, against the rule's body
+            for cs in range(1, k1.CLUSTER_MAX + 1):
+                if k1.cluster_shape(M, L, 4, cs) is None:
+                    continue
+                occ = k1.cluster_occupancy(M, L, 4, cs, len(a[0]))
+                if occ == 0:
+                    continue
+                kw = dict(max_blocks=cap, body="cluster_tiled", cluster_size=cs)
+                row[f"cluster_{cs}"] = {
+                    "occupancy": occ, "digest_equal": digest(*k1.chain_dp_large_cuda(
+                        *a, **kw)) == want,
+                    "ms": ms(torch, lambda: k1.chain_dp_large_cuda(*a, **kw), SWEEP_REPS)}
+            out[name] = row
+            continue
+        R = M if row["body"] == "tiled" else 1  # the unit: a row a block
+        row["rule"] = rule(R, L)[:2]
+        for G in (1, 2, 4, 8, 16, 32):
+            C = -(-L // (32 * G))
+            g = -(-L // (32 * C))
+            if g > 1 and R * g > k1.TILED_WARPS:
+                continue
+            k1.tiled_layout = lambda R_, L_, g=g, C=C: (g, C, 32 * min(k1.TILED_WARPS, R_ * g))
+            try:
+                row[f"G={g}, C={C}"] = {
+                    "digest_equal": digest(*k1.chain_dp_forward_cuda(*a, max_blocks=cap)) == want,
+                    "ms": ms(torch, lambda: k1.chain_dp_forward_cuda(*a, max_blocks=cap),
+                             SWEEP_REPS)}
+            finally:
+                k1.tiled_layout = rule
+        out[name] = row
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", help="directory holding the checkout's stringdecomposer_tpu_torch")
@@ -217,9 +322,11 @@ def main() -> int:
     what.add_argument("--large", action="store_true",
                       help="time the large route's shapes (M = 264, 200; B = 19, 64; int32, int16)")
     what.add_argument("--long", action="store_true",
-                      help="time K1 at L = 360 and 512 (M = 24, 150; int32, int16)")
+                      help="time K1 at L = 360, 512, 528, 2,056 and ~17 kbp (int32, int16)")
     what.add_argument("--sweep", action="store_true",
                       help="time the large route's shapes and L = 360 at every cluster size")
+    what.add_argument("--tiled", action="store_true",
+                      help="time the tiled bodies at every warps a row and the trimers on clusters")
     what.add_argument("--e2e", action="store_true",
                       help="time the golden run, run (i) and run (iii) end to end instead")
     args = ap.parse_args()
@@ -233,8 +340,11 @@ def main() -> int:
         read, dxz1 = str(DATA / "read.fa"), str(DATA / "DXZ1_star_monomers.fa")
         with tempfile.TemporaryDirectory() as d:
             lib, asm = large_library(fasta, workloads, d)
+            sets = joined_fastas(fasta, workloads, d)
             res["e2e"] = e2e(torch, [("golden", read, dxz1, E2E_REPS, {}),
                                      ("run (i) ed_thr 10", read, dxz1, E2E_REPS, {"ed_thr": 10}),
+                                     ("golden x trimers", read, sets["trimers"], E2E_REPS, {}),
+                                     ("golden x HOR unit", read, sets["hor_unit"], E2E_REPS, {}),
                                      ("run (iii) unfiltered", asm, lib, E2E_REPS_III, {})])
         print(json.dumps(res))
         return 0
@@ -244,6 +354,10 @@ def main() -> int:
         at = large_shapes(fasta, oracle, chain_dp, workloads) + [
             sh[:5] for sh in long_shapes(fasta, oracle, chain_dp, workloads, "dimers variants")]
         res["sweep"] = sweep(torch, k1, at, dev, cap)
+        print(json.dumps(res))
+        return 0
+    if args.tiled:
+        res["tiled"] = tiled_sweep(torch, k1, fasta, oracle, chain_dp, workloads, dev, cap)
         print(json.dumps(res))
         return 0
     res["shapes"] = {}

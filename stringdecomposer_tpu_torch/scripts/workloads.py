@@ -1,6 +1,6 @@
 """Seeded synthetic workloads of chip_smoke.py and the A/B scripts beside
 this file: a HOR-scale monomer library, monomer sets of joined units
-(dimers, trimers) and their variants, a centromere-like assembly and the
+(dimers, trimers, the whole HOR) and their variants, a centromere-like assembly and the
 alignment API's pairs, all drawn from a numpy.random.default_rng. The
 import below is absolute, so that the A/B scripts can load this file beside
 another checkout's package."""
@@ -42,11 +42,19 @@ def joined_set(records, k: int):
     12 dimers of 338-357 bp (24 with RC, padded to L = 360: K1's lanes and
     cluster bodies at C = 12, as alpha-satellite dimers or a ~360 bp
     satellite family would run); k = 3, 12 trimers of 507-527 bp (L = 528,
-    past the lanes body's 512: K1's chunked body)."""
+    past the lanes body's 512: K1's tiled body)."""
     n = len(records)
     return [Record("+".join(records[(i + j) % n].name.split()[0] for j in range(k)),
                    "".join(records[(i + j) % n].seq for j in range(k)))
             for i in range(n)]
+
+
+def hor_unit(records):
+    """The monomers joined in file order into one record, named `<first
+    word>+...+<first word>`: a higher-order repeat unit as one monomer. From
+    the 12 DXZ1 monomers: the 2,054 bp DXZ1 HOR (2 rows with RC, padded to L
+    = 2,056: K1's tiled body, its rows split over 13 warps)."""
+    return joined_set(records, len(records))[:1]
 
 
 def joined_variants(records, k: int, n: int, rng):
@@ -54,7 +62,7 @@ def joined_variants(records, k: int, n: int, rng):
     5 % of its bases substituted at random, named `v<k>_<j>`; with RC, n
     rows. For n = 150 a set too large for K1's shared route in int32 and
     int16: at k = 2 (L = 360) the large route's cluster body, at k = 3 (L =
-    528) its chunked body. k = 2 with numpy.random.default_rng(0) draws the
+    528) its tiled cluster body. k = 2 with numpy.random.default_rng(0) draws the
     dimer variants chip_smoke has driven since its dimer cases began."""
     units = joined_set(records, k)
     out = []

@@ -192,7 +192,9 @@ def test_cluster_plan_invariants(sb):
             large = chain_dp_cuda.route(M, L, sb) == "large"
             assert (chain_dp_cuda.body(M, L, sb) == "cluster") == (large and plan is not None)
     for M, L in ((264, 513), (24, 528), (5000, 192), (1400, 512)):
-        assert chain_dp_cuda.cluster_plan(M, L, sb) is None
+        plan = chain_dp_cuda.cluster_plan(M, L, sb)
+        assert (plan is None) == (L <= 512)  # past 512: the tiled cluster body's plan
+        assert plan is None or plan[2] == "tiled"
 
 
 def test_constants_match_the_kernel_source():

@@ -180,14 +180,19 @@ def _counters():
     ("cluster", 360, torch.int16, "launches_cluster_long_int16"),
     ("", 360, torch.int32, "launches"),
     ("", 528, torch.int16, "launches_int16"),
+    ("tiled", 528, torch.int32, "launches_tiled"),
+    ("tiled", 2056, torch.int16, "launches_tiled_int16"),
+    ("cluster_tiled", 528, torch.int32, "launches_cluster_tiled"),
+    ("cluster_tiled", 17136, torch.int16, "launches_cluster_tiled_int16"),
 ])
 def test_each_body_counts_its_own_launches(kind, L, dt, want):
     """The counter a launch adds to: the chunked body ("") on either route
     whatever L is, the lanes and cluster bodies with rows past LANES_LONG_L
-    (C = 9..16) apart from the shorter ones, int16 apart; every name is a
+    (C = 9..16) apart from the shorter ones, the tiled and tiled cluster
+    bodies past 512 with no such suffix, int16 apart; every name is a
     counter of its route's wrapper."""
     assert chain_dp_cuda._counter(dt, kind, L) == want
-    fn = (chain_dp_cuda.chain_dp_large_cuda if kind == "cluster" else
+    fn = (chain_dp_cuda.chain_dp_large_cuda if kind in ("cluster", "cluster_tiled") else
           chain_dp_cuda.chain_dp_forward_cuda)
     assert isinstance(getattr(fn, want), int)
     if not kind:
@@ -204,7 +209,7 @@ def test_each_body_counts_its_own_launches(kind, L, dt, want):
     (512, 512, 2, (16, 32, "regs", 512, 4096)),
     (1376, 512, 2, (16, 86, "rows_dense", 512, 231168)),
     (1400, 512, 2, None),
-    (150, 513, 4, None),
+    (150, 513, 4, (15, 10, "tiled", 320, 53680)),
 ])
 def test_cluster_plan_at_long_rows(M, L, sb, want):
     """Without the card's occupancy the plan is the smallest cluster whose
@@ -212,8 +217,10 @@ def test_cluster_plan_at_long_rows(M, L, sb, want):
     ceil(R / 2) warps (the 150 dimer variants: 5 blocks of 30 rows on 15
     warps); past 16 blocks of 32 rows the rows go to shared memory, where
     8 * M + (2 * 2 + 1) * 512 * R bytes hold R = 86 rows a block of 1,376
-    rows of int16 and 1,400 rows do not fit 16 blocks; past L = 512 there is
-    no plan."""
+    rows of int16 and 1,400 rows do not fit 16 blocks; past L = 512 the plan
+    is the tiled cluster body's, which without the occupancy counts every
+    launch as one wave and so takes the fewest rows a block (150 rows of
+    513 bp: 15 blocks of 10, a warp a row, C = 17)."""
     assert chain_dp_cuda.cluster_plan(M, L, sb) == want
 
 
@@ -232,11 +239,14 @@ def test_cluster_plan_waves_at_the_dimer_variants():
 
 
 def test_cluster_size_past_512_is_refused(dimer_case):
-    """A cluster size given for a set past L = 512 (or a C outside the
-    compiled menu) is refused on any device, never run on another body."""
+    """Past L = 512 a set takes the tiled bodies (24 rows of 520 bp the tiled
+    body, 150 the tiled cluster body); a cluster size the shared memory does
+    not admit there (24 rows of 26,000 bp in 2 blocks) is refused on any
+    device, never run on another body."""
     args, kw, _ = dimer_case
-    mono = torch.nn.functional.pad(args[2], (0, 160), value=5)  # L = 520
-    assert chain_dp_cuda.body(24, 520) == "chunked" and chain_dp_cuda.body(150, 520) == "large"
+    assert chain_dp_cuda.body(24, 520) == "tiled" and chain_dp_cuda.body(150, 520) == "cluster_tiled"
+    mono = torch.nn.functional.pad(args[2], (0, 26000 - 360), value=5)  # L = 26,000
+    assert chain_dp_cuda.body(24, 26000) == "large"
     with pytest.raises(ValueError, match="not admitted"):
         chain_dp_cuda.chain_dp_large_cuda(args[0], args[1], mono, args[3], cluster_size=2, **kw)
 
@@ -244,12 +254,12 @@ def test_cluster_size_past_512_is_refused(dimer_case):
 def test_joined_sets_take_the_bodies_chip_smoke_drives(test_data_dir):
     """The seeded sets chip_smoke.py and k1_ab.py drive: the DXZ1 dimers
     (M = 24, L = 360) take the lanes body, their 150 variants the cluster
-    body, the trimers (L = 528) the chunked shared route and their 150
-    variants the chunked large route, in int32 and int16; the variants of
+    body, the trimers (L = 528) the tiled body and their 150 variants the
+    tiled cluster body, in int32 and int16; the variants of
     k = 2 and seed 0 are the same draws as before the trimers existed (a
     substituted base never equals the dimer's)."""
     dxz1 = load_fasta(test_data_dir / "DXZ1_star_monomers.fa")
-    want = {(2, 24): "lanes", (2, 150): "cluster", (3, 24): "chunked", (3, 150): "large"}
+    want = {(2, 24): "lanes", (2, 150): "cluster", (3, 24): "tiled", (3, 150): "cluster_tiled"}
     for k in (2, 3):
         units = workloads.joined_set(dxz1, k)
         variants = workloads.joined_variants(dxz1, k, 150, np.random.default_rng(0))
