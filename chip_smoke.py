@@ -464,7 +464,8 @@ def main() -> int:
                              .encode() + b"".join(a.tobytes() for a in arrays)).hexdigest()
         if int16:
             return k1_int16_case(args, kw, lens_np, what, cluster_size, key)
-        extra = {k: v for k, v in (("cluster_size", cluster_size), ("body", body)) if v is not None}
+        extra = {k: v for k, v in (("cluster_size", cluster_size), ("force_body", body))
+                 if v is not None}
         got = fn(*args, **extra, **kw)
         if want is None:
             want = plain_k1(key, args, kw, "auto")
@@ -595,6 +596,29 @@ def main() -> int:
                     k1_case(wb, wl, mw, lw, sc, f"{what} cluster body cs={cs} vs the shared one",
                             fn=chain_dp_large_cuda, kernel=large_name(*mw.shape[-2:], 4, cs),
                             want=shared, cluster_size=cs)
+        # rows that end before a warp of the tiled bodies: per window two
+        # rows of up to 1,040 bp, on the tiled body over 2 warps of 544 cells
+        # a row and, at cs = 2 (a row a block), on the tiled cluster body
+        # over 4 warps of 288; full rows beside rows that end before the
+        # second, third or fourth warp, at and just past a warp's first
+        # cell, and of length 0
+        if k1.tiled_layout(2, 1040)[:2] != (2, 17) or k1.tiled_layout(1, 1040)[:2] != (4, 9):
+            raise AssertionError(f"tiled layouts at L = 1,040: {k1.tiled_layout(2, 1040)}, "
+                                 f"{k1.tiled_layout(1, 1040)}")
+        fwd = rand_monos(2, 1000, 1041)
+        _, (mono, _) = mono_set(fwd)
+        short = np.array([[1040, 300], [288, 1040], [543, 545], [864, 865], [1, 0]], np.int32)
+        mono_s = np.ascontiguousarray(np.broadcast_to(mono[:2], (len(short), 2, 1040)))
+        wb, wl = rand_windows(fwd, len(short), 600)
+        k1_case(wb, wl, mono_s, short, (-2, -1, -1, 2), "M=2 L=1040 rows ending before a warp",
+                int16=int16, cluster_size=2 if int16 else None)
+        if not int16:
+            k1_case(wb, wl, mono_s, short, (-2, -1, -1, 2), "M=2 L=1040 rows ending before a "
+                    "warp, cs=2", fn=chain_dp_large_cuda, kernel=large_name(2, 1040, 4, 2),
+                    cluster_size=2)
+        print(f"K1 {mode}: rows ending before a warp (per-window rows of 0-1,040 bp) on the "
+              "tiled body (G = 2, C = 17) and the tiled cluster body at cs = 2 (G = 4, C = 9) "
+              "bit-equal to the plain twin")
         print(f"K1 {mode}: random shapes (shared and per-window monomers; M = 24, 32, 33, 128, "
               "133 at L = 192, L = 8, 40, 176, 256, 304, 320, 360, 384, 512 on the lanes body, "
               "L = 544 and 1,040 on the tiled body) bit-equal to the plain twin" + (
@@ -934,13 +958,13 @@ def main() -> int:
         the shared route: `chain_dp`), more rows than 16 blocks hold (800
         int32 rows of 528 bp: `chain_dp_large`; 1,400 int16 rows:
         `chain_dp_large_int16`), and, since the int16 range check leaves it
-        no shared-route set, 20 rows of 544 bp with body="chunked"
+        no shared-route set, 20 rows of 544 bp with force_body="chunked"
         (`chain_dp_int16`)."""
         rng = np.random.default_rng(12)
         cases = (("M=1 L=25800", 1, 25800, 48, "int32", None, "chain_dp"),
                  ("M=800 L=528", 800, 528, 64, "int32", None, "chain_dp_large"),
                  ("M=1400 L=528 int16", 1400, 528, 64, "int16", None, "chain_dp_large_int16"),
-                 ("M=20 L=544 int16, body='chunked'", 20, 544, 400, "int16", "chunked",
+                 ("M=20 L=544 int16, force_body='chunked'", 20, 544, 400, "int16", "chunked",
                   "chain_dp_int16"))
         inputs, outs = {}, {}
         for what, M, L, W, *_ in cases:
@@ -957,7 +981,7 @@ def main() -> int:
         def path():
             for what, _, _, _, dt, body, _ in cases:
                 outs[what] = chain_dp_forward_cuda(*inputs[what], return_debug=True,
-                                                   state_dtype=dt, body=body)
+                                                   state_dtype=dt, force_body=body)
 
         got = drive("K1's chunked body at the shapes it keeps (chain_dp_forward_cuda)", path)
         names = [name for *_, name in cases]
@@ -965,13 +989,24 @@ def main() -> int:
                 got[k] for k in K1_BODY_NAMES if k not in names):
             raise AssertionError(f"chunked body: launches {got}")
         launches.update({k: got[k] for k in names})
-        for what, _, _, _, dt, _, name in cases:
+        for what, _, _, _, dt, body, name in cases:
             (bk, ck, (chk, ek, sk)) = outs[what]
-            bp, cp, (chp, ep, spp) = k1_plain.chain_dp_forward(*inputs[what], return_debug=True,
-                                                               state_dtype=dt)
+            p, (bp, cp, (chp, ep, spp)) = timed(lambda: k1_plain.chain_dp_forward(
+                *inputs[what], return_debug=True, state_dtype=dt), 0)
             for nm, g, w in (("blocks", bk, bp), ("counts", ck, cp), ("chain", chk, chp),
                              ("end", ek, ep), ("spend", sk, spp)):
                 smoke.same(name, f"{what} {nm}", g, w)
+            # the kernels line's row: K1 + walk at this shape, the launch's own
+            k, got = timed(lambda: chain_dp_forward_cuda(*inputs[what], state_dtype=dt,
+                                                         force_body=body), 5)
+            smoke.same(name, f"{what} timed blocks", got[0], bk)
+            win, _, mono, lens = inputs[what]
+            B, W = win.shape
+            bd = k1_bound(win, mono, lens, 2 if dt == "int16" else 4, blocks_out=B * (W * 16 + 4))
+            timing[name], bounds[name] = (statistics.median(k), p[0]), bd
+            print(f"K1 {name} + walk, {what}, {B} windows x {W}: kernel {spread(k)}; plain "
+                  f"{p[0]:.3f} ms; bound {bd[0]:.4f} ms ({bd[1]}), "
+                  f"{100 * bd[0] / statistics.median(k):.2f} % of it")
         print("K1's chunked body: " + "; ".join(f"{what} ({name})" for what, *_, name in cases)
               + ": launched through chain_dp_forward_cuda, bit-equal to the plain twin")
 
@@ -1421,15 +1456,13 @@ def main() -> int:
                 bounds[name] = bd16
                 line += f"; int16 plain {spread(p16)}"
             chunked = {"tiled": "chunked", "cluster_tiled": "large"}.get(k1_body(M, L, 2))
-            if keep and chunked:  # the chunked body's int16 row, at the same shape
+            if keep and chunked:  # the chunked body at the same shape, for comparison only
                 cname = k1_name(chunked, L, 2)
                 kc, gotc = timed(lambda: chain_dp_forward_cuda(
-                    *args, max_blocks=cap, state_dtype="int16", body=chunked), 3)
+                    *args, max_blocks=cap, state_dtype="int16", force_body=chunked), 3)
                 smoke.same(cname, f"{what}: int16 blocks vs the int16 twin", gotc[0], want16[0])
                 smoke.same(cname, f"{what}: int16 counts vs the int16 twin", gotc[1], want16[1])
-                timing[cname] = (statistics.median(kc), statistics.median(p16))
-                bounds[cname] = bd16
-                line += f"; the {chunked} body in int16 {spread(kc)}"
+                line += f"; the {chunked} body in int16 (not its row) {spread(kc)}"
             print(line)
 
     def ablate_run():
@@ -1509,7 +1542,8 @@ def main() -> int:
             """K1 + walk at the golden windows (or `windows`) x `records` with
             RC, timed, on the body the rule picks or on `body`; with `plain`,
             held to the plain twin (run once a shape) and kept as `name`'s row
-            of the kernels line, else timed only."""
+            of the kernels line, else timed only (and held to the twin where
+            an earlier call ran it on the shape: a comparison line)."""
             wb_, wl_ = windows or (wb, wl)
             _, (mono_np, lens_np) = mono_set(records)
             a = [torch.from_numpy(x).to(dev) for x in (wb_, wl_, mono_np, lens_np)]
@@ -1517,7 +1551,7 @@ def main() -> int:
             kind = body or k1_body(M, L)
             if k1_name(kind, L, 4) != name:
                 raise AssertionError(f"{what} (M={M}, L={L}): body {kind}, not {name}")
-            extra = {"body": body} if body else {}
+            extra = {"force_body": body} if body else {}
             k, got = timed(lambda: fn(*a, max_blocks=cap, **extra), reps)
             bd = k1_bound(a[0], a[2], a[3], 4, blocks_out=len(wb_) * (cap * 16 + 4))
             line = f"K1 {name} + walk, {len(wb_)} windows x 5500, {what} (M={M}, L={L})"
@@ -1529,16 +1563,18 @@ def main() -> int:
                 G, C, _ = k1.tiled_layout(M if kind == "tiled" else plan[1], L)
                 line += f" (G = {G} warps a row, C = {C})"
             line += f": kernel {spread(k)}"
-            if plain:
-                if what not in plain_runs:
-                    plain_runs[what] = timed(lambda: k1_plain.chain_dp_forward(
-                        *a, max_blocks=cap), 0)
+            if plain and what not in plain_runs:
+                plain_runs[what] = timed(lambda: k1_plain.chain_dp_forward(*a, max_blocks=cap), 0)
+            if what in plain_runs:
                 p, want = plain_runs[what]
                 smoke.same(name, f"golden windows x {what} blocks", got[0], want[0])
                 smoke.same(name, f"golden windows x {what} counts", got[1], want[1])
+            if plain:
                 timing[name] = (statistics.median(k), statistics.median(p))
                 bounds[name] = bd
                 line += f"; plain {spread(p)}"
+            else:
+                line += " (comparison, not the kernels line's row)"
             print(f"{line}; bound {bd[0]:.3f} ms ({bd[1]}), "
                   f"{100 * bd[0] / statistics.median(k):.2f} % of it")
 
@@ -1550,7 +1586,7 @@ def main() -> int:
         k1_time("chain_dp_lanes_long", "DXZ1 trimers cut to 512 bp",
                 [Record(r.name, r.seq[:512]) for r in trimers], plain=False)
         k1_time("chain_dp_tiled", "DXZ1 trimers", trimers)
-        k1_time("chain_dp", "DXZ1 trimers", trimers, body="chunked")
+        k1_time("chain_dp", "DXZ1 trimers", trimers, plain=False, body="chunked")
         k1_time("chain_dp_tiled", "DXZ1 HOR unit", hor, plain=False)
         _, _, (_, end, spend) = chain_dp_forward_cuda(*args, max_blocks=cap, return_debug=True)
         k, got = timed(lambda: block_walk_cuda(end, spend, args[1], cap), 10)
@@ -1636,7 +1672,8 @@ def main() -> int:
         k1_time("chain_dp_cluster_long", "150 trimer variants cut to 512 bp",
                 [Record(r.name, r.seq[:512]) for r in trimer_variants], plain=False)
         k1_time("chain_dp_cluster_tiled", "150 trimer variants", trimer_variants)
-        k1_time("chain_dp_large", "150 trimer variants", trimer_variants, reps=3, body="large")
+        k1_time("chain_dp_large", "150 trimer variants", trimer_variants, reps=3, plain=False,
+                body="large")
         k1_time("chain_dp_cluster_tiled", "the ~17 kbp unit", wmonos[:1], plain=False,
                 windows=(wbw, wlw))
         print("times: every timed kernel output bit-equal to its plain version's")

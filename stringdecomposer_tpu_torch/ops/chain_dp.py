@@ -291,7 +291,9 @@ class _TiledRows:
     over each warp's 32 lane totals, shifted to an exclusive prefix; the
     warp's carry, the earliest argmax of the earlier warps' totals; and each
     lane's new carry, its warp's earlier lanes' prefix where strictly
-    greater than the warp's carry, else that. Arithmetic is int32."""
+    greater than the warp's carry, else that. A warp whose segment starts at
+    or past its row's end (every warp of a row of length 0) skips the
+    position and keeps its cells and carries. Arithmetic is int32."""
 
     def __init__(self, windows, mono_b, lens_b, dp0, ins, dele, mismatch, match,
                  cells_per_lane, warps_per_row, tile):
@@ -321,6 +323,10 @@ class _TiledRows:
         self.first = (torch.arange(32 * G, device=dev) == 0)[:, None] & \
             (torch.arange(C, device=dev) == 0)  # [lanes, C]: k == 0
         self.end_idx = (self.n - 1).clamp(min=0).long()
+        # [B, M, lanes of the row]: the lanes of warps whose segment starts
+        # before the row's end
+        starts = torch.arange(G, dtype=i32, device=dev).repeat_interleave(32) * (32 * C)
+        self.live = starts < self.n
         self.windows = windows
         self.scores = (ins, mismatch, match)
 
@@ -376,8 +382,9 @@ class _TiledRows:
                 run_c = torch.where(take, cs, run_c)
                 new_q.append(run_t)
                 new_s.append(run_c)
-        self.q = torch.stack(new_q, dim=-1)
-        self.s = torch.stack(new_s, dim=-1)
+        live = self.live[..., None]
+        self.q = torch.where(live, torch.stack(new_q, dim=-1), self.q)
+        self.s = torch.where(live, torch.stack(new_s, dim=-1), self.s)
         # each warp's 32 lane totals: inclusive pair scan, then exclusive
         tot_t, (tot_c,) = pair_scan(run_t.view(B, M, G, 32), [run_c.view(B, M, G, 32)], torch.gt)
         et = torch.cat([torch.full_like(tot_t[..., :1], INT32_MIN), tot_t[..., :-1]], dim=-1)
@@ -387,8 +394,8 @@ class _TiledRows:
         wt = torch.cat([torch.full_like(wt[..., :1], INT32_MIN), wt[..., :-1]], dim=-1)[..., None]
         wc = torch.cat([torch.zeros_like(wc[..., :1]), wc[..., :-1]], dim=-1)[..., None]
         later = et > wt  # the earlier warps win ties
-        self.ct = torch.where(later, et, wt).reshape(B, M, 32 * G)
-        self.cc = torch.where(later, ec, wc).reshape(B, M, 32 * G)
+        self.ct = torch.where(self.live, torch.where(later, et, wt).reshape(B, M, 32 * G), self.ct)
+        self.cc = torch.where(self.live, torch.where(later, ec, wc).reshape(B, M, 32 * G), self.cc)
 
 
 def _rows_sweep(rows, windows, dtype):

@@ -29,8 +29,8 @@ blocks' shared memory, and the ablation's base. A shared-route set whose
 tiled form does not fit one block (the padding of its rows) runs the tiled
 cluster body. A C outside 1..16 is refused by the lanes and cluster
 entries, a shape past one block by the tiled entries, never run on another
-body; `body=` on the wrappers names a body for the checks and the A/B, and
-raises where that body cannot take the set. Each body and route counts its
+body; `force_body=` on the wrappers names a body for the checks and the
+A/B, and raises where that body cannot take the set. Each body and route counts its
 own launches, int32 and int16 state apart, and the lanes and cluster
 bodies' rows past LANES_LONG_L (C = 9..16, two rows a warp in registers)
 apart from the shorter ones.
@@ -76,10 +76,9 @@ TILED_WARPS = 32
 # emit), and the warp carry's where a row is split; the SM issues them on 4
 # schedulers
 TILED_CELL_OPS, TILED_SEGMENT_OPS, TILED_SPLIT_OPS = 22, 250, 60
-# the tiled cluster body's fixed part of a position (the chain max, a scan,
-# the exchange and the barrier), in padded cells a block steps in the same
-# time: `cluster_plan` weighs it against a block's rows
-TILED_FIXED_CELLS = 5000
+# the H100 SXM's SMs, over which a wave of the tiled cluster body's blocks
+# spreads (`cluster_plan`)
+SM_COUNT = 132
 # ablation variant -> csrc/chain_dp.cuh Variant (base is the chunked body's launch)
 _VARIANT_CODES = {v: i for i, v in enumerate(plain.VARIANTS)}
 
@@ -122,16 +121,19 @@ def tiled_layout(R: int, L: int) -> tuple[int, int, int]:
     ties to fewer warps. So rows are split where a block has few of them:
     the 2,056 bp HOR unit's 2 rows take 2 warps each (C = 33), a block of
     one 17 kbp row 4 (C = 134), the 24 trimers one warp each."""
-    def load(g):
-        c = -(-L // (32 * g))
-        return -(-R * g // 4) * (TILED_CELL_OPS * c + TILED_SEGMENT_OPS
-                                 + (TILED_SPLIT_OPS if g > 1 else 0))
-
     top = 1 if R >= TILED_WARPS else max(1, min(TILED_WARPS // R, -(-L // 32)))
-    G = min(range(1, top + 1), key=lambda g: (load(g), g))
+    G = min(range(1, top + 1), key=lambda g: (tiled_issue(R, g, -(-L // (32 * g))), g))
     C = -(-L // (32 * G))
     G = -(-L // (32 * C))
     return G, C, 32 * min(TILED_WARPS, R * G)
+
+
+def tiled_issue(R: int, G: int, C: int) -> int:
+    """`tiled_layout`'s model of one block of the tiled bodies: the integer
+    instructions on the busiest of an SM's 4 schedulers a position, for R
+    rows of G warps x C cells a lane."""
+    return -(-R * G // 4) * (TILED_CELL_OPS * C + TILED_SEGMENT_OPS
+                             + (TILED_SPLIT_OPS if G > 1 else 0))
 
 
 def tiled_smem_bytes(M: int, R: int, G: int, C: int, state_bytes: int) -> int:
@@ -162,22 +164,22 @@ def tiled_shape(M: int, L: int, state_bytes: int, cs: int):
     return (R, "tiled", threads, smem) if smem <= SMEM_LIMIT else None
 
 
-def cluster_shape(M: int, L: int, state_bytes: int, cs: int, tiled: bool | None = None):
+def cluster_shape(M: int, L: int, state_bytes: int, cs: int):
     """The large route's cluster launch for M rows padded to L over clusters
     of cs blocks: (R, form, threads, smem), or None where it does not fit.
-    Past LANES_MAX_L (or with `tiled`) it is the tiled cluster body's,
-    `tiled_shape`. Else the cluster body's: block r owns rows r*R .. min(M,
-    (r+1)*R) - 1, R = ceil(M / cs), and must own at least one. R <= 32 rows
-    live in registers ("regs"), a warp for every `reg_rows(L)` rows (32 *
-    ceil(R / reg_rows) threads); more live in shared memory, lane-contiguous
-    ("rows_dense" where L is 32 lanes x C cells, else "rows"), on the lanes
-    body's 1,024 or 512 threads. The shared memory
-    (csrc/chain_dp_cluster.cuh cluster_smem_bytes): 8 * M bytes of parity
-    buffers, plus the R rows' (2 * state bytes + 1) * L bytes in the
-    shared-memory forms, within SMEM_LIMIT."""
-    if tiled or (tiled is None and L > LANES_MAX_L):
+    Past LANES_MAX_L it is the tiled cluster body's, `tiled_shape`. Else the
+    cluster body's: block r owns rows r*R .. min(M, (r+1)*R) - 1, R =
+    ceil(M / cs), and must own at least one. R <= 32 rows live in registers
+    ("regs"), a warp for every `reg_rows(L)` rows (32 * ceil(R / reg_rows)
+    threads); more live in shared memory, lane-contiguous ("rows_dense"
+    where L is 32 lanes x C cells, else "rows"), on the lanes body's 1,024
+    or 512 threads. The shared memory (csrc/chain_dp_cluster.cuh
+    cluster_smem_bytes): 8 * M bytes of parity buffers, plus the R rows' (2
+    * state bytes + 1) * L bytes in the shared-memory forms, within
+    SMEM_LIMIT."""
+    if L > LANES_MAX_L:
         return tiled_shape(M, L, state_bytes, cs)
-    if not (1 <= cs <= CLUSTER_MAX and 1 <= L <= LANES_MAX_L and M >= 1):
+    if not (1 <= cs <= CLUSTER_MAX and L >= 1 and M >= 1):
         return None
     R = -(-M // cs)
     if (cs - 1) * R >= M:
@@ -193,31 +195,33 @@ def cluster_shape(M: int, L: int, state_bytes: int, cs: int, tiled: bool | None 
 
 
 def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = None,
-                 active=None, tiled: bool | None = None):
+                 active=None):
     """(cs, R, form, threads, smem) of the large route's cluster launch for a
     monomer set: the cluster body's at L <= LANES_MAX_L, the tiled cluster
-    body's above (or with `tiled`); None where no cluster of up to
-    CLUSTER_MAX blocks fits (the rows too many for 16 blocks' shared
-    memory, or a row too long for one block's). A pure function of its
-    arguments. The rule: the fewest waves x (1 + rows a warp steps a
-    position) for the cluster body, waves x (1 + R * 32 G C /
-    TILED_FIXED_CELLS), the padded cells a block steps a position against
-    the fixed part, for the tiled one; ties to the fewest blocks a
-    cluster. A launch of
-    `windows` clusters runs in ceil(windows / active(cs)) waves, `active`
-    giving how many clusters of cs blocks the card runs at once (the
-    wrapper passes cudaOccupancyMaxActiveClusters; sizes it says 0 for are
-    left out); a warp steps ceil(R / warps) rows a position: one or two
-    where the rows are in registers (R <= 32); the 1 is a position's fixed
-    part (the chain max, the exchange, the barrier), about one row's work:
-    on one H100 a wave of 5,500 positions took ~8 ms x (1 + rows a warp).
-    Without `windows` and `active` every launch counts as one wave, so the
-    rule is the smallest cs whose rows fit registers, else the smallest cs
-    that fits. On one H100 (k1_ab.py --sweep, PERF.md) it picks the fastest
-    size at 19 and 64 windows of M = 264 and at 64 of M = 200, and one
-    within 9 % of it at 19 of M = 200."""
+    body's above; None where no cluster of up to CLUSTER_MAX blocks fits
+    (the rows too many for 16 blocks' shared memory, or a row too long for
+    one block's). A pure function of its arguments. A launch of `windows`
+    clusters runs in ceil(windows / active(cs)) waves, `active` giving how
+    many clusters of cs blocks the card runs at once (the wrapper passes
+    cudaOccupancyMaxActiveClusters; sizes it says 0 for are left out).
+    The cluster body's rule: the fewest waves x (1 + rows a warp steps a
+    position), ties to the fewest blocks a cluster; a warp steps ceil(R /
+    warps) rows a position: one or two where the rows are in registers (R
+    <= 32); the 1 is a position's fixed part (the chain max, the exchange,
+    the barrier), about one row's work: on one H100 a wave of 5,500
+    positions took ~8 ms x (1 + rows a warp). The tiled cluster body's: the
+    fewest waves x the blocks a wave puts on one of SM_COUNT SMs x
+    `tiled_issue` of a block, the busiest SM's integer issue a position,
+    ties to the fewest blocks. Without `windows` and `active` every launch
+    counts as one wave of one cluster, so the rule is the smallest cs whose
+    rows fit registers, else the smallest cs that fits (the cluster body),
+    and the cs with the least issue a block (the tiled one). On one H100
+    (k1_ab.py --sweep, PERF.md) it picks the fastest size at 19 and 64
+    windows of M = 264 and at 64 of M = 200, and one within 9 % of it at 19
+    of M = 200; past 512 (k1_ab.py --tiled) the fastest at 19 windows of
+    the 150 trimer variants."""
     shapes = [(cs, *shape) for cs in range(1, CLUSTER_MAX + 1)
-              if (shape := cluster_shape(M, L, state_bytes, cs, tiled)) is not None]
+              if (shape := cluster_shape(M, L, state_bytes, cs)) is not None]
     if windows is not None and active is not None:
         runs = {cs: active(cs) for cs, *_ in shapes}
         shapes = [plan for plan in shapes if runs[plan[0]] > 0] or shapes[:1]
@@ -226,10 +230,12 @@ def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = Non
 
     def cost(plan):
         cs, R, form, threads, _ = plan
-        waves = -(-windows // runs[cs]) if runs and runs[cs] > 0 else 1
+        waves, at_once = 1, 1
+        if runs and runs[cs] > 0:
+            waves, at_once = -(-windows // runs[cs]), min(windows, runs[cs])
         if form == "tiled":
             G, C, _ = tiled_layout(R, L)
-            return waves * (1 + R * 32 * G * C / TILED_FIXED_CELLS), cs
+            return waves * -(-at_once * cs // SM_COUNT) * tiled_issue(R, G, C), cs
         return waves * (1 + -(-R // (threads // 32))), cs
 
     return min(shapes, key=cost) if shapes else None
@@ -257,8 +263,7 @@ def body(M: int, L: int, state_bytes: int = 4) -> str:
     return "chunked" if shared else "large"
 
 
-_rule = body  # the wrappers' `body=` argument shadows the rule's name
-# the bodies of each route, as `body` and the wrappers' `body=` name them
+# the bodies of each route, as `body` and the wrappers' `force_body=` name them
 SHARED_BODIES = ("lanes", "tiled", "chunked")
 LARGE_BODIES = ("cluster", "cluster_tiled", "large")
 
@@ -415,22 +420,23 @@ def chain_dp_forward_cuda(
     max_blocks: int = 0,
     return_debug: bool = False,
     state_dtype: str = "auto",
-    body: str | None = None,
+    force_body: str | None = None,
 ):
     """Same contract and outputs as ops/chain_dp.chain_dp_forward. The set
-    runs the body `body(M, L, state bytes)` names, or the one `body=` names
-    (for the checks and the A/B: "lanes" at L <= LANES_MAX_L, "tiled" where
-    its form fits one block, "chunked" where the column does; a large-route
-    body goes to chain_dp_large_cuda); a body that cannot take the set
-    raises, on any device. The large route's bodies run in
+    runs the body `body(M, L, state bytes)` names, or the one `force_body`
+    names (for the checks and the A/B: "lanes" at L <= LANES_MAX_L, "tiled"
+    where its form fits one block, "chunked" where the column does; a
+    large-route body goes to chain_dp_large_cuda); a body that cannot take
+    the set raises, on any device. The large route's bodies run in
     chain_dp_large_cuda."""
     kw = dict(ins=ins, dele=dele, mismatch=mismatch, match=match, max_blocks=max_blocks,
               return_debug=return_debug, state_dtype=state_dtype)
     dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
     M, L = mono.shape[-2], mono.shape[-1]
-    kind = body or _rule(M, L, dt.itemsize)
+    kind = force_body or body(M, L, dt.itemsize)
     if kind in LARGE_BODIES:
-        return chain_dp_large_cuda(windows, window_lens, mono, mono_lens, body=body, **kw)
+        return chain_dp_large_cuda(windows, window_lens, mono, mono_lens, force_body=force_body,
+                                   **kw)
     _require(kind in SHARED_BODIES, f"unknown K1 body {kind!r}; known: "
              f"{', '.join(SHARED_BODIES + LARGE_BODIES)}")
     fits = {"lanes": route(M, L, dt.itemsize) == "shared" and L <= LANES_MAX_L,
@@ -470,13 +476,12 @@ def _groups(B: int, M: int, L: int, dt: torch.dtype) -> int:
     return max(1, min(B, LARGE_SCRATCH_BYTES // (2 * dt.itemsize * M * L)))
 
 
-def cluster_occupancy(M: int, L: int, state_bytes: int, cluster_size: int, B: int = 1,
-                      tiled: bool | None = None) -> int:
+def cluster_occupancy(M: int, L: int, state_bytes: int, cluster_size: int, B: int = 1) -> int:
     """cudaOccupancyMaxActiveClusters for the large route's cluster launch of
     B windows at (M, L) over clusters of `cluster_size` blocks (the tiled
-    cluster body's past LANES_MAX_L or with `tiled`), on the current device:
-    how many such clusters the card runs at once (0: none)."""
-    shape = cluster_shape(M, L, state_bytes, cluster_size, tiled)
+    cluster body's past LANES_MAX_L), on the current device: how many such
+    clusters the card runs at once (0: none)."""
+    shape = cluster_shape(M, L, state_bytes, cluster_size)
     _require(shape is not None, f"cluster_size={cluster_size} does not fit M={M}, L={L}")
     lead = (state_bytes, cluster_size, shape[0])
     if shape[1] == "tiled":
@@ -489,8 +494,7 @@ def cluster_occupancy(M: int, L: int, state_bytes: int, cluster_size: int, B: in
     return n.value
 
 
-def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None,
-                    tiled: bool | None = None):
+def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None):
     """The large route's cluster launch (cs, R, form, threads, smem): the
     plan's for `windows` clusters on the current device (or, without them,
     the plan's default), or `cluster_size`'s where given, which must fit;
@@ -499,14 +503,13 @@ def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None
         active = None
         if windows:
             def active(cs):
-                return cluster_occupancy(M, L, state_bytes, cs, windows, tiled)
-        return cluster_plan(M, L, state_bytes, windows or None, active, tiled)
-    shape = cluster_shape(M, L, state_bytes, cluster_size, tiled)
+                return cluster_occupancy(M, L, state_bytes, cs, windows)
+        return cluster_plan(M, L, state_bytes, windows or None, active)
+    shape = cluster_shape(M, L, state_bytes, cluster_size)
     _require(shape is not None,
              f"cluster_size={cluster_size} is not admitted for M={M}, L={L}, state bytes "
              f"{state_bytes}: it needs 1 <= cluster_size <= {CLUSTER_MAX}, at least one row a "
-             f"block and the shared memory within {SMEM_LIMIT} bytes (the cluster body: L <= "
-             f"{LANES_MAX_L})")
+             f"block and the shared memory within {SMEM_LIMIT} bytes")
     return (cluster_size, *shape)
 
 
@@ -523,7 +526,7 @@ def chain_dp_large_cuda(
     return_debug: bool = False,
     state_dtype: str = "auto",
     cluster_size: int | None = None,
-    body: str | None = None,
+    force_body: str | None = None,
 ):
     """K1's large route, for any monomer-set size (chain_dp_forward_cuda
     takes it when the shared route does not fit; it is called directly to
@@ -532,24 +535,26 @@ def chain_dp_large_cuda(
     the tiled cluster body above, over clusters of `cluster_plan`'s size, or
     of `cluster_size` where given (checked against what shared memory
     admits, on any device); where no cluster fits, the chunked body with its
-    device-memory scratch. `body=` names one for the checks and the A/B:
-    "cluster" (L <= LANES_MAX_L), "cluster_tiled" (any L) or "large" (the
-    chunked body); one that cannot take the set raises. A cluster the card
-    cannot schedule raises; it never falls back."""
+    device-memory scratch. `force_body` names one for the checks and the
+    A/B: "cluster" (L <= LANES_MAX_L), "cluster_tiled" (L > LANES_MAX_L) or
+    "large" (the chunked body); one that cannot take the set raises. A
+    cluster the card cannot schedule raises; it never falls back."""
     dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
     B, W = windows.shape
     M, L = mono.shape[-2], mono.shape[-1]
-    _require(body in (None,) + LARGE_BODIES,
-             f"the large route runs {', '.join(LARGE_BODIES)}, not {body!r}")
-    _require(body != "cluster" or L <= LANES_MAX_L,
+    _require(force_body in (None,) + LARGE_BODIES,
+             f"the large route runs {', '.join(LARGE_BODIES)}, not {force_body!r}")
+    _require(force_body != "cluster" or L <= LANES_MAX_L,
              f"the cluster body takes L <= {LANES_MAX_L}, not {L}")
-    _require(body != "large" or cluster_size is None, "the chunked body takes no cluster_size")
+    _require(force_body != "cluster_tiled" or L > LANES_MAX_L,
+             f"the tiled cluster body takes L > {LANES_MAX_L}, not {L}")
+    _require(force_body != "large" or cluster_size is None,
+             "the chunked body takes no cluster_size")
     plan = None
-    if body != "large":
-        plan = _cluster_launch(M, L, dt.itemsize, cluster_size, B if windows.is_cuda else None,
-                               True if body == "cluster_tiled" else None)
-        _require(plan is not None or body is None,
-                 f"the {body} body cannot take M={M}, L={L} at {dt.itemsize} state bytes")
+    if force_body != "large":
+        plan = _cluster_launch(M, L, dt.itemsize, cluster_size, B if windows.is_cuda else None)
+        _require(plan is not None or force_body is None,
+                 f"the {force_body} body cannot take M={M}, L={L} at {dt.itemsize} state bytes")
     if not windows.is_cuda:
         return plain.chain_dp_forward(
             windows, window_lens, mono, mono_lens, ins=ins, dele=dele, mismatch=mismatch,
@@ -563,7 +568,7 @@ def chain_dp_large_cuda(
         tiled = form == "tiled"
         kind = "cluster_tiled" if tiled else "cluster"
         if B > 0:
-            if cluster_occupancy(M, L, dt.itemsize, cs, B, tiled) == 0:
+            if cluster_occupancy(M, L, dt.itemsize, cs, B) == 0:
                 raise RuntimeError(
                     f"chain_dp {kind} body cannot be scheduled: cudaOccupancyMaxActiveClusters "
                     f"is 0 for M={M}, L={L}, cluster_size={cs} ({R} rows, {threads} threads "

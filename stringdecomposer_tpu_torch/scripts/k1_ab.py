@@ -51,7 +51,7 @@ and the ~17 kbp unit's windows (the tiled cluster body, a row a block) at
 C = ceil(L / 32 G)), each with its digest against the rule's, then the
 golden windows x the DXZ1 trimers and their 150 variants on the tiled
 cluster body at every cluster size the shared memory admits
-(`body="cluster_tiled"`), with its cudaOccupancyMaxActiveClusters, against
+(`force_body="cluster_tiled"`), with its cudaOccupancyMaxActiveClusters, against
 the rule's body. With `--e2e`, the script instead runs the
 port end to end on the golden read against DXZ1 (`pipeline.run`,
 `--second-best`, on the card), plain and with `ed_thr=10` (run (i)), the
@@ -287,7 +287,7 @@ def tiled_sweep(torch, k1, fasta, oracle, chain_dp, workloads, dev, cap):
                 occ = k1.cluster_occupancy(M, L, 4, cs, len(a[0]))
                 if occ == 0:
                     continue
-                kw = dict(max_blocks=cap, body="cluster_tiled", cluster_size=cs)
+                kw = dict(max_blocks=cap, force_body="cluster_tiled", cluster_size=cs)
                 row[f"cluster_{cs}"] = {
                     "occupancy": occ, "digest_equal": digest(*k1.chain_dp_large_cuda(
                         *a, **kw)) == want,

@@ -53,7 +53,8 @@ def hor_unit(records):
     """The monomers joined in file order into one record, named `<first
     word>+...+<first word>`: a higher-order repeat unit as one monomer. From
     the 12 DXZ1 monomers: the 2,054 bp DXZ1 HOR (2 rows with RC, padded to L
-    = 2,056: K1's tiled body, its rows split over 13 warps)."""
+    = 2,056: K1's tiled body, each row split over 2 warps of 33 cells a
+    lane)."""
     return joined_set(records, len(records))[:1]
 
 

@@ -209,7 +209,7 @@ def test_each_body_counts_its_own_launches(kind, L, dt, want):
     (512, 512, 2, (16, 32, "regs", 512, 4096)),
     (1376, 512, 2, (16, 86, "rows_dense", 512, 231168)),
     (1400, 512, 2, None),
-    (150, 513, 4, (15, 10, "tiled", 320, 53680)),
+    (150, 513, 4, (13, 12, "tiled", 384, 64176)),
 ])
 def test_cluster_plan_at_long_rows(M, L, sb, want):
     """Without the card's occupancy the plan is the smallest cluster whose
@@ -219,8 +219,9 @@ def test_cluster_plan_at_long_rows(M, L, sb, want):
     8 * M + (2 * 2 + 1) * 512 * R bytes hold R = 86 rows a block of 1,376
     rows of int16 and 1,400 rows do not fit 16 blocks; past L = 512 the plan
     is the tiled cluster body's, which without the occupancy counts every
-    launch as one wave and so takes the fewest rows a block (150 rows of
-    513 bp: 15 blocks of 10, a warp a row, C = 17)."""
+    launch as one wave of one cluster and so takes the least integer issue
+    a block, ties to the fewest blocks (150 rows of 513 bp: 13 blocks of
+    12, a warp a row, C = 17, the issue of 12 rows on 4 schedulers as 10's)."""
     assert chain_dp_cuda.cluster_plan(M, L, sb) == want
 
 

@@ -7,8 +7,8 @@ lazy fix-up (each lane's carry applied when a cell is next read). Held equal
 in int32 and int16 state, and to the JAX package's chain_dp_forward (its
 lax.scan twin on the CPU) on the DXZ1 trimers (L = 528) and the DXZ1 HOR
 unit (L = 2,056); plus the rule that routes sets past 512 bp, the layout
-and shared memory the wrapper computes as the kernel does, the `body=`
-argument, the launch counters and the HOR unit workload."""
+and shared memory the wrapper computes as the kernel does, the
+`force_body=` argument, the launch counters and the HOR unit workload."""
 
 import pathlib
 import re
@@ -98,6 +98,37 @@ def test_sweep_tiled_matches_sweep(C):
                                  warps_per_row=g, tile=tile), want)
 
 
+# per window, the two rows' lengths at L = 1,040: a full row beside one
+# that ends before the second of 2 warps of 544 cells (or the third and
+# fourth of 4 warps of 288), at and just past a warp's first cell, and a
+# row of length 0
+SHORT_ROWS = [[1040, 300], [288, 1040], [543, 545], [864, 865], [1, 0]]
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=["int32", "int16"])
+@pytest.mark.parametrize("G, C", [(2, 17), (4, 9)])
+def test_sweep_tiled_with_rows_that_end_before_a_warp(G, C, dt):
+    """Per-window rows of mixed lengths split over G warps a row (the
+    kernel's layout of 2 rows of 1,040 bp, G = 2, C = 17, and of a row a
+    block, G = 4, C = 9): the warps whose segment starts at or past the
+    row's end skip the position, and sweep_tiled still equals the twin's
+    sweep, as does sweep_cluster at 2 slices of one row."""
+    L = 1040
+    assert chain_dp_cuda.tiled_layout(2 if G == 2 else 1, L)[:2] == (G, C)
+    rng = np.random.default_rng(1040 + G)
+    win, _, mono, lens = _problem(rng, len(SHORT_ROWS), 30, 2, L, 4)
+    lens = torch.tensor(SHORT_ROWS, dtype=torch.int32)
+    mono[torch.arange(L)[None, None, :] >= lens[..., None]] = 5
+    sc = SCORINGS[1] if dt == torch.int32 else SCORINGS[0]
+    mono_b, lens_b, dp0 = _column(win, mono, lens, sc, dt)
+    want = plain.sweep(win, mono_b, lens_b, dp0, *sc)
+    _equal(plain.sweep_tiled(win, mono_b, lens_b, dp0, *sc, cells_per_lane=C,
+                             warps_per_row=G), want)
+    if G == 4:
+        _equal(plain.sweep_cluster(win, mono_b, lens_b, dp0, *sc, cluster_size=2,
+                                   cells_per_lane=C, warps_per_row=G), want)
+
+
 @pytest.mark.parametrize("cs, C, G", [(2, 17, 1), (3, 6, 4), (5, 3, 11)])
 def test_sweep_cluster_tiled_matches_sweep(cs, C, G):
     """The tiled cluster body's split: M = 2 cs - 1 rows over cs slices (the
@@ -184,7 +215,7 @@ def test_cpu_dispatch_of_long_rows_matches_jax(body, M, L):
     (the chunked body keeps a row the tiled form cannot hold in one block;
     a shared-route set whose padded rows do not fit one block takes the
     tiled cluster body) equals the JAX package, in int32 and int16 where
-    admitted, launching nothing; `body=` names the same body."""
+    admitted, launching nothing; `force_body=` names the same body."""
     rng = np.random.default_rng(M + L)
     W = 6 if L > 5000 else 40
     win, wl, mono, lens = _problem(rng, 2, W, M, L, 4, per_window=False)
@@ -196,34 +227,38 @@ def test_cpu_dispatch_of_long_rows_matches_jax(body, M, L):
     for state in ("int32", "int16") if W + L < 8191 else ("int32",):
         for forced in (None, body):
             b, c, dbg = chain_dp_cuda.chain_dp_forward_cuda(win, wl, mono, lens,
-                                                            state_dtype=state, body=forced, **kw)
+                                                            state_dtype=state,
+                                                            force_body=forced, **kw)
             for g, j in zip((b, c, *dbg), want):
                 np.testing.assert_array_equal(g.numpy(), j)
     assert _counters() == counters
 
 
 def test_body_argument_is_checked():
-    """`body=` runs the named body only where it takes the set, on any
-    device; a body of the other route goes to chain_dp_large_cuda, an
-    unknown one is refused."""
+    """`force_body=` runs the named body only where it takes the set, on
+    any device; a body of the other route goes to chain_dp_large_cuda, an
+    unknown one is refused, and the tiled cluster body takes only rows past
+    512 bp."""
     rng = np.random.default_rng(9)
     win, wl, mono, lens = _problem(rng, 1, 8, 3, 600, 4, per_window=False)
     fwd, large = chain_dp_cuda.chain_dp_forward_cuda, chain_dp_cuda.chain_dp_large_cuda
     for fn, body, match in ((fwd, "lanes", "cannot take"), (large, "cluster", "L <= 512"),
                             (fwd, "sideways", "unknown K1 body"), (large, "tiled", "large route")):
         with pytest.raises(ValueError, match=match):
-            fn(win, wl, mono, lens, body=body)
+            fn(win, wl, mono, lens, force_body=body)
     with pytest.raises(ValueError, match="no cluster_size"):
-        large(win, wl, mono, lens, body="large", cluster_size=2)
+        large(win, wl, mono, lens, force_body="large", cluster_size=2)
+    with pytest.raises(ValueError, match="takes L > 512"):
+        large(win, wl, mono[:, :512], lens.clamp(max=512), force_body="cluster_tiled")
     big = torch.nn.functional.pad(mono, (0, 26000 - 600), value=5)  # a row past one block
     with pytest.raises(ValueError, match="cannot take"):
-        fwd(win, wl, big[:1], lens[:1], body="tiled")
+        fwd(win, wl, big[:1], lens[:1], force_body="tiled")
     with pytest.raises(ValueError, match="cannot take"):
-        large(win, wl, big[:2], lens[:2], body="cluster_tiled")
+        large(win, wl, big[:2], lens[:2], force_body="cluster_tiled")
     want = plain.chain_dp_forward(win, wl, mono, lens, return_debug=True)
     for fn, body in ((fwd, "chunked"), (fwd, "tiled"), (fwd, "cluster_tiled"), (large, "large"),
                      (large, "cluster_tiled")):
-        got = fn(win, wl, mono, lens, body=body, return_debug=True)
+        got = fn(win, wl, mono, lens, force_body=body, return_debug=True)
         for g, w in zip(got[:2] + got[2], want[:2] + want[2]):
             assert torch.equal(g, w), (fn.__name__, body)
 
@@ -261,8 +296,11 @@ def test_tiled_layout_and_shape_invariants(sb):
     row below 32 rows, one a row in turn from 32), the shared memory of the
     kernel's
     formula within 232,448 bytes, at least one row a block; the cluster plan
-    past 512 is the tiled form's, with the fewest waves x (1 + the padded
-    cells a block steps / TILED_FIXED_CELLS)."""
+    past 512 is the tiled form's, with the fewest waves x the blocks a wave
+    puts on one of 132 SMs x a block's `tiled_issue`: at 19 windows of the
+    150 trimer variants the card's measured fastest (k1_ab.py --tiled: cs =
+    5, 26.6 ms, over cs = 15 and 10, 27.8 and 33.0; made-up occupancies
+    here)."""
     for L in (513, 528, 700, 1000, 2056, 4100, 17136, 25000):
         for R in (1, 2, 3, 5, 13, 24, 31, 32, 33, 48, 90):
             G, C, threads = chain_dp_cuda.tiled_layout(R, L)
@@ -279,11 +317,14 @@ def test_tiled_layout_and_shape_invariants(sb):
                 assert form == "tiled" and R == -(-M // cs) and (cs - 1) * R < M
                 G, C, _ = chain_dp_cuda.tiled_layout(R, L)
                 assert smem == chain_dp_cuda.tiled_smem_bytes(M, R, G, C, sb) <= 232_448
-    active = {2: 60, 4: 30, 5: 22, 6: 17, 8: 14}
+    active = {2: 60, 4: 30, 5: 22, 6: 17, 8: 14, 10: 21, 15: 21}
     plan = chain_dp_cuda.cluster_plan(150, 528, 4, 19, lambda cs: active.get(cs, 0))
     R = plan[1]
     G, C, _ = chain_dp_cuda.tiled_layout(R, 528)
     assert plan[0] == 5 and (R, G, C) == (30, 1, 17)  # one wave, 30 rows a block
+    # cs = 10 ties with 5 (two blocks of 15 rows an SM) and loses on blocks;
+    # cs = 15 puts three blocks of 10 on an SM
+    assert [chain_dp_cuda.tiled_issue(R, 1, 17) for R in (30, 15, 10)] == [4992, 2496, 1872]
     assert chain_dp_cuda.cluster_plan(2, 17136, 4, 7, lambda cs: 66)[:2] == (2, 1)
 
 
