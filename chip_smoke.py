@@ -22,9 +22,10 @@ cluster body, a row a block), holds K1's chunked body to its plain twin at
 the shapes it keeps (phase `chunked`), drives the
 general alignment API through K4, K5 and K6 (the reference edlib fixtures,
 a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
-cut sizes against the scan route; K5 and K6 on their warp routes, K6's HW
-in segments; their wide routes on a 40 kbp NW distance and a 17 kbp HW
-query, each checked against the other route at its shapes), checks P (the int16 probe) and K1's
+cut sizes against the scan route; K4, K5 and K6 on their warp routes, K6's
+HW in segments; their wide routes on a 40 kbp NW distance (K4's in mask
+mode) and a 17 kbp HW query in 20 kbp and in 1 Mbp (K6's in segments),
+each checked against the other route at its shapes), checks P (the int16 probe) and K1's
 int16 state on both routes against the int16 twin and the int32 kernel and
 drives that path, checks K1's ablation kernels (A) against their plain
 versions and runs the ablation bench (at an eighth of its positions), then
@@ -57,7 +58,8 @@ FIXTURES = os.path.join(HERE, "tests", "fixtures")
 VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")  # ops/chain_dp.VARIANTS
 ABLATE = tuple(f"ablate_{'large_' if large else ''}{v}" for large in (False, True) for v in VARIANTS)
 KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "nw_identity_cross", "hw_filter",
-           "hw_filter_warp", "hw_filter_wide", "banded_final_column", "banded_myers", "semi_ends", "banded_myers_wide", "semi_ends_wide",
+           "hw_filter_warp", "hw_filter_wide", "banded_final_column", "banded_myers", "semi_ends",
+           "banded_final_column_wide", "banded_myers_wide", "semi_ends_wide",
            "int16_probe", "chain_dp_int16",
            "chain_dp_large_int16", "chain_dp_lanes", "chain_dp_lanes_int16", "chain_dp_cluster",
            "chain_dp_cluster_int16", "chain_dp_lanes_long", "chain_dp_lanes_long_int16",
@@ -87,8 +89,11 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #     one subtraction a pair, not a cell);
 #   K4, 6: match test 1, three candidates 3, two min 2 (also K3's cell-DP
 #     bound, printed beside its Myers bound);
-#   K5 and K6, 17 per word: one Myers step (Eq lookup, Xv, Xh, Ph, Mh, the
+#   K5, 17 per word: one banded Myers step (Eq lookup, Xv, Xh, Ph, Mh, the
 #     add's carry, shifts);
+#   K6, 11 per word: K3's HW step below (10; K6 computes D(q_len, j), the
+#     same column step with its boundary row) and 1 to pick the Eq word by
+#     the target code (a select; K3 loads it);
 #   K3, 10 per word: the HW step as the H100 can issue it, one instruction
 #     each for X = Eq | VN, T = X & VP, the add with carry (IADD3), D0 =
 #     (sum ^ VP) | X and HP = VN | ~(D0 | VP) (LOP3), HN = D0 & VP, the two
@@ -96,9 +101,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #     (LOP3) and VN' = D0 & HP'. K3 computes its function bit-parallel, so
 #     its bound counts a word per 32 monomer rows a window column, the least
 #     work known for it; the 17-a-word figure is printed beside it, to
-#     compare with K5 and K6;
+#     compare with K5;
 #   the walk and P, 2 per element: compare, select.
-OPS_PER_CELL = {"k1": 15, "k2": 11, "hw": 6, "myers_word": 17, "k3_word": 10, "scan": 2}
+OPS_PER_CELL = {"k1": 15, "k2": 11, "hw": 6, "myers_word": 17, "k3_word": 10, "semi_word": 11,
+                "scan": 2}
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -235,6 +241,7 @@ def main() -> int:
     from stringdecomposer_tpu_torch.ops import identity as k2_plain
     from stringdecomposer_tpu_torch.ops.banded_cuda import (
         banded_final_column_cuda, banded_myers_cuda, segment_plan, semi_ends_cuda,
+        wide_segment_plan,
     )
     from stringdecomposer_tpu_torch.ops import chain_dp_cuda as k1
     from stringdecomposer_tpu_torch.ops.chain_dp_cuda import (
@@ -277,6 +284,7 @@ def main() -> int:
                 "hw_filter_warp": (hw_distance_batch_cuda, "launches_warp"),
                 "hw_filter_wide": (hw_distance_batch_cuda, "launches_wide"),
                 "banded_final_column": (banded_final_column_cuda, "launches"),
+                "banded_final_column_wide": (banded_final_column_cuda, "launches_wide"),
                 "banded_myers": (banded_myers_cuda, "launches"),
                 "semi_ends": (semi_ends_cuda, "launches"),
                 "banded_myers_wide": (banded_myers_cuda, "launches_wide"),
@@ -1696,25 +1704,54 @@ def main() -> int:
     shapes = ((7, 300, 333), (3, 1000, 900), (5, 17, 40))
 
     def k4_checks():
-        for k in (1, 8, 64, 255):
-            for P, Lq, Lt in shapes:
-                a = rand_pairs(P, Lq, Lt, seed=k * P)
-                smoke.same("banded_final_column", f"K4 k={k} P={P} Lq={Lq} Lt={Lt}",
-                           banded_final_column_cuda(*a, k=k), banded.banded_final_column(*a, k=k))
+        """The warp route at k in {0, 1, 15, 16, 31, 32, 63, 64, 255} (R = 1..16),
+        plain codes and equality bitmasks, bit-equal to the plain twin and to
+        the wide route (the block kernel) forced on the same inputs; k = 256,
+        512, 1,024, 8,192 and 40,000 on the wide route (auto), plain and mask
+        mode, held to the twin."""
         r = np.random.default_rng(1)
-        for k in (2, 8, 33):  # equality bitmasks over a 7-symbol alphabet, 2 bits a row
-            a = rand_pairs(5, 256, 256, seed=k, alpha=7)
-            a[0] = torch.from_numpy(((1 << r.integers(0, 7, (5, 256)))
-                                     | (1 << r.integers(0, 7, (5, 256)))).astype(np.int32)).to(dev)
-            smoke.same("banded_final_column", f"K4 mask mode k={k}",
-                       banded_final_column_cuda(*a, k=k, use_mask=True),
-                       banded.banded_final_column(*a, k=k, use_mask=True))
-        a = rand_pairs(2, 3000, 1500, seed=5)
-        smoke.same("banded_final_column", "K4 k=40000 (band in device memory)",
-                   banded_final_column_cuda(*a, k=40000), banded.banded_final_column(*a, k=40000))
-        print("K4: k in {1, 8, 64, 255} on ragged shapes (P = 7, 3, 5; empty query and target "
-              "rows), mask mode k in {2, 8, 33}, and k = 40000 past shared memory, every lane "
-              "bit-equal to the plain twin")
+        for k in (0, 1, 15, 16, 31, 32, 63, 64, 255):
+            for P, Lq, Lt in shapes + ((40, 600, 500),):
+                for mask in (False, True):
+                    a = rand_pairs(P, Lq, Lt, seed=k * P + mask, alpha=7 if mask else 4,
+                                   t_neg=not mask)
+                    if mask:  # equality bitmasks over 7 symbols, 2 bits a row
+                        a[0] = torch.from_numpy(((1 << r.integers(0, 7, (P, Lq)))
+                                                 | (1 << r.integers(0, 7, (P, Lq))))
+                                                .astype(np.int32)).to(dev)
+                    what = f"K4 k={k} P={P} Lq={Lq} Lt={Lt}{' mask mode' if mask else ''}"
+                    got = banded_final_column_cuda(*a, k=k, use_mask=mask, route="warp")
+                    smoke.same("banded_final_column", f"{what} (warp)", got,
+                               banded.banded_final_column(*a, k=k, use_mask=mask))
+                    smoke.same("banded_final_column_wide", f"{what} (wide)",
+                               banded_final_column_cuda(*a, k=k, use_mask=mask, route="wide"), got)
+        # the wide route (auto) where align_wide's mask-mode k-doubling takes
+        # it: R = 1 (k = 256), 2, 3 and 17 band lanes a thread in shared
+        # memory (k = 512, 1024, 8192), and the band in device memory (k =
+        # 40000), plain and mask mode
+        for k, (P, Lq, Lt) in ((256, (7, 700, 650)), (512, (5, 1300, 1200)),
+                               (1024, (3, 2500, 2100)), (8192, (2, 9217, 1024)),
+                               (40000, (2, 3000, 1500))):
+            for mask in (False, True):
+                a = rand_pairs(P, Lq, Lt, seed=5 + mask, alpha=7 if mask else 4, t_neg=not mask)
+                if mask:
+                    a[0] = torch.from_numpy(((1 << r.integers(0, 7, (P, Lq)))
+                                             | (1 << r.integers(0, 7, (P, Lq))))
+                                            .astype(np.int32)).to(dev)
+                before = (banded_final_column_cuda.launches, banded_final_column_cuda.launches_wide)
+                smoke.same("banded_final_column_wide",
+                           f"K4 k={k} P={P} Lq={Lq} Lt={Lt}{' mask mode' if mask else ''} (wide)",
+                           banded_final_column_cuda(*a, k=k, use_mask=mask),
+                           banded.banded_final_column(*a, k=k, use_mask=mask))
+                after = (banded_final_column_cuda.launches, banded_final_column_cuda.launches_wide)
+                if (after[0] - before[0], after[1] - before[1]) != (0, 1):
+                    raise AssertionError(f"K4 k={k}: launches {before} -> {after}, not the wide "
+                                         "route")
+        print("K4: the warp route at k in {0, 1, 15, 16, 31, 32, 63, 64, 255} on ragged shapes "
+              "(P = 7, 3, 5, 40; empty query and target rows), plain and mask mode, every lane "
+              "bit-equal to the plain twin and to the wide route; the wide route at k = 256, 512, "
+              "1024, 8192 (1, 2, 3, 17 band lanes a thread in shared memory) and 40000 (band in "
+              "device memory), plain and mask mode, bit-equal to the twin")
 
     def wide_launches(fn):
         """The wide routes' launches (K5, K6) that fn makes."""
@@ -1753,8 +1790,10 @@ def main() -> int:
 
     def k6_checks():
         """The warp route, one warp a pair, bit-equal to the twin and to the
-        wide route; HW segments equal to one warp a pair, at small S across
-        many seams and at the plan's S on the 4 kbp x 1 Mbp run."""
+        wide route (the stages' pipeline); HW segments equal to one warp or
+        one block a pair, at small S across many seams and at the plans' S
+        on the 4 kbp x 1 Mbp and 17 kbp x 1 Mbp runs; queries past 131,072
+        rows (bands of stages) against the twin on a few columns."""
         for Lq in (1, 31, 32, 33, 700, 4096, 16384):
             for hw in (True, False):
                 a = rand_pairs(5, Lq, 600, seed=Lq, t_neg=True)
@@ -1764,17 +1803,28 @@ def main() -> int:
                 smoke.same("semi_ends", f"K6 warp Lq={Lq} {mode}", got,
                            banded.semi_ends_myers(*a, free_target_prefix=hw))
                 smoke.same("semi_ends_wide", f"K6 wide Lq={Lq} {mode}",
-                           semi_ends_cuda(*a, free_target_prefix=hw, route="wide"), got)
+                           semi_ends_cuda(*a, free_target_prefix=hw, route="wide",
+                                          seg_cols=0 if hw else None), got)
                 if hw:
                     for S in (32, 96, 160):
                         smoke.same("semi_ends", f"K6 HW Lq={Lq} segments of {S}",
                                    semi_ends_cuda(*a, seg_cols=S), got)
-        a = rand_pairs(3, 40000, 80, seed=3, t_neg=True)
-        n = wide_launches(lambda: smoke.same(
-            "semi_ends_wide", "K6 Lq=40000 HW (the wide route, 2 words a thread)",
-            semi_ends_cuda(*a), banded.semi_ends_myers(*a)))
-        if n != (0, 1):
-            raise AssertionError(f"K6 Lq=40000: wide-route launches {n}, expected (0, 1)")
+                        smoke.same("semi_ends_wide", f"K6 wide HW Lq={Lq} segments of {S}",
+                                   semi_ends_cuda(*a, route="wide", seg_cols=S), got)
+        # past the warp route: 17,000 and 40,000 rows (one band), and 140,000
+        # rows with q_lens at the 512-stage band's seam (bands of stages)
+        for Lq, Lt, lens in ((17000, 600, None), (40000, 80, None),
+                             (140000, 40, (131072, 131073, 140000))):
+            a = rand_pairs(3, Lq, Lt, seed=3, t_neg=True)
+            if lens:
+                a[1] = torch.tensor(lens, dtype=torch.int32, device=dev)
+            for hw in (True, False):
+                n = wide_launches(lambda: smoke.same(
+                    "semi_ends_wide", f"K6 Lq={Lq} x {Lt} {'HW' if hw else 'SHW'} (the wide route)",
+                    semi_ends_cuda(*a, free_target_prefix=hw, seg_cols=0 if hw else None),
+                    banded.semi_ends_myers(*a, free_target_prefix=hw)))
+                if n != (0, 1):
+                    raise AssertionError(f"K6 Lq={Lq}: wide-route launches {n}, expected (0, 1)")
         s = scale_pairs()
         codes = [torch.from_numpy(encode(x).astype(np.int32)[None, :]).to(dev)
                  for x in (s["tq"], s["big_t"])]
@@ -1787,11 +1837,41 @@ def main() -> int:
         plan = banded_cuda.segment_plan(1, 4096, 1 << 20, *banded_cuda._card_warps(0, 128))
         smoke.same("semi_ends", f"K6 HW 4096 x 1048576 at the plan's {plan[0]} segments of "
                    f"{plan[1]} vs one warp", semi_ends_cuda(*full), semi_ends_cuda(*full, seg_cols=0))
+        wide_full = wide_scale_pair()
+        wplan = wide_plan(wide_full)
+        if wplan[0] < 2:
+            raise AssertionError(f"K6 17 kbp x 1 Mbp: the wide plan {wplan} takes no segments")
+        smoke.same("semi_ends_wide", f"K6 HW 17000 x 1048576 at the plan's {wplan[0]} segments of "
+                   f"{wplan[1]} vs one block", semi_ends_cuda(*wide_full),
+                   semi_ends_cuda(*wide_full, seg_cols=0))
         print(f"K6: the warp route at Lq in {{1, 31, 32, 33, 700, 4096, 16384}} (R = 1..16), HW and "
-              "SHW, bit-equal to the plain twin and to the wide route; HW segments of 32, 96, 160 "
-              "columns equal to one warp a pair; 4096 x 8192 in segments of 64 equal to the twin; "
-              f"4 kbp x 1 Mbp HW at the plan's {plan} equal to one warp; Lq = 40000 on the wide "
-              "route, bit-equal to the twin")
+              "SHW, bit-equal to the plain twin and to the wide route (also in segments of 32, 96, "
+              "160); HW segments of 32, 96, 160 columns equal to one warp a pair; 4096 x 8192 in "
+              f"segments of 64 equal to the twin; 4 kbp x 1 Mbp HW at the plan's {plan} equal to "
+              "one warp; the wide route at Lq = 17000, 40000 and 140000 (q_len 131072, 131073, "
+              "140000: bands of 512 stages) bit-equal to the twin, HW and SHW; 17 kbp x 1 Mbp HW at "
+              f"the wide plan's {wplan} equal to one block")
+
+    def wide_scale_pair():
+        """align_wide's 17 kbp query against a 1 Mbp target that holds its
+        20 kbp target at 524,288 (numpy.random.default_rng(4) around it),
+        as [q, q_lens, t, t_lens] on the card."""
+        if "wide_1m" not in cache:
+            _, _, q17, t20 = wide_pairs()
+            r = np.random.default_rng(4)
+            bg = "".join(np.array(list("ACGT"))[r.integers(0, 4, (1 << 20) - len(t20))])
+            cache["wide_1m"] = (q17, bg[: 1 << 19] + t20 + bg[1 << 19 :])
+        q17, t1m = cache["wide_1m"]
+        codes = [torch.from_numpy(encode(x).astype(np.int32)[None, :]).to(dev) for x in (q17, t1m)]
+        lens = [torch.tensor([len(x)], dtype=torch.int32, device=dev) for x in (q17, t1m)]
+        return [codes[0], lens[0], codes[1], lens[1]]
+
+    def wide_plan(args):
+        """The segments K6's wide route takes for [q, q_lens, t, t_lens] on
+        this card."""
+        Lq, Lt = args[0].shape[1], args[2].shape[1]
+        return banded_cuda.wide_segment_plan(
+            1, Lq, Lt, *banded_cuda._card_blocks(0, banded_cuda.wide_shape(Lq)[0]))
 
     def wide_pairs():
         """align_wide's pairs, from numpy.random.default_rng(3), made once."""
@@ -1806,32 +1886,46 @@ def main() -> int:
     def align_wide():
         """The alignment API through the wide routes: the NW distance of a
         40 kbp pair at 15 % divergence (k-doubling reaches k = 8,192, 513
-        words: K5's wide route) equal to the K4 route's, and HW distance of
-        a 17 kbp query (532 words: K6's wide route) in a 20 kbp target equal
-        to the scan route's."""
+        words: K5's wide route), and the same under an equality that
+        changes nothing (mask mode, which K5 never takes: K4's warp route at
+        k = 128, its wide route at k = 256..8,192), equal; HW distance of a
+        17 kbp query (532 words: K6's wide route) in a 20 kbp target, equal
+        to the scan route's, and in a 1 Mbp target that holds the 20 kbp one
+        (the wide route in the plan's segments), equal to one block a pair
+        and at most the 20 kbp target's."""
         q40, t40, q17, t20 = wide_pairs()
+        wide_scale_pair()
+        t1m = cache["wide_1m"][1]
         res = {}
 
         def runs():
             res["nw"] = al.align(q40, t40, mode="NW", device="cuda")["editDistance"]
+            res["nw_mask"] = al.align(q40, t40, mode="NW", additionalEqualities=[("N", "A")],
+                                      device="cuda")["editDistance"]
             res["hw"] = al.align(q17, t20, mode="HW", device="cuda")["editDistance"]
+            res["hw_1m"] = al.align(q17, t1m, mode="HW", device="cuda")["editDistance"]
 
-        got = drive("align_wide: NW distance 40 kbp (k = 8192), HW distance 17 kbp x 20 kbp", runs)
-        launches.update({k: got[k] for k in ("banded_myers_wide", "semi_ends_wide")})
-        if got["banded_myers_wide"] <= 0 or got["semi_ends_wide"] <= 0:
-            raise AssertionError(f"align_wide: the wide routes did not launch: {got}")
-        myers_min_k = banded.MYERS_MIN_K
+        got = drive("align_wide: NW distance 40 kbp (k = 8192; and in mask mode), HW distance "
+                    "17 kbp x 20 kbp and x 1 Mbp", runs)
+        wide = ("banded_final_column_wide", "banded_myers_wide", "semi_ends_wide")
+        launches.update({k: got[k] for k in wide})
+        if any(got[k] <= 0 for k in wide + ("banded_final_column",)):
+            raise AssertionError(f"align_wide: a wide route or K4's warp route did not launch: {got}")
         try:
-            banded.MYERS_MIN_K = 1 << 30  # every band on K4
-            nw_k4 = al.align(q40, t40, mode="NW", device="cuda")["editDistance"]
             banded.DEFAULT_BACKEND = "scan"
             hw_scan = al.align(q17, t20, mode="HW", device="cuda")["editDistance"]
+            banded.DEFAULT_BACKEND = "auto"
+            banded_cuda.wide_segment_plan = lambda P, Lq, Lt, sms, resident: (1, Lt)
+            hw_one = al.align(q17, t1m, mode="HW", device="cuda")["editDistance"]
         finally:
-            banded.MYERS_MIN_K, banded.DEFAULT_BACKEND = myers_min_k, "auto"
-        if (res["nw"], res["hw"]) != (nw_k4, hw_scan):
-            raise AssertionError(f"align_wide: {res} != K4 {nw_k4}, scan {hw_scan}")
-        print(f"align_wide: NW distance 40 kbp d={res['nw']} equal to the K4 route's; HW distance "
-              f"17 kbp x 20 kbp d={res['hw']} equal to the scan route's")
+            banded.DEFAULT_BACKEND = "auto"
+            banded_cuda.wide_segment_plan = wide_segment_plan
+        if (res["nw_mask"], res["hw"], res["hw_1m"]) != (res["nw"], hw_scan, hw_one) \
+                or res["hw_1m"] > res["hw"]:
+            raise AssertionError(f"align_wide: {res} against scan {hw_scan}, one block {hw_one}")
+        print(f"align_wide: NW distance 40 kbp d={res['nw']} equal in mask mode (K4); HW distance "
+              f"17 kbp x 20 kbp d={res['hw']} equal to the scan route's; x 1 Mbp d={res['hw_1m']} "
+              f"in the wide plan's {wide_plan(wide_scale_pair())} segments, equal to one block")
 
     def fixtures(*names):
         out = []
@@ -1928,7 +2022,7 @@ def main() -> int:
 
     def semi_runs(tq, target, route, reps, ks=(32, 64, 256)):
         """SHW and HW x distance and locations x k in ks and -1 (SHW at
-        k = 32 is K4's band, k = 64 and 256 K5's, since MYERS_MIN_K = 64);
+        k = 32 and 64 is K4's band, k = 256 K5's, since MYERS_MIN_K = 128);
         wherever a banded run finds the pair, its result equals k = -1's,
         and where it does not, it reports none."""
         out = {}
@@ -1968,10 +2062,10 @@ def main() -> int:
             semi_runs(s["tq"], s["big_t"], "auto", 3)
 
         got = drive("align_scale: 262,144 bp NW path and distance; 4 kbp x 1 Mbp SHW/HW", main_runs)
-        bad = [k for k in banded_kernels if got[k] <= 0]  # K5 and K6: their warp routes
+        bad = [k for k in banded_kernels if got[k] <= 0]  # K4, K5 and K6: their warp routes
         if bad:
             raise AssertionError(f"align_scale: kernels of the path not launched: {bad}")
-        if got["banded_myers_wide"] or got["semi_ends_wide"]:
+        if got["banded_final_column_wide"] or got["banded_myers_wide"] or got["semi_ends_wide"]:
             raise AssertionError(f"align_scale: a wide route launched: {got}")
         launches.update({k: got[k] for k in banded_kernels})
         # the same workloads cut to sizes the scan route finishes: identical results
@@ -2011,9 +2105,10 @@ def main() -> int:
         def pair(qs, ts):
             return [codes(qs), lens(len(qs)), codes(ts), lens(len(ts))]
 
-        # K4: the transposed SHW k=32 sweep of the 4 kbp x 1 Mbp run
-        cases = [("banded_final_column", "K4 SHW k=32 transposed: q 4129 bp x t 4096 bp",
-                  pair(s["big_t"][:4129], s["tq"]), dict(k=32),
+        # K4: the transposed SHW k=32 sweep of the 4 kbp x 1 Mbp run, on both routes
+        k4_shw = pair(s["big_t"][:4129], s["tq"])
+        cases = [("banded_final_column", "K4 warp route SHW k=32 transposed: q 4129 bp x t 4096 "
+                  "bp", k4_shw, dict(k=32, route="warp"),
                   banded_final_column_cuda, banded.banded_final_column),
                  # K5: the Hirschberg top level's band (kb = 4096), cut to 1024 target columns
                  ("banded_myers", "K5 k=4096: q 5121 bp x t 1024 bp (the 262,144 bp path's "
@@ -2027,7 +2122,19 @@ def main() -> int:
         # 8192 (513 words) cut to 1024 target columns, the 17 kbp HW query
         # (532 words) cut to 2048
         q40, t40, q17, t20 = wide_pairs()
-        cases += [("banded_myers_wide", "K5 wide route k=8192: q 9217 bp x t 1024 bp (the 40 kbp "
+        # K4's wide route at align_wide's mask-mode band k = 8192 (the
+        # 40 kbp pair under an equality, as ops/align encodes it: query rows
+        # as bitmasks, target rows as compact ids), cut to 1024 columns
+        raw = [al._encode_any(x) for x in (q40, t40)]
+        enc = al._equality_encoding(raw, [("N", "A")])
+        mq, mt = enc.q_lut[raw[0][:9217]], enc.t_lut[raw[1][:1024]].astype(np.int32)
+        k4_mask = [torch.from_numpy(mq[None, :]).to(dev), lens(9217),
+                   torch.from_numpy(mt[None, :]).to(dev), lens(1024)]
+        cases += [("banded_final_column_wide", "K4 wide route mask mode k=8192: q 9217 bp x t "
+                   "1024 bp (the 40 kbp mask-mode NW distance's last band, cut)", k4_mask,
+                   dict(k=8192, use_mask=True), banded_final_column_cuda,
+                   banded.banded_final_column),
+                  ("banded_myers_wide", "K5 wide route k=8192: q 9217 bp x t 1024 bp (the 40 kbp "
                    "NW distance's last band, cut)", pair(q40[:9217], t40[:1024]), dict(k=8192),
                    banded_myers_cuda, banded.banded_final_column_myers),
                   ("semi_ends_wide", "K6 wide route HW: q 17000 bp x t 2048 bp (the 17 kbp HW "
@@ -2040,26 +2147,65 @@ def main() -> int:
 
         for name, what, args, kw, kern, plain in cases:
             k, got = timed(lambda: kern(*args, **kw), 5)
-            p, want = timed(lambda: plain(*args, **kw), 0)
+            p, want = timed(lambda: plain(*args, **{a: v for a, v in kw.items() if a != "route"}), 0)
             smoke.same(name, what, got, want)
             timing[name] = (statistics.median(k), statistics.median(p))
             q_len, t_len = int(args[1][0]), int(args[3][0])
-            if name == "banded_final_column":  # band lanes x target columns
+            if name.startswith("banded_final_column"):  # band lanes x target columns
                 ops = OPS_PER_CELL["hw"] * (2 * kw["k"] + 1) * t_len
             elif name.startswith("banded_myers"):  # 32-row band words x target columns
                 ops = OPS_PER_CELL["myers_word"] * -(-(2 * kw["k"] + 1) // 32) * t_len
             else:  # full-height words x target columns
-                ops = OPS_PER_CELL["myers_word"] * -(-q_len // 32) * t_len
+                ops = OPS_PER_CELL["semi_word"] * -(-q_len // 32) * t_len
             bounds[name] = bound(4 * (q_len + t_len + 2) + out_bytes(got), ops)
             print(f"{what}: kernel {spread(k)}, {1e6 * statistics.median(k) / t_len:.1f} ns a "
                   f"target column; plain {spread(p)}; bound {bounds[name][0]:.4f} ms "
                   f"({bounds[name][1]})")
+        # K4's wide route forced at the warp route's SHW k = 32 shape, for
+        # comparison only (auto takes the warp route there)
+        k, got = timed(lambda: banded_final_column_cuda(*k4_shw, k=32, route="wide"), 5)
+        smoke.same("banded_final_column_wide", "K4 wide route forced, SHW k=32", got,
+                   banded.banded_final_column(*k4_shw, k=32))
+        print(f"K4 wide route forced, SHW k=32 transposed: q 4129 bp x t 4096 bp: kernel "
+              f"{spread(k)}, {1e6 * statistics.median(k) / 4096:.1f} ns a target column")
+        # K4 at a Hirschberg level's batch: 64 pairs of 2,048 bp at 1 %
+        # divergence (numpy seed 1, banded_ab.py's), k = 32, both routes
+        r = np.random.default_rng(1)
+        pairs = [synth_pair(2048, 0.01, r) for _ in range(64)]
+        batch = []
+        for side in (0, 1):
+            seqs = [encode(x[side]).astype(np.int32) for x in pairs]
+            arr = np.zeros((64, max(len(x) for x in seqs)), dtype=np.int32)
+            for i, x in enumerate(seqs):
+                arr[i, : len(x)] = x
+            batch += [torch.from_numpy(arr).to(dev), lens(*[len(x) for x in seqs])]
+        want = banded.banded_final_column(*batch, k=32)
+        cells = int(batch[3].to(torch.int64).sum()) * 65
+        bd = bound(4 * sum(x.numel() for x in batch) + 4 * want.numel(), OPS_PER_CELL["hw"] * cells)
+        for name, route in (("banded_final_column", "warp"), ("banded_final_column_wide", "wide")):
+            k, got = timed(lambda: banded_final_column_cuda(*batch, k=32, route=route), 5)
+            smoke.same(name, f"K4 {route} route, 64 pairs x 2048 bp, k=32", got, want)
+            print(f"K4 {route} route k=32, 64 pairs of ~2048 bp (a Hirschberg level's batch): "
+                  f"kernel {spread(k)}, {1e6 * statistics.median(k) / batch[2].shape[1]:.1f} ns a "
+                  f"target column; bound {bd[0]:.4f} ms ({bd[1]})")
+        # K6's wide route on the 17 kbp x 1 Mbp HW run: the plan's segments and one block
+        wide_full = wide_scale_pair()
+        wplan = wide_plan(wide_full)
+        n = wide_full[2].shape[1]
+        for what, kw in ((f"the plan's {wplan[0]} segments of {wplan[1]} columns", {}),
+                         ("one block", dict(seg_cols=0))):
+            k, got = timed(lambda: semi_ends_cuda(*wide_full, **kw), 2)
+            bd = bound(4 * (17000 + n + 2) + out_bytes(got),
+                       OPS_PER_CELL["semi_word"] * -(-17000 // 32) * n)
+            print(f"K6 wide route HW at {what}, q 17000 bp x t {n} bp: kernel {spread(k)}, "
+                  f"{1e6 * statistics.median(k) / n:.2f} ns a target column; bound {bd[0]:.4f} ms "
+                  f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
         # the one-pair sweeps of the uncut runs, kernel only
         k4_full = pair(s["q"], s["t"])
         for name, fn in (("K5", banded_myers_cuda), ("K4", banded_final_column_cuda)):
             k, _ = timed(lambda: fn(*k4_full, k=128), 2)
             print(f"{name} k=128, q {len(s['q'])} bp x t {len(s['t'])} bp (the k-doubling's first "
-                  f"band, K5's since MYERS_MIN_K = 64): kernel {spread(k)}, "
+                  f"band, K5's since MYERS_MIN_K = 128): kernel {spread(k)}, "
                   f"{1e6 * statistics.median(k) / len(s['t']):.1f} ns a target column")
         k, _ = timed(lambda: banded_myers_cuda(*k4_full, k=4096), 2)
         print(f"K5 k=4096, q {len(s['q'])} bp x t {len(s['t'])} bp: kernel {spread(k)}, "
@@ -2076,8 +2222,8 @@ def main() -> int:
                                ("SHW one warp", dict(free_target_prefix=False), n)):
             k, got = timed(lambda: semi_ends_cuda(*k6_full, **kw), 2)
             nbytes = 4 * (4096 + n + 2) + out_bytes(got)
-            bd = bound(nbytes, OPS_PER_CELL["myers_word"] * words * n)
-            stepped = bound(nbytes, OPS_PER_CELL["myers_word"] * words * cols)
+            bd = bound(nbytes, OPS_PER_CELL["semi_word"] * words * n)
+            stepped = bound(nbytes, OPS_PER_CELL["semi_word"] * words * cols)
             print(f"K6 {what}, q 4096 bp x t {n} bp: kernel {spread(k)}, "
                   f"{1e6 * statistics.median(k) / n:.1f} ns a target column; bound {bd[0]:.4f} ms "
                   f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it; the {cols} "
@@ -2254,7 +2400,10 @@ def main() -> int:
             ("hw_filter", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
             ("hw_filter_warp", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
             ("hw_filter_wide", src + "hw_filter.cu", "stringdecomposer_tpu/ops/hw_filter.py:80"),
-            ("banded_final_column", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:59"),
+            ("banded_final_column", src + "banded_warp.cu",
+             "stringdecomposer_tpu/ops/banded_pallas.py:59"),
+            ("banded_final_column_wide", src + "banded.cu",
+             "stringdecomposer_tpu/ops/banded_pallas.py:59"),
             ("banded_myers", src + "myers_warp.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),
             ("semi_ends", src + "myers_warp.cu", "stringdecomposer_tpu/ops/banded_pallas.py:510"),
             ("banded_myers_wide", src + "banded.cu", "stringdecomposer_tpu/ops/banded_pallas.py:241"),

@@ -1,5 +1,5 @@
 // K4, K5 and K6: the banded and semi-global sweeps of the general alignment
-// API (stringdecomposer_tpu_torch/ops/align.py).
+// API (stringdecomposer_tpu_torch/ops/align.py), their wide routes.
 //
 //   K4  banded_kernel replaces stringdecomposer_tpu/ops/banded_pallas.py::
 //       _kernel (via banded_final_column_pallas): the final target column of
@@ -11,36 +11,51 @@
 //       It emits the VP/VN planes and the anchor captured at j == t_len; the
 //       wrapper rebuilds the column by a cumsum. Twin:
 //       ops/banded.banded_final_column_myers.
-//   K6  semi_kernel replaces banded_pallas.py::_semi_kernel (via
+//   K6  semi_wide_kernel replaces banded_pallas.py::_semi_kernel (via
 //       semi_ends_myers): full-height Myers over every target column, the
 //       end-row score D(q_len, j) of HW (free target prefix) or SHW. Twin:
-//       ops/banded.semi_ends_myers.
-// K5 and K6 here are the wide route, for bands and queries of more than 512
-// words; up to that the warp route of csrc/myers_warp.cu serves them.
+//       ops/banded.semi_ends_myers; mirror: ops/banded.semi_staged.
+// These are the wide routes: K4 past 512 band lanes (k >= 256; the warp
+// route is csrc/banded_warp.cu), K5 and K6 past 512 words (the warp route
+// is csrc/myers_warp.cu).
 //
 // What bounds them on the H100: latency. Each pair is a chain of t_len
 // dependent target columns, and a column is only a few integer operations
 // per band lane (K4) or per 32-row word (K5, K6), so neither device-memory
 // bytes nor ALU throughput is the limit: the time is the number of columns
-// times the latency of one column step. The design is the simple exact one.
-// One block runs one pair and loops over its target columns; a column is two
-// (K4) or three (K5, K6) block barriers around in-place passes over the
-// band, which lives in shared memory while it fits and in a per-pair
-// device-memory scratch beyond that, so no band width or query length is
-// refused. Thread tid owns the R consecutive items tid * R .. tid * R + R - 1
-// (band lanes or words), stored at r * T + tid so that a pass over r touches
-// consecutive addresses. The within-column chains are block scans: the K4
-// up chain is a prefix min of cand - b (warp shuffles, then the warp totals
-// through shared memory), the Myers addition's carry a prefix of (generate,
-// propagate) pairs the same way. A column costs the same however many pairs
-// run, and a single pair fills one SM only in part: many pairs (Hirschberg's
-// deeper levels, batched alignments) fill the card, one long pair does not.
+// times the latency of one column step.
+//   - K4 and K5: one block runs one pair and loops over its target columns; a
+//     column is two (K4) or three (K5) block barriers around in-place passes
+//     over the band, which lives in shared memory while it fits and in a
+//     per-pair device-memory scratch beyond that, so no band width is
+//     refused. Thread tid owns the R consecutive items tid * R .. tid * R +
+//     R - 1 (band lanes or words), stored at r * T + tid so that a pass over
+//     r touches consecutive addresses. The within-column chains are block
+//     scans: the K4 up chain is a prefix min of cand - b (warp shuffles, then
+//     the warp totals through shared memory), the Myers addition's carry a
+//     prefix of (generate, propagate) pairs the same way.
+//   - K6: a block per pair (per target segment under HW), its column cut
+//     into stages of kWideR words, one a thread, in registers with the
+//     stage's Peq words (the compact codes 0-3; built once per pair by
+//     ballots). The stages run as a pipeline: at step t stage s steps column
+//     t - s and hands the next stage its link (the add's carry out, the HP /
+//     HN bits of its top row): up a lane by a shuffle, from lane 31 to the
+//     next warp's lane 0 through a double-buffered shared slot, one barrier
+//     a step (the column step and the handoff in csrc/myers_wide.cuh, shared
+//     with K3's wide route, csrc/hw_filter.cu). Up to 512 stages
+//     (131,072 rows) run at once; a taller query runs in bands of stages one
+//     after the other, each band's top links a column kept in device memory
+//     for the next band. Only the stages up to the end row's run. Under HW a
+//     long target is cut into segments warm-started 2 q_len columns back, as
+//     the warp route's (ops/banded_cuda.wide_segment_plan picks them).
 // The Pallas kernels' right-aligned lanes, roll ladders, 128-lane tiles and
 // column-tile grid exist for Mosaic and are not carried over.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "myers_wide.cuh"
 
 namespace {
 
@@ -172,7 +187,7 @@ banded_kernel(const int* __restrict__ q,      // [P, Lq] codes or bitmasks
 }
 
 // ---------------------------------------------------------------------------
-// K5 and K6: Myers word planes
+// K5: Myers word planes
 // ---------------------------------------------------------------------------
 
 // The query code of row i + 1 (q index i) as the Peq planes see it: rows at
@@ -333,73 +348,109 @@ myers_kernel(const int* __restrict__ q,      // [P, Lq] compact codes (0..3 matc
   if (tid == 0) ca[p] = a;
 }
 
-__global__ void __launch_bounds__(1024)
-semi_kernel(const int* __restrict__ q,      // [P, Lq] compact codes (0..3 match)
-            const int* __restrict__ qlens,  // [P]
-            const int* __restrict__ t,      // [P, Lt] compact codes
-            unsigned* scratch,              // [P, 9 * R * T] or null (shared)
-            int* __restrict__ ends,         // [P, Lt]
-            int Lq, int Lt, int W, int R, unsigned hp0) {
-  extern __shared__ unsigned smem_u[];
-  const int p = blockIdx.x, T = blockDim.x, tid = threadIdx.x, RT = R * T;
-  unsigned* slots = smem_u;
-  const Planes s = planes_at(scratch ? scratch + (long long)p * kPlaneArrays * RT
-                                     : smem_u + kSlots, RT);
+// ---------------------------------------------------------------------------
+// K6's wide route: full-height Myers as a pipeline of register stages
+// ---------------------------------------------------------------------------
+
+using sd_wide::kWideMaxStages;
+using sd_wide::kWideR;
+
+// Block g runs segment g % nseg of pair g / nseg: output columns [e_s, e_e),
+// e_s = (g % nseg) * S, stepped from j0 = max(0, e_s - 2 q_len) on (exact
+// under HW for the reason myers_warp.cu's semi_warp_kernel gives; SHW runs
+// nseg = 1). Thread s is stage s of every band: the query's words
+// (band * stages + s) * kWideR .. + kWideR - 1. Only the stages up to the
+// end row's (bit q_len - 1) run: carries and up-shifts move up only, so no
+// word above it reaches D(q_len, j).
+__global__ void __launch_bounds__(kWideMaxStages)
+    semi_wide_kernel(const int* __restrict__ q,      // [P, Lq] compact codes (0..3 match)
+                     const int* __restrict__ qlens,  // [P]
+                     const int* __restrict__ t,      // [P, Lt] compact codes
+                     uint8_t* __restrict__ tops,     // [P * nseg, ncap] (bands > 1)
+                     int* __restrict__ ends,         // [P, Lt]
+                     int Lq, int Lt, int W, int stages, unsigned hp0, int nseg, int S,
+                     int ncap) {
+  __shared__ unsigned hand[2][kWideMaxStages / 32];  // sd_wide::hand_up's slots
+  const int g = blockIdx.x, p = g / nseg, e_s = (g % nseg) * S;
+  const int e_e = min(Lt, e_s + S);
+  const int s = threadIdx.x, lane = s & 31, warp = s >> 5;
   const int ql = qlens[p];
-  const int* qp = q + (long long)p * Lq;
-  const int* tp = t + (long long)p * Lt;
-  const int wfirst = tid * R;
-  // the end row's word and bit (q_len - 1); without one the score stays q_len
-  const int hot_w = ql > 0 ? (ql - 1) / 32 : -1;
-  const unsigned hot = ql > 0 ? 1u << ((ql - 1) % 32) : 0u;
-  const bool writer = (hot_w >= wfirst && hot_w < wfirst + R && hot_w < W) ||
-                      (tid == 0 && (hot_w < 0 || hot_w >= W));
-  for (int r = 0; r < R; ++r) {  // column 0: all +1
-    const int w = wfirst + r, at = r * T + tid;
-    if (w >= W) break;
-    s.vp[at] = kFull;
-    s.vn[at] = 0u;
-    for (int c = 0; c < 4; ++c) s.pl[c * RT + at] = plane_word(qp, Lq, ql, 0, 32 * W, w, c);
+  int* ep = ends + (long long)p * Lt;
+  const int hot_w = ql > 0 ? (ql - 1) >> 5 : -1;
+  if (hot_w < 0 || hot_w >= W) {  // no end row among the words: the score stays q_len
+    for (int c = e_s + s; c < e_e; c += blockDim.x) ep[c] = ql;
+    return;
   }
-  int score = ql;  // D(q_len, 0)
-  __syncthreads();
-  for (int j = 0; j < Lt; ++j) {
-    const int tc = tp[j];
-    unsigned gp = 2u;
-    for (int r = 0; r < R && wfirst + r < W; ++r) {
-      const int at = r * T + tid;
-      const unsigned x = eq_word(s, RT, tc, at) | s.vn[at], vp = s.vp[at];
-      const unsigned sum = (x & vp) + vp;
-      gp = gp_combine(gp, (sum < vp ? 1u : 0u) | (sum == kFull ? 2u : 0u));
+  const int j0 = max(0, e_s - 2 * ql), ncols = e_e - j0;
+  // the end row's stage, its band and its place in the band
+  const int hs = hot_w / kWideR, hb = hs / stages, hsl = hs % stages;
+  const int hot_r = hot_w % kWideR, hot_b = (ql - 1) & 31;
+  const int qend = min(Lq, ql);  // rows at or past it match nothing
+  const int* qp = q + (long long)p * Lq;
+  const int* tp = t + (long long)p * Lt + j0;
+  uint8_t* top = tops ? tops + (long long)g * ncap : nullptr;
+  int score = ql;  // D(q_len, j0) = q_len
+  for (int band = 0; band <= hb; ++band) {
+    const int used = band < hb ? stages : hsl + 1;  // the stages this band runs
+    const bool live = s < used, hot = band == hb && s == hsl;
+    // the stage's Peq words, a warp's 256 words at once: lanes load 32 rows
+    // a word, one ballot a code, the owner keeps it
+    unsigned pq0[kWideR], pq1[kWideR], pq2[kWideR], pq3[kWideR], vp[kWideR], vn[kWideR];
+#pragma unroll
+    for (int r = 0; r < kWideR; ++r) {
+      pq0[r] = pq1[r] = pq2[r] = pq3[r] = 0u;
+      vp[r] = kFull;  // column j0: all +1
+      vn[r] = 0u;
     }
-    unsigned carry = block_carry_in(gp, slots);
-    for (int r = 0; r < R && wfirst + r < W; ++r) {
-      const int w = wfirst + r, at = r * T + tid;
-      const unsigned x = eq_word(s, RT, tc, at) | s.vn[at], vp = s.vp[at];
-      const unsigned part = (x & vp) + vp;
-      const unsigned sum = part + carry;
-      carry = (part < vp ? 1u : 0u) | (part == kFull ? carry : 0u);
-      const unsigned d0 = (sum ^ vp) | x;
-      const unsigned hp = s.vn[at] | ~(d0 | vp);
-      const unsigned hn = d0 & vp;
-      s.d0[at] = d0;
-      s.hp[at] = hp;
-      s.hn[at] = hn;
-      if (w == hot_w) score += ((hp & hot) ? 1 : 0) - ((hn & hot) ? 1 : 0);
+    if (32 * warp < used) {  // the whole warp
+      const int wbase = (band * stages + 32 * warp) * kWideR;
+      for (int l = 0; l < 32; ++l) {
+#pragma unroll
+        for (int r = 0; r < kWideR; ++r) {
+          const int row0 = 32 * (wbase + l * kWideR + r);
+          if (row0 < qend) {  // the whole warp
+            const int code = row0 + lane < qend ? __ldg(qp + row0 + lane) : -9;
+            const unsigned m0 = __ballot_sync(kFull, code == 0), m1 = __ballot_sync(kFull, code == 1);
+            const unsigned m2 = __ballot_sync(kFull, code == 2), m3 = __ballot_sync(kFull, code == 3);
+            if (lane == l) {
+              pq0[r] = m0;
+              pq1[r] = m1;
+              pq2[r] = m2;
+              pq3[r] = m3;
+            }
+          }
+        }
+      }
     }
-    if (writer) ends[(long long)p * Lt + j] = score;
-    __syncthreads();
-    for (int r = 0; r < R && wfirst + r < W; ++r) {
-      const int w = wfirst + r, at = r * T + tid;
-      const unsigned below_hp = w == 0 ? hp0 : ((r > 0 ? s.hp[at - T] : s.hp[(R - 1) * T + tid - 1]) >> 31);
-      const unsigned below_hn = w == 0 ? 0u : ((r > 0 ? s.hn[at - T] : s.hn[(R - 1) * T + tid - 1]) >> 31);
-      const unsigned hpsh = (s.hp[at] << 1) | below_hp;
-      const unsigned hnsh = (s.hn[at] << 1) | below_hn;
-      const unsigned d0 = s.d0[at];
-      s.vp[at] = hnsh | ~(d0 | hpsh);
-      s.vn[at] = d0 & hpsh;
+    // stage s steps column c = step - s; its target code (and stage 0's link
+    // from the band below) is fetched a step ahead
+    int tnext = (s == 0 && ncols > 0) ? __ldg(tp) : -1;
+    unsigned lnext = (band > 0 && s == 0 && ncols > 0) ? top[0] : hp0 << 1;
+    unsigned in = 0u;  // the link from the stage below, for this step's column
+    for (int step = 0; step < ncols + used - 1; ++step) {
+      const int c = step - s;
+      const bool act = live && c >= 0 && c < ncols;
+      const int tc = tnext;
+      unsigned link = s > 0 ? in : lnext;
+      if (live && c + 1 >= 0 && c + 1 < ncols) {
+        tnext = __ldg(tp + c + 1);
+        if (s == 0 && band > 0) lnext = top[c + 1];
+      }
+      if (act) {
+        unsigned eq[kWideR];
+#pragma unroll
+        for (int r = 0; r < kWideR; ++r)
+          eq[r] = tc == 0 ? pq0[r] : tc == 1 ? pq1[r] : tc == 2 ? pq2[r] : tc == 3 ? pq3[r] : 0u;
+        const int d = sd_wide::stage_column(vp, vn, eq, link, hot ? hot_r : -1, hot_b);
+        if (hot) {
+          score += d;
+          if (j0 + c >= e_s) ep[j0 + c] = score;
+        }
+        if (s == stages - 1 && band < hb) top[c] = (uint8_t)link;
+      }
+      in = sd_wide::hand_up(link, hand, step);
     }
-    __syncthreads();
+    __syncthreads();  // every read of `hand` done before the next band writes it
   }
 }
 
@@ -411,8 +462,8 @@ int set_smem(const void* fn, size_t bytes) {
 
 }  // namespace
 
-// Every entry point takes the block size T (a multiple of 32, at most 1024)
-// and R items per thread from the wrapper (ops/banded_cuda.py), and
+// K4's and K5's entry points take the block size T (a multiple of 32, at most
+// 1024) and R items per thread from the wrapper (ops/banded_cuda.py), and
 // `scratch` null when the band's arrays fit shared memory, else a
 // per-pair device-memory scratch of the size given there.
 extern "C" int sd_banded_column(const void* q, const void* qlens, const void* t,
@@ -445,16 +496,32 @@ extern "C" int sd_banded_myers(const void* q, const void* qlens, const void* t,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sd_semi_ends(const void* q, const void* qlens, const void* t, void* scratch,
-                            void* ends, int P, int Lq, int Lt, int W, int T, int R, int hp0,
-                            void* stream) {
+// K6's wide route: q [P, Lq], t [P, Lt] int32 compact codes, qlens [P];
+// ends [P, Lt]. W = max(1, ceil(Lq / 32)) words in bands of `stages` stages
+// (threads: a multiple of 32, at most kWideMaxStages) of kWideR words,
+// bands * stages * kWideR >= W. nseg segments of S columns a pair (nseg * S
+// >= Lt; nseg > 1 only under HW, hp0 = 0, and S a multiple of 32); where
+// bands > 1, tops is a [P * nseg, ncap] byte scratch, ncap >= min(Lt, S +
+// 64 W) (a segment's columns and its warm-up).
+extern "C" int sd_semi_wide(const void* q, const void* qlens, const void* t, void* tops,
+                            void* ends, int P, int Lq, int Lt, int W, int stages, int bands,
+                            int hp0, int nseg, int S, int ncap, void* stream) {
   if (P <= 0 || Lt <= 0) return 0;
-  const size_t bytes =
-      (kSlots + (scratch ? 0 : (size_t)kPlaneArrays * R * T)) * sizeof(unsigned);
-  int err = set_smem((const void*)semi_kernel, bytes);
-  if (err) return err;
-  semi_kernel<<<P, T, bytes, (cudaStream_t)stream>>>(
-      (const int*)q, (const int*)qlens, (const int*)t, (unsigned*)scratch, (int*)ends, Lq, Lt,
-      W, R, hp0 ? 1u : 0u);
+  const long long span = (long long)S + 64LL * W;  // a segment's columns and its warm-up
+  if (W != (Lq > 32 ? (Lq + 31) / 32 : 1) || stages < 32 || stages > kWideMaxStages ||
+      stages % 32 || bands < 1 || (long long)bands * stages * kWideR < W || nseg < 1 ||
+      (long long)nseg * S < Lt || (nseg > 1 && (hp0 || S % 32 != 0)) ||
+      (long long)P * nseg > 0x7fffffffLL ||
+      (bands > 1 && (!tops || ncap < (span < Lt ? span : (long long)Lt))))
+    return (int)cudaErrorInvalidValue;
+  semi_wide_kernel<<<(unsigned)(P * nseg), stages, 0, (cudaStream_t)stream>>>(
+      (const int*)q, (const int*)qlens, (const int*)t, (uint8_t*)tops, (int*)ends, Lq, Lt, W,
+      stages, hp0 ? 1u : 0u, nseg, S, ncap);
   return (int)cudaGetLastError();
+}
+
+// Blocks of K6's wide kernel at `stages` threads that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its registers).
+extern "C" int sd_semi_wide_occupancy(int stages, int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, semi_wide_kernel, stages, 0);
 }

@@ -58,17 +58,17 @@
 //     from the monomer's bytes.
 //   - Wide route (L > 16,384, hw_wide_kernel): a block per pair, its
 //     column cut into stages of kWideR words, one a thread, in registers.
-//     The stages run as a pipeline: at step t stage s steps column t - s,
-//     the thread route's column step on its words, and hands the next stage
-//     its link (the add's carry out and the HP / HN bits of its top row):
-//     up a lane by a shuffle, from lane 31 to the next warp's lane 0
-//     through shared memory, one barrier a step. Up to 512 stages (131,072
-//     bp) run at once; a longer column runs in bands of 512 stages one
-//     after the other, each band's top link a column kept in device memory
-//     for the next band. The monomer is right-aligned as in the thread
-//     route; the Peq planes of codes 0-4 come from a prologue in device
-//     memory, a window char outside 0-4 its words from the monomer's bytes.
-//     No length is refused.
+//     The stages run as a pipeline: at step t stage s steps column t - s
+//     on its words and hands the next stage its link (the add's carry out
+//     and the HP / HN bits of its top row): up a lane by a shuffle, from
+//     lane 31 to the next warp's lane 0 through shared memory, one barrier
+//     a step (myers_wide.cuh, shared with K6's wide route in banded.cu).
+//     Up to 512 stages (131,072 bp) run at once; a longer column runs in
+//     bands of 512 stages one after the other, each band's top link a
+//     column kept in device memory for the next band. The monomer is
+//     right-aligned as in the thread route; the Peq planes of codes 0-4
+//     come from a prologue in device memory, a window char outside 0-4 its
+//     words from the monomer's bytes. No length is refused.
 // The Pallas kernel's right-aligned lanes and 128-lane roll ladder are the
 // cell DP on the TPU's vector unit and are not carried over.
 
@@ -76,6 +76,7 @@
 #include <stdint.h>
 
 #include "myers_warp.cuh"
+#include "myers_wide.cuh"
 
 namespace {
 
@@ -84,9 +85,8 @@ constexpr int kThreads = 64;  // thread route: threads a block, all of one monom
 constexpr int kPlanes = 6;    // Peq planes: codes 0..4, then every other code
 constexpr int kNoCode = 256;  // a code that no int8 equals
 constexpr int kWarps = 8;     // warp route: warps a block
-constexpr int kWideR = 8;            // wide route: words a stage (thread); two uint4 loads
-constexpr int kWideMaxStages = 512;   // wide route: stages a band (threads a block; 128
-                                      // registers a thread, no spill)
+using sd_wide::kWideMaxStages;  // wide route: stages a band (threads a block)
+using sd_wide::kWideR;          // wide route: words a stage (thread); two uint4 loads
 
 // The Peq plane of a window char read as an unsigned byte: codes 0..4 their
 // own, every other code (READ_PAD, negative codes) plane 5.
@@ -138,37 +138,20 @@ __device__ __forceinline__ void add_words(unsigned (&s)[R], const unsigned (&a)[
   }
 }
 
-// One window column on a thread's R words, given the column's Peq words
-// pl[0..R-1]; the score moves by the HP / HN bits of bit 31 of word R - 1.
-// kChain false (thread route): the words are the whole column, row 0's
-// horizontal delta 0 (HW). kChain true (a wide-route stage): `link` enters
-// with the carry into word 0 (bit 0) and the HP / HN bits of the row below
-// it (bits 1, 2), and leaves with the same out of word R - 1.
-template <int R, bool kChain = false>
+// One window column on a thread's R words, the whole column (row 0's
+// horizontal delta 0: HW), given the column's Peq words pl[0..R-1]; the
+// score moves by the HP / HN bits of bit 31 of word R - 1.
+template <int R>
 __device__ __forceinline__ void thread_column(unsigned (&vp)[R], unsigned (&vn)[R],
-                                              const unsigned* pl, unsigned& link, int& score,
-                                              int& best) {
+                                              const unsigned* pl, int& score, int& best) {
   unsigned x[R], t[R], sum[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     x[r] = pl[r] | vn[r];
     t[r] = x[r] & vp[r];
   }
+  add_words<R>(sum, t, vp);
   unsigned hpp = 0, hnp = 0;
-  if constexpr (kChain) {
-    unsigned carry = link & 1u;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const unsigned s1 = t[r] + vp[r];
-      sum[r] = s1 + carry;
-      carry = (s1 < vp[r]) | (sum[r] < s1);
-    }
-    hpp = (link & 2u) << 30;
-    hnp = (link & 4u) << 29;
-    link = carry;
-  } else {
-    add_words<R>(sum, t, vp);
-  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const unsigned d0 = (sum[r] ^ vp[r]) | x[r];
@@ -180,7 +163,6 @@ __device__ __forceinline__ void thread_column(unsigned (&vp)[R], unsigned (&vn)[
     hpp = hp;
     hnp = hn;
   }
-  if constexpr (kChain) link |= (hpp >> 31) << 1 | (hnp >> 31) << 2;
   score += (int)(hpp >> 31) - (int)(hnp >> 31);
   best = min(best, score);
 }
@@ -193,12 +175,11 @@ __device__ __forceinline__ void thread_chunk(unsigned (&vp)[R], unsigned (&vn)[R
                                              int& best) {
   constexpr int kStride = R | 1;
   const unsigned w[4] = {v.x, v.y, v.z, v.w};
-  unsigned link = 0u;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     if (kAll || i < n) {
       const unsigned p = plane_of((w[i >> 2] >> (8 * (i & 3))) & 0xffu);
-      thread_column<R>(vp, vn, peq + p * kStride, link, score, best);
+      thread_column<R>(vp, vn, peq + p * kStride, score, best);
     }
   }
 }
@@ -248,8 +229,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int r = 0; r < R; ++r)
           pl[r] = own_code(ch) ? peq[ch * kStride + r] : peq_word(q, mlen, 32 * R, ch, r);
-        unsigned link = 0u;
-        thread_column<R>(vp, vn, pl, link, score, best);
+        thread_column<R>(vp, vn, pl, score, best);
       }
     } else {
       for (int c = c0; c < c_end; c += 16) {
@@ -376,10 +356,10 @@ __global__ void __launch_bounds__(kWideMaxStages)
                    uint8_t* __restrict__ top,           // [B * M, Wp] (bands > 1)
                    int* __restrict__ out,               // [B, M]
                    int B, int W, int Wp, int M, int L, int stages, int bands) {
-  __shared__ unsigned hand[2][kWideMaxStages / 32];  // lane 31 of warp w -> lane 0 of w + 1
+  __shared__ unsigned hand[2][kWideMaxStages / 32];  // sd_wide::hand_up's slots
   const long long pair = blockIdx.x;
   const int m = (int)(pair / B), b = (int)(pair % B);
-  const int s = threadIdx.x, lane = s & 31, warp = s >> 5;
+  const int s = threadIdx.x;
   const int mlen = min(max(mono_lens[m], 0), L);
   const int wl = min(max(wlens[b], 0), W);
   const int NW = bands * stages * kWideR, k = 32 * NW - mlen;
@@ -415,13 +395,11 @@ __global__ void __launch_bounds__(kWideMaxStages)
 #pragma unroll
           for (int r = 0; r < kWideR; ++r) pl[r] = peq_word(q, mlen, 32 * NW, ch, w0 + r);
         }
-        thread_column<kWideR, true>(vp, vn, pl, link, score, best);
+        score += sd_wide::stage_column(vp, vn, pl, link, kWideR - 1, 31);
+        best = min(best, score);
         if (s == stages - 1 && band + 1 < bands) tops[c] = (uint8_t)link;
       }
-      const unsigned up = __shfl_up_sync(kFull, link, 1);
-      if (lane == 31) hand[t & 1][warp] = link;
-      __syncthreads();
-      in = lane > 0 ? up : warp > 0 ? hand[t & 1][warp - 1] : 0u;
+      in = sd_wide::hand_up(link, hand, t);
     }
   }
   if (s == stages - 1) out[(long long)b * M + m] = best;

@@ -37,11 +37,19 @@ from .align import BIG, dp_banded_lastrow_batch
 DEFAULT_BACKEND = "auto"
 
 # minimum k for the bit-parallel route (K5); below it the int32 band K4
-# serves. K5's warp route beat K4 at k = 64, 128 and 256 on every shape
-# scripts/banded_ab.py times (one 262,144 bp pair, a transposed SHW sweep,
-# 64 pairs of 2,048 bp); below 64 it is not measured. Tests and chip_smoke
-# patch it down to force K5 on small cases.
-MYERS_MIN_K = 64
+# serves. On the H100 (700 W; scripts/banded_ab.py: one 262,144 bp pair, a
+# transposed SHW sweep of 4,096 columns, 64 pairs of 2,048 bp) K4's warp
+# route beat K5 at k = 8, 16, 32 and 64 on every shape (at k = 64: 53.6
+# against 62.4 ms, 0.88-0.94 against 1.10-1.15, 0.59-0.62 against
+# 0.70-0.72); at k = 128 K5 won on two shapes (62.4 against 65.7 ms,
+# 0.68-0.70 against 0.74-0.76) and tied on the third (1.07-1.13 against
+# 1.06-1.08). On the 262,144 bp NW path's own sweeps (banded_ab.py
+# --crossover) the kb = 64 level's one sweep (256 pairs of 2,056 x 1,025)
+# took 0.295 ms on K4 and 0.396 on K5 alone, 1-2 ms and 12-15 ms as the
+# path calls it (K5 adds its host remap); the kb = 128 level's three took
+# 67.4 ms on K4 and 63.8 on K5. Tests and chip_smoke patch it down to force
+# K5 on small cases.
+MYERS_MIN_K = 128
 
 M32 = 0xFFFFFFFF
 
@@ -476,4 +484,173 @@ def semi_warp(q, q_lens, t, free_target_prefix: bool = True, R: int | None = Non
         score = torch.where(act & has_hot, score + delta, score)
         out = act & (j >= e_s)
         ends[pw[out], j[out]] = score[out].to(torch.int32)
+    return ends
+
+
+# ---------------------------------------------------------------------------
+# K4's warp route and K6's wide route as plain mirrors (test-only; nothing on
+# the main path calls them)
+# ---------------------------------------------------------------------------
+def banded_warp(q, q_lens, t, t_lens, k: int, R: int | None = None,
+                use_mask: bool = False) -> torch.Tensor:
+    """K4 as its warp route (csrc/banded_warp.cu) computes it, [P, 2k+1]
+    int32, bit-equal to banded_final_column on every lane. The band's lanes
+    in lane strips of R cells, [P, 32, R] (default ceil((2k + 1) / 32); any
+    R that holds the band), the cells past the band BIG. A cell's left
+    neighbour is the next cell, or for a strip's last the next lane's first
+    (the shuffle down; lane 31 takes BIG). The up chain: cand - b's minimum
+    over each strip, an inclusive min scan of the totals over five shuffle-up
+    steps (a lane below the offset keeps its own), shifted one lane up
+    (INT_MAX into lane 0), then the running minimum along the strip from it.
+    The query codes slide down one cell a column, lane 31's last cell taking
+    the row that enters the band's top."""
+    P, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    Bw = 2 * k + 1
+    R = _lane_words(Bw, R)
+    b = (torch.arange(32, device=dev)[:, None] * R
+         + torch.arange(R, device=dev)[None, :]).to(torch.int64)  # [32, R]
+    ql = q_lens.to(device=dev, dtype=torch.int64)[:, None, None]
+    i0 = b - k
+    D = torch.where((b < Bw) & (i0 >= 0) & (i0 <= ql), i0, BIG)  # column 0
+    # the query codes by index x at x + off, the padding code outside [0, Lq)
+    off = k + 1
+    qpad = torch.full((P, off + Lq + 32 * R + Lt + 1), 0 if use_mask else -1,
+                      dtype=torch.int32, device=dev)
+    qpad[:, off : off + Lq] = q.to(torch.int32)
+    code = qpad[:, i0 + off]  # [P, 32, R]: band lane b's code at column 1, index b - k
+    tl = t_lens.to(device=dev, dtype=torch.int64)
+    n = torch.where((tl < 0) | (tl > Lt), -1, tl)
+    cap = torch.where((n == 0)[:, None, None], D, BIG)
+    t32 = t.to(device=dev, dtype=torch.int32)
+    big = torch.full((P, 1, 1), BIG, dtype=torch.int64, device=dev)
+    for j in range(1, (int(n.max()) if P else 0) + 1):
+        tc = t32[:, j - 1][:, None, None]
+        qin = qpad[:, j + 32 * R - k - 1 + off]  # the row entering the top after column j
+        right = torch.cat([D[:, 1:, :1], big], dim=1)
+        dl = torch.cat([D[:, :, 1:], right], dim=2)
+        sub = (1 - ((code >> tc) & 1)) if use_mask else (code != tc).to(torch.int32)
+        cand = torch.minimum(dl + 1, D + sub.to(torch.int64))
+        i = j + b - k
+        lim = torch.minimum(ql, torch.full_like(ql, j + k))
+        cand = torch.where(i == 0, j, cand)  # the NW boundary row
+        cand = torch.where((i < 0) | (i > lim), BIG, cand)
+        c = cand - b
+        run = c.min(dim=2).values  # [P, 32]
+        for o in (1, 2, 4, 8, 16):
+            run = torch.minimum(run, torch.cat([run[:, :o], run[:, :-o]], dim=1))
+        excl = torch.cat([torch.full_like(run[:, :1], 2**31 - 1), run[:, :-1]], dim=1)
+        pre = torch.minimum(excl[:, :, None], torch.cummin(c, dim=2).values)
+        D = torch.where((i >= 0) & (i <= lim), pre + b, BIG)
+        up = torch.cat([code[:, 1:, :1], qin[:, None, None]], dim=1)
+        code = torch.cat([code[:, :, 1:], up], dim=2)
+        cap = torch.where((n == j)[:, None, None], D, cap)
+    return cap.reshape(P, 32 * R)[:, :Bw].clamp(max=BIG).to(torch.int32)
+
+
+def semi_staged(q, q_lens, t, free_target_prefix: bool = True, stages: int | None = None,
+                seg_cols: int = 0) -> torch.Tensor:
+    """K6 as its wide route (csrc/banded.cu semi_wide_kernel) computes it,
+    [P, Lt] int32, equal to semi_ends_myers. The query's words in stages of
+    WIDE_R (ops/hw_filter), `stages` a band (default wide_shape's; any
+    number here), run as the kernel's pipeline: at step u stage s steps
+    column u - s on its words (the add's carry rippling through them from
+    the link's carry in) and hands stage s + 1 its link, the carry out and
+    the HP / HN bits of its top row; a stage that does not step hands on the
+    link it got. Stage 0 of band 0 takes row 0's horizontal delta (HW 0, SHW
+    +1), of a later band the band below's top links, kept by column. Only
+    the stages up to the end row's (bit q_len - 1) run; the stage holding it
+    keeps the score. With seg_cols = S > 0 (HW only), block g runs segment
+    g % nseg of pair g // nseg from column max(0, e_s - 2 q_len), as
+    semi_warp."""
+    from .hw_filter import WIDE_R, wide_shape
+
+    if seg_cols and not free_target_prefix:
+        raise ValueError("SHW fixes the alignment's start at column 0: no segments")
+    P, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    W = max(1, -(-Lq // 32))
+    st = stages or wide_shape(Lq)[0]
+    bands = -(-W // (st * WIDE_R))
+    pq = torch.zeros((P, 4, bands * st * WIDE_R), dtype=torch.int64, device=dev)
+    pq[:, :, :W] = peq_bitmaps(q, q_lens, 0, W)
+    nseg, S = (-(-Lt // seg_cols), seg_cols) if seg_cols else (1, Lt)
+    g = torch.arange(P * nseg, device=dev)
+    pw = g // nseg
+    e_s = (g % nseg) * S
+    e_e = (e_s + S).clamp(max=Lt)
+    ql = q_lens.to(device=dev, dtype=torch.int64)[pw]
+    j0 = (e_s - 2 * ql).clamp(min=0)
+    ncols = e_e - j0
+    hot_w = torch.where(ql > 0, (ql - 1) // 32, -1)
+    has = (hot_w >= 0) & (hot_w < W)
+    hs = hot_w.clamp(min=0) // WIDE_R
+    hb, hsl = hs // st, hs % st
+    hot_r, hot_b = hot_w.clamp(min=0) % WIDE_R, (ql - 1) & 31
+    ends = torch.zeros((P, Lt), dtype=torch.int32, device=dev)
+    for gi in torch.nonzero(~has).flatten().tolist():  # no end row among the words
+        ends[pw[gi], int(e_s[gi]) : int(e_e[gi])] = int(ql[gi])
+    score = ql.clone()
+    sidx = torch.arange(st, device=dev)
+    tops = torch.zeros((len(g), max(1, int(ncols.max()) if len(g) else 1)), dtype=torch.int64,
+                       device=dev)
+    t64 = t.to(device=dev, dtype=torch.int64)
+    for band in range(int(hb[has].max()) + 1 if bool(has.any()) else 0):
+        used = torch.where(has & (band <= hb), torch.where(band < hb, st, hsl + 1), 0)
+        words = pq[pw][:, :, band * st * WIDE_R : (band + 1) * st * WIDE_R]
+        words = words.reshape(len(g), 4, st, WIDE_R)
+        vp = torch.full((len(g), st, WIDE_R), M32, dtype=torch.int64, device=dev)
+        vn = torch.zeros_like(vp)
+        handed = torch.zeros((len(g), st), dtype=torch.int64, device=dev)
+        hot = (band == hb) & has
+        for u in range(int((ncols + used - 1).max())):
+            c = (u - sidx).expand(len(g), st)  # [G, stages]
+            act = (sidx[None, :] < used[:, None]) & (c >= 0) & (c < ncols[:, None])
+            cc = c.clamp(min=0)
+            if band == 0:
+                l0 = torch.full_like(g, 0 if free_target_prefix else 2)
+            else:
+                l0 = tops[g, cc[:, 0].clamp(max=tops.shape[1] - 1)]
+            link = torch.cat([l0[:, None], handed[:, :-1]], dim=1)
+            tc = t64[pw[:, None], (j0[:, None] + cc).clamp(max=Lt - 1)]
+            eq = torch.zeros_like(vp)
+            for code in range(4):
+                eq = torch.where((tc == code)[..., None], words[:, code], eq)
+            x = eq | vn
+            carry = link & 1
+            hpp, hnp = (link >> 1) & 1, (link >> 2) & 1
+            nvp, nvn, hp_w, hn_w = [], [], [], []
+            for r in range(WIDE_R):
+                full = (x[..., r] & vp[..., r]) + vp[..., r] + carry
+                carry, sm = full >> 32, full & M32
+                d0 = (sm ^ vp[..., r]) | x[..., r]
+                hp = vn[..., r] | ((d0 | vp[..., r]) ^ M32)
+                hn = d0 & vp[..., r]
+                hpsh = ((hp << 1) & M32) | hpp
+                hnsh = ((hn << 1) & M32) | hnp
+                nvp.append((hnsh | ((d0 | hpsh) ^ M32)) & M32)
+                nvn.append(d0 & hpsh)
+                hp_w.append(hp)
+                hn_w.append(hn)
+                hpp, hnp = hp >> 31, hn >> 31
+            out = carry | (hpp << 1) | (hnp << 2)
+            m = act[..., None]
+            vp = torch.where(m, torch.stack(nvp, dim=-1), vp)
+            vn = torch.where(m, torch.stack(nvn, dim=-1), vn)
+            handed = torch.where(act, out, link)
+            # the end row's stage keeps the score
+            hsl_c = hsl.clamp(max=st - 1)
+            on = hot & act[g, hsl_c]
+            hpw, hnw = torch.stack(hp_w, dim=-1), torch.stack(hn_w, dim=-1)
+            delta = (((hpw[g, hsl_c, hot_r] >> hot_b) & 1)
+                     - ((hnw[g, hsl_c, hot_r] >> hot_b) & 1))
+            score = torch.where(on, score + delta, score)
+            j = j0 + c[g, hsl_c]
+            w = on & (j >= e_s)
+            ends[pw[w], j[w]] = score[w].to(torch.int32)
+            # the band's top links, kept by column for the next band
+            top = act[:, st - 1] & (band < hb)
+            tops[g[top], c[top, st - 1]] = out[top, st - 1]
     return ends

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K5 and K6, the Myers kernels of the alignment API, of one checkout of
-this repo, timed on the card, for an A/B of two commits on one card.
+"""K4, K5 and K6, the banded kernels of the alignment API, of one checkout
+of this repo, timed on the card, for an A/B of two commits on one card.
 
 Unpack the other commit's port into a directory that .gitignore lists
 (`mkdir -p build/parent && git archive <commit> stringdecomposer_tpu_torch |
@@ -19,14 +19,18 @@ scaffolding shared with k1_ab.py and k2_ab.py (`ab_common.py`):
     k = 4,096 on q 5,121 bp x t 1,024 bp (chip_smoke's shape, the 262,144
     bp path's top-level band cut) and on the whole 262,144 bp pair; K6
     under HW and SHW on the 4,096 bp query x the first 2,048 bp of its
-    1,048,576 bp target (chip_smoke's shape) and x the whole target; K4 and
-    K5 at k = 64, 128 and 256 on the 262,144 bp pair (the k-doubling's
-    bands), on the transposed SHW sweep of the 4 kbp query (q 4,096 + k + 1
-    bp of the target x t 4,096 bp) and on 64 pairs of 2,048 bp (numpy seed
-    1, 1 % divergence: a Hirschberg level's batch), to say where
-    MYERS_MIN_K belongs. One warm-up call, then REPS (whole sizes:
-    FULL_REPS) calls timed with CUDA events (ms), and a digest of the
-    output, so that the turns can be held equal;
+    1,048,576 bp target (chip_smoke's shape) and x the whole target; K6's
+    wide route under HW on a 17,000 bp query (seed 3) x 2,048 bp and x
+    1,048,576 bp (seed 4; in the checkout's plan and, where the checkout
+    takes seg_cols there, one block a pair); K4 on each route the checkout
+    has (a checkout without K4's `route=` runs its one kernel as "wide")
+    and K5 at k = 8, 16, 32, 64, 128 and 256 on the 262,144 bp pair (the
+    k-doubling's bands), on the transposed SHW sweep of the 4 kbp query
+    (q 4,096 + k + 1 bp of the target x t 4,096 bp) and on 64 pairs of
+    2,048 bp (numpy seed 1, 1 % divergence: a Hirschberg level's batch),
+    to say where MYERS_MIN_K belongs. One warm-up call, then REPS (whole
+    sizes: FULL_REPS) calls timed with CUDA events (ms), and a digest of
+    the output, so that the turns can be held equal;
   - end to end (`ops/align.align` on the card): the NW path and the NW
     distance (k = -1) of the 262,144 bp pair, and SHW and HW distance and
     locations of the 4 kbp query in the 1 Mbp target at k = 64, 256 and
@@ -35,7 +39,17 @@ scaffolding shared with k1_ab.py and k2_ab.py (`ab_common.py`):
 With `--sweep` (a checkout with K6's segments), K6 under HW on the whole 1
 Mbp target at forced segment sizes S (nseg = 132 x m warps for m = 1 .. 32,
 and S = 256 .. 16,384), beside the plan's, each with its digest and the
-card's resident warps an SM: the data behind SEG_WARPS_PER_SM.
+card's resident warps an SM: the data behind SEG_WARPS_PER_SM; and, where
+the checkout has `wide_segment_plan`, K6's wide route on the 17,000 bp
+query x 1,048,576 bp at nseg = SMs x m blocks (m = 1 .. the card's
+resident blocks an SM, and 8) and S = 1,024 .. 65,536, beside its plan's.
+With `--crossover` (no parent), the NW path of the 262,144 bp pair with
+`MYERS_MIN_K` at 64 and at 128 in turn (64, 128, 128, 64, twice): each
+run's wall time and digest, and every banded sweep the path makes, timed
+on the host clock by its k (K4 below MYERS_MIN_K, K5 from it); then the
+sweeps of one run at k = 32, 64 and 128 replayed on each kernel alone
+(K4's warp route on the codes, K5 on the compact alphabet, CUDA events):
+the path's own batches, to say where MYERS_MIN_K belongs.
 With `--profile`, one HW locations run at k = 64 under torch.profiler: the
 device time by kernel, largest first, and the device's busy total (the
 kernels' self time); and K6 alone on the same pair with CUDA events.
@@ -48,10 +62,12 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import sys
 import time
 
+import numpy as np
 from ab_common import checkout, ms
 
 REPS = 5
@@ -93,10 +109,16 @@ def inputs(torch, dev, np, encode, s):
             arr[i, : len(x)] = x
         batch += [torch.from_numpy(arr).to(dev),
                   torch.tensor([len(x) for x in seqs], dtype=torch.int32, device=dev)]
+    r = np.random.default_rng(3)
+    q17 = "".join(np.array(list("ACGT"))[r.integers(0, 4, 17_000)])
+    r = np.random.default_rng(4)
+    t1m = "".join(np.array(list("ACGT"))[r.integers(0, 4, 1 << 20)])
     return {"k5 5121x1024": pair(s["q"][:5121], s["t"][:1024]),
             "nw 262144": pair(s["q"], s["t"]),
             "k6 4096x2048": pair(s["tq"], s["big_t"][:2048]),
             "k6 4096x1M": pair(s["tq"], s["big_t"]),
+            "k6 17000x2048": pair(q17, t1m[:2048]),
+            "k6 17000x1M": pair(q17, t1m),
             "batch 64x2048": batch}
 
 
@@ -112,15 +134,31 @@ def kernels(torch, bc, x) -> dict:
             torch, lambda: bc.semi_ends_cuda(*x["k6 4096x2048"], free_target_prefix=hw), REPS)
         out[f"K6 {mode} q 4096 x t 1048576"] = timed(
             torch, lambda: bc.semi_ends_cuda(*x["k6 4096x1M"], free_target_prefix=hw), FULL_REPS)
+    # K6's wide route (17,000 rows: 532 words)
+    out["K6 wide HW q 17000 x t 2048"] = timed(
+        torch, lambda: bc.semi_ends_cuda(*x["k6 17000x2048"]), REPS)
+    out["K6 wide HW q 17000 x t 1048576, plan"] = timed(
+        torch, lambda: bc.semi_ends_cuda(*x["k6 17000x1M"]), FULL_REPS)
+    try:
+        out["K6 wide HW q 17000 x t 1048576, one block"] = timed(
+            torch, lambda: bc.semi_ends_cuda(*x["k6 17000x1M"], seg_cols=0), FULL_REPS)
+    except ValueError as e:  # a checkout whose wide route takes no segments
+        out["K6 wide HW q 17000 x t 1048576, one block"] = {"skipped": str(e)}
+    k4 = bc.banded_final_column_cuda
+    k4_routes = "route" in inspect.signature(k4).parameters
     q, ql, t, tl = x["k6 4096x1M"]
-    for k in (64, 128, 256):
+    for k in (8, 16, 32, 64, 128, 256):
         shw = [t[:, : 4096 + k + 1].contiguous(), torch.tensor([4096 + k + 1], dtype=torch.int32,
                                                                device=t.device), q, ql]
         for name, args, reps in (("q 262144 x t 262144", x["nw 262144"], FULL_REPS),
                                  (f"SHW transposed q {4096 + k + 1} x t 4096", shw, REPS),
                                  ("64 pairs x 2048", x["batch 64x2048"], REPS)):
-            out[f"K4 k={k} {name}"] = timed(
-                torch, lambda: bc.banded_final_column_cuda(*args, k=k), reps)
+            for route in ("warp", "wide"):
+                if k4_routes and (route == "wide" or 2 * k + 1 <= bc.WARP_MAX_WORDS):
+                    out[f"K4 {route} k={k} {name}"] = timed(
+                        torch, lambda: k4(*args, k=k, route=route), reps)
+                elif not k4_routes and route == "wide":
+                    out[f"K4 {route} k={k} {name}"] = timed(torch, lambda: k4(*args, k=k), reps)
             out[f"K5 k={k} {name}"] = timed(
                 torch, lambda: bc.banded_myers_cuda(*args, k=k), reps)
     return out
@@ -168,6 +206,78 @@ def sweep(torch, bc, x) -> dict:
     return out
 
 
+def wide_sweep(torch, bc, x) -> dict:
+    q, ql, t, tl = x["k6 17000x1M"]
+    Lq, Lt = q.shape[1], t.shape[1]
+    stages = bc.wide_shape(Lq)[0]
+    sms, resident = bc._card_blocks(q.device.index, stages)
+    nsegs = {sms * m for m in range(1, resident + 1)} | {sms * 8}
+    sizes = {-(-Lt // (32 * n)) * 32 for n in nsegs} | {1024 << i for i in range(7)}
+    out = {"sms": sms, "stages": stages, "resident_blocks_per_sm": resident,
+           "plan": list(bc.wide_segment_plan(1, Lq, Lt, sms, resident)),
+           "plan_ms": timed(torch, lambda: bc.semi_ends_cuda(q, ql, t, tl), REPS)}
+    for S in sorted(sizes):
+        row = timed(torch, lambda: bc.semi_ends_cuda(q, ql, t, tl, seg_cols=S), REPS)
+        row["nseg"] = -(-Lt // S)
+        out[f"S={S}"] = row
+    return out
+
+
+def crossover(torch, al, banded, bc, s) -> dict:
+    """The NW path at MYERS_MIN_K = 64 and 128 in turn, its banded sweeps
+    timed by k; then one run's sweeps at k = 32, 64, 128 on each kernel."""
+    orig, calls = al._banded_final_column, []
+
+    def traced(q, ql, t, tl, k, use_mask=False, eq_flat=None, *, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(q, ql, t, tl, k, use_mask=use_mask, eq_flat=eq_flat, device=device)
+        calls.append((int(k), time.perf_counter() - t0, (q, ql, t, tl)))
+        return out  # a NumPy array: the call has synchronized
+
+    keep = banded.MYERS_MIN_K
+    out, batches = {"runs": []}, {}
+    al._banded_final_column = traced
+    try:
+        for i, min_k in enumerate((64, 128, 128, 64, 64, 128, 128, 64)):
+            banded.MYERS_MIN_K = min_k
+            if i < 2:  # a warm-up run at each setting
+                al.align(s["q"], s["t"], mode="NW", task="path", device="cuda")
+            calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = al.align(s["q"], s["t"], mode="NW", task="path", device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by_k = {}
+            for k, sec, args in calls:
+                n, tot = by_k.get(k, (0, 0.0))
+                by_k[k] = (n + 1, tot + sec)
+                if i == 0 and k in (32, 64, 128):
+                    batches.setdefault(k, []).append(args)
+            out["runs"].append({"MYERS_MIN_K": min_k, "s": wall, "digest": digest(res),
+                                "sweeps_by_k": {k: [n, tot] for k, (n, tot) in sorted(by_k.items())}})
+    finally:
+        al._banded_final_column = orig
+        banded.MYERS_MIN_K = keep
+    dev = torch.device("cuda")
+    for k, group in sorted(batches.items()):
+        k4 = k5 = 0.0
+        shapes = []
+        for q, ql, t, tl in group:
+            args = [torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+                    for a in (q, ql, t, tl)]
+            remap = al._myers_compact_alphabet(q, ql, t, tl)
+            margs = [torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+                     for a in (remap[0], ql, remap[1], tl)]
+            k4 += sum(ms(torch, lambda: bc.banded_final_column_cuda(*args, k=k), REPS)) / REPS
+            k5 += sum(ms(torch, lambda: bc.banded_myers_cuda(*margs, k=k), REPS)) / REPS
+            shapes.append([q.shape[0], q.shape[1], t.shape[1]])
+        out[f"k={k} kernels alone"] = {"sweeps": len(group), "K4_ms": k4, "K5_ms": k5,
+                                       "shapes [P, Lq, Lt]": shapes}
+    return out
+
+
 def profile(torch, al, bc, x, s) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -200,8 +310,11 @@ def main() -> int:
     ap.add_argument("root", help="directory holding the checkout's stringdecomposer_tpu_torch")
     ap.add_argument("--sweep", action="store_true", help="K6's segment sizes instead")
     ap.add_argument("--profile", action="store_true", help="profile HW locations instead")
+    ap.add_argument("--crossover", action="store_true",
+                    help="the NW path at MYERS_MIN_K = 64 and 128 instead")
     args = ap.parse_args()
-    torch, res = checkout(args.root, ("myers", "semi", "peq", "banded_kernel"), "banded_ab")
+    torch, res = checkout(args.root, ("myers", "semi", "peq", "banded_kernel", "banded_warp"),
+                          "banded_ab")
     import numpy as np
     import workloads
     from stringdecomposer_tpu_torch.io.fasta import encode
@@ -213,6 +326,12 @@ def main() -> int:
     x = inputs(torch, dev, np, encode, s)
     if args.sweep:
         res["sweep"] = sweep(torch, bc, x)
+        if hasattr(bc, "wide_segment_plan"):
+            res["wide_sweep"] = wide_sweep(torch, bc, x)
+    elif args.crossover:
+        from stringdecomposer_tpu_torch.ops import banded
+
+        res["crossover"] = crossover(torch, al, banded, bc, s)
     elif args.profile:
         res["profile"] = profile(torch, al, bc, x, s)
     else:
