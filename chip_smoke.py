@@ -88,22 +88,23 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #     preference 2 compares + 2 selects + 1 add (matches = columns - D is
 #     one subtraction a pair, not a cell);
 #   K4, 6: match test 1, three candidates 3, two min 2 (also K3's cell-DP
-#     bound, printed beside its Myers bound);
-#   K5, 17 per word: one banded Myers step (Eq lookup, Xv, Xh, Ph, Mh, the
-#     add's carry, shifts);
-#   K6, 11 per word: K3's HW step below (10; K6 computes D(q_len, j), the
-#     same column step with its boundary row) and 1 to pick the Eq word by
-#     the target code (a select; K3 loads it);
+#     bound, printed beside its Myers bound); K4 and K5 count the band's
+#     cells at each column j, rows max(0, j - k) .. min(q_len, j + k)
+#     (band_rows; K5 in 32-row words, ceil(rows / 32) a column), not 2k + 1;
+#   K5 and K6, 11 per word: K3's HW step below (10; K6 computes D(q_len,
+#     j), K5 the band's column, each with the same column step, both
+#     csrc/myers_wide.cuh's stage_column; K5's band masks are a stage's,
+#     not a word's) and 1 to pick the Eq word by the target code (a select;
+#     K3 loads it);
 #   K3, 10 per word: the HW step as the H100 can issue it, one instruction
 #     each for X = Eq | VN, T = X & VP, the add with carry (IADD3), D0 =
 #     (sum ^ VP) | X and HP = VN | ~(D0 | VP) (LOP3), HN = D0 & VP, the two
 #     up-shifts of HP and HN (SHF funnel shifts), VP' = HN' | ~(D0 | HP')
 #     (LOP3) and VN' = D0 & HP'. K3 computes its function bit-parallel, so
 #     its bound counts a word per 32 monomer rows a window column, the least
-#     work known for it; the 17-a-word figure is printed beside it, to
-#     compare with K5;
+#     work known for it;
 #   the walk and P, 2 per element: compare, select.
-OPS_PER_CELL = {"k1": 15, "k2": 11, "hw": 6, "myers_word": 17, "k3_word": 10, "semi_word": 11,
+OPS_PER_CELL = {"k1": 15, "k2": 11, "hw": 6, "myers_word": 11, "k3_word": 10, "semi_word": 11,
                 "scan": 2}
 
 
@@ -113,6 +114,16 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     ms, and which of the two sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def band_rows(q_len: int, t_len: int, k: int):
+    """The rows of the banded NW DP at each target column j = 1 .. t_len,
+    max(0, j - k) .. min(q_len, j + k): the cells K4 and K5 must step (the
+    column j = 0 is the boundary), a numpy array by column."""
+    import numpy as np
+
+    j = np.arange(1, t_len + 1, dtype=np.int64)
+    return np.clip(np.minimum(q_len, j + k) - np.maximum(0, j - k) + 1, 0, None)
 
 
 def hw_brute(q: str, t: str) -> int:
@@ -259,6 +270,7 @@ def main() -> int:
     from stringdecomposer_tpu_torch.runtime import build
     from stringdecomposer_tpu_torch.scripts.workloads import (
         align_pairs, hor_library, hor_unit, joined_set, joined_variants, synth_pair, synthesize,
+        wide_pairs as workload_wide_pairs,
     )
 
     def k1_name(body: str, L: int, state_bytes: int) -> str:
@@ -1643,7 +1655,6 @@ def main() -> int:
             nbytes = args[0].numel() + args[2].numel() + 4 * got.numel()
             words = wl_sum * int(((ml + 31) // 32).sum())
             bd = bound(nbytes, OPS_PER_CELL["k3_word"] * words)
-            bd17 = bound(nbytes, OPS_PER_CELL["myers_word"] * words)
             cell_bd = bound(nbytes, OPS_PER_CELL["hw"] * wl_sum * int(ml.sum()))
             if keep:
                 timing[name] = (statistics.median(k), statistics.median(p))
@@ -1652,8 +1663,7 @@ def main() -> int:
                   f"{k3.plan(args[0].shape[0], M, L, W, 0)}): kernel {spread(k)}; plain "
                   f"{spread(p)}; bound {bd[0]:.4f} ms ({bd[1]}, Myers words at "
                   f"{OPS_PER_CELL['k3_word']} ops), {100 * bd[0] / statistics.median(k):.2f} % "
-                  f"of it; at {OPS_PER_CELL['myers_word']} ops a word {bd17[0]:.4f} ms; the cell "
-                  f"DP's bound {cell_bd[0]:.4f} ms")
+                  f"of it; the cell DP's bound {cell_bd[0]:.4f} ms")
         # K1's cluster body at the golden windows x the library
         _, (mono, lens) = mono_set(library)
         args = [torch.from_numpy(a).to(dev) for a in (wb, wl, mono, lens)]
@@ -1703,22 +1713,43 @@ def main() -> int:
 
     shapes = ((7, 300, 333), (3, 1000, 900), (5, 17, 40))
 
+    def mask_codes(P, Lq, r):
+        """Equality bitmasks over 7 symbols, 2 bits a query row, on the card."""
+        return torch.from_numpy(((1 << r.integers(0, 7, (P, Lq))) | (1 << r.integers(0, 7, (P, Lq))))
+                                .astype(np.int32)).to(dev)
+
+    def small_stages(fn_name, run):
+        """run() with ops/banded's `fn_name` (the wide route's shape)
+        patched to 32 stages a band, so that a small pair crosses bands of
+        stages (K4: 1,024 rows a band, its bands at once on a cluster of up
+        to 8 blocks; K5: 8,192 offset rows, its top links allocated)."""
+        keep = getattr(banded, fn_name)
+        small = {"banded_wide_shape": lambda Lq, Lt, k: keep(Lq, Lt, k, stages=32),
+                 "myers_wide_stages": lambda Lq, Lt, k: (32, True)}[fn_name]
+        setattr(banded, fn_name, small)
+        try:
+            return run()
+        finally:
+            setattr(banded, fn_name, keep)
+
     def k4_checks():
         """The warp route at k in {0, 1, 15, 16, 31, 32, 63, 64, 255} (R = 1..16),
         plain codes and equality bitmasks, bit-equal to the plain twin and to
-        the wide route (the block kernel) forced on the same inputs; k = 256,
-        512, 1,024, 8,192 and 40,000 on the wide route (auto), plain and mask
-        mode, held to the twin."""
+        the wide route (the pipeline of stages) forced on the same inputs;
+        k = 256, 512, 1,024, 8,192 and 40,000 on the wide route (auto),
+        plain and mask mode, held to the twin; the wide route in bands of 32
+        stages (1,024 rows; a pair's bands at once on a cluster of 1 +
+        ceil(2k / 1,024) blocks, at most 8, each block every cs-th band
+        past that) and a 20,000 x 9,000 pair in five bands of 128 stages
+        (4,096 rows), mask mode, held to the twin."""
         r = np.random.default_rng(1)
         for k in (0, 1, 15, 16, 31, 32, 63, 64, 255):
             for P, Lq, Lt in shapes + ((40, 600, 500),):
                 for mask in (False, True):
                     a = rand_pairs(P, Lq, Lt, seed=k * P + mask, alpha=7 if mask else 4,
                                    t_neg=not mask)
-                    if mask:  # equality bitmasks over 7 symbols, 2 bits a row
-                        a[0] = torch.from_numpy(((1 << r.integers(0, 7, (P, Lq)))
-                                                 | (1 << r.integers(0, 7, (P, Lq))))
-                                                .astype(np.int32)).to(dev)
+                    if mask:
+                        a[0] = mask_codes(P, Lq, r)
                     what = f"K4 k={k} P={P} Lq={Lq} Lt={Lt}{' mask mode' if mask else ''}"
                     got = banded_final_column_cuda(*a, k=k, use_mask=mask, route="warp")
                     smoke.same("banded_final_column", f"{what} (warp)", got,
@@ -1726,18 +1757,14 @@ def main() -> int:
                     smoke.same("banded_final_column_wide", f"{what} (wide)",
                                banded_final_column_cuda(*a, k=k, use_mask=mask, route="wide"), got)
         # the wide route (auto) where align_wide's mask-mode k-doubling takes
-        # it: R = 1 (k = 256), 2, 3 and 17 band lanes a thread in shared
-        # memory (k = 512, 1024, 8192), and the band in device memory (k =
-        # 40000), plain and mask mode
+        # it (k = 256 .. 8,192), and past it (k = 40,000), plain and mask mode
         for k, (P, Lq, Lt) in ((256, (7, 700, 650)), (512, (5, 1300, 1200)),
                                (1024, (3, 2500, 2100)), (8192, (2, 9217, 1024)),
                                (40000, (2, 3000, 1500))):
             for mask in (False, True):
                 a = rand_pairs(P, Lq, Lt, seed=5 + mask, alpha=7 if mask else 4, t_neg=not mask)
                 if mask:
-                    a[0] = torch.from_numpy(((1 << r.integers(0, 7, (P, Lq)))
-                                             | (1 << r.integers(0, 7, (P, Lq))))
-                                            .astype(np.int32)).to(dev)
+                    a[0] = mask_codes(P, Lq, r)
                 before = (banded_final_column_cuda.launches, banded_final_column_cuda.launches_wide)
                 smoke.same("banded_final_column_wide",
                            f"K4 k={k} P={P} Lq={Lq} Lt={Lt}{' mask mode' if mask else ''} (wide)",
@@ -1747,11 +1774,37 @@ def main() -> int:
                 if (after[0] - before[0], after[1] - before[1]) != (0, 1):
                     raise AssertionError(f"K4 k={k}: launches {before} -> {after}, not the wide "
                                          "route")
+        # bands of stages: 32 stages a band (1,024 rows) on pairs of up to
+        # 10,000 rows (at k = 4,000 10 bands, two a block on the cluster of
+        # 8; at k = 40 and 300 a cluster of 2, at 1,200 of 4), the band's
+        # bottom and top crossing the band seams; and a pair of 20,000 x
+        # 9,000 at k = 8,192 (rows up to 17,192: five bands of 128 stages)
+        for k, (P, Lq, Lt) in ((300, (4, 3000, 2500)), (40, (4, 2600, 2600)),
+                               (1200, (3, 2500, 1800)), (4000, (2, 10000, 9500))):
+            for mask in (False, True):
+                a = rand_pairs(P, Lq, Lt, seed=k + mask, alpha=7 if mask else 4, t_neg=not mask)
+                if mask:
+                    a[0] = mask_codes(P, Lq, r)
+                smoke.same("banded_final_column_wide",
+                           f"K4 k={k} P={P} Lq={Lq} Lt={Lt}{' mask mode' if mask else ''} (wide, "
+                           "bands of 32 stages)",
+                           small_stages("banded_wide_shape", lambda: banded_final_column_cuda(
+                               *a, k=k, use_mask=mask, route="wide")),
+                           banded.banded_final_column(*a, k=k, use_mask=mask))
+        a = rand_pairs(2, 20000, 9000, seed=20, alpha=7)
+        a[0] = mask_codes(2, 20000, r)
+        if banded.banded_wide_shape(20000, 9000, 8192) != (128, 4, 5):
+            raise AssertionError(f"K4 20000 x 9000: {banded.banded_wide_shape(20000, 9000, 8192)}")
+        smoke.same("banded_final_column_wide", "K4 k=8192 P=2 Lq=20000 Lt=9000 mask mode (wide, "
+                   "five bands of 128 stages at once)",
+                   banded_final_column_cuda(*a, k=8192, use_mask=True),
+                   banded.banded_final_column(*a, k=8192, use_mask=True))
         print("K4: the warp route at k in {0, 1, 15, 16, 31, 32, 63, 64, 255} on ragged shapes "
               "(P = 7, 3, 5, 40; empty query and target rows), plain and mask mode, every lane "
               "bit-equal to the plain twin and to the wide route; the wide route at k = 256, 512, "
-              "1024, 8192 (1, 2, 3, 17 band lanes a thread in shared memory) and 40000 (band in "
-              "device memory), plain and mask mode, bit-equal to the twin")
+              "1024, 8192 and 40000, plain and mask mode, in bands of 32 stages at k = 40, 300, "
+              "1200, 4000 (up to 10 bands on a cluster of 8 blocks), and a 20000 x 9000 pair at k "
+              "= 8192 in five bands of 128 stages at once, mask mode, bit-equal to the twin")
 
     def wide_launches(fn):
         """The wide routes' launches (K5, K6) that fn makes."""
@@ -1761,7 +1814,7 @@ def main() -> int:
 
     def k5_checks():
         """The warp route bit-equal to the twin on every lane and to the wide
-        route (the block kernel) forced on the same inputs; past k = 1000
+        route (the pipeline of stages) forced on the same inputs; past k = 1000
         the twin (a Python loop a column) takes the two smaller shapes and
         the wide route, itself held to the twin, a pair of 2k + 600 columns
         that crosses into the columns past k."""
@@ -1778,15 +1831,30 @@ def main() -> int:
                            banded_myers_cuda(*a, k=k, route="wide"), got)
         a = rand_pairs(2, 45000, 120, seed=9, t_neg=True)
         n = wide_launches(lambda: smoke.same(
-            "banded_myers_wide", "K5 k=20000 (the wide route, 2 words a thread)",
+            "banded_myers_wide", "K5 k=20000 (the wide route)",
             banded_myers_cuda(*a, k=20000), banded.banded_final_column_myers(*a, k=20000)))
         if n != (1, 0):
             raise AssertionError(f"K5 k=20000: wide-route launches {n}, expected (1, 0)")
+        # bands of stages: 32 stages a band (8,192 offset rows) on pairs whose
+        # offset rows reach 9,000-13,000, and a pair of 135,000 rows at k =
+        # 65,000 (132,000 offset rows: two bands of 512 stages)
+        for k, (P, Lq, Lt) in ((3000, (4, 10000, 3000)), (2000, (3, 9000, 5000))):
+            a = rand_pairs(P, Lq, Lt, seed=k, t_neg=True)
+            smoke.same("banded_myers_wide", f"K5 k={k} P={P} Lq={Lq} Lt={Lt} (wide, bands of 32 "
+                       "stages)", small_stages("myers_wide_stages", lambda: banded_myers_cuda(
+                           *a, k=k, route="wide")), banded.banded_final_column_myers(*a, k=k))
+        a = rand_pairs(2, 135000, 2000, seed=11, t_neg=True)
+        if banded.myers_wide_stages(135000, 2000, 65000) != (512, True):
+            raise AssertionError(f"K5 135000 x 2000: {banded.myers_wide_stages(135000, 2000, 65000)}")
+        smoke.same("banded_myers_wide", "K5 k=65000 P=2 Lq=135000 Lt=2000 (wide, two bands of 512 "
+                   "stages)", banded_myers_cuda(*a, k=65000),
+                   banded.banded_final_column_myers(*a, k=65000))
         print("K5: the warp route at k in {8, 31, 256, 300, 1000, 4096, 8175, 8191} (R = 1..16; "
               "below MYERS_MIN_K the routers patch it down) on ragged shapes up to 40 pairs, every "
               "lane bit-equal to the plain twin (past k = 1000 on the two smaller shapes) and to "
               "the wide route (past k = 1000 also at 2k + 600 columns); k = 20000 on the wide "
-              "route (auto), bit-equal to the twin")
+              "route (auto), in bands of 32 stages at k = 2000 and 3000, and a 135000-row pair at "
+              "k = 65000 in two bands of 512 stages, bit-equal to the twin")
 
     def k6_checks():
         """The warp route, one warp a pair, bit-equal to the twin and to the
@@ -1874,13 +1942,10 @@ def main() -> int:
             1, Lq, Lt, *banded_cuda._card_blocks(0, banded_cuda.wide_shape(Lq)[0]))
 
     def wide_pairs():
-        """align_wide's pairs, from numpy.random.default_rng(3), made once."""
+        """align_wide's pairs (`workloads.wide_pairs`, numpy.random.default_rng(3)),
+        made once."""
         if "wide" not in cache:
-            rng = np.random.default_rng(3)
-            q40, t40 = synth_pair(40_000, 0.15, rng)
-            q17 = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 17_000)])
-            t20 = q17[:9000] + "".join(np.array(list("ACGT"))[rng.integers(0, 4, 11_000)])
-            cache["wide"] = (q40, t40, q17, t20)
+            cache["wide"] = workload_wide_pairs(np.random.default_rng(3))
         return cache["wide"]
 
     def align_wide():
@@ -2151,16 +2216,45 @@ def main() -> int:
             smoke.same(name, what, got, want)
             timing[name] = (statistics.median(k), statistics.median(p))
             q_len, t_len = int(args[1][0]), int(args[3][0])
-            if name.startswith("banded_final_column"):  # band lanes x target columns
-                ops = OPS_PER_CELL["hw"] * (2 * kw["k"] + 1) * t_len
-            elif name.startswith("banded_myers"):  # 32-row band words x target columns
-                ops = OPS_PER_CELL["myers_word"] * -(-(2 * kw["k"] + 1) // 32) * t_len
+            if name.startswith("banded_final_column"):  # the band's cells
+                ops = OPS_PER_CELL["hw"] * band_rows(q_len, t_len, kw["k"]).sum()
+            elif name.startswith("banded_myers"):  # the band's cells in 32-row words
+                words = -(-band_rows(q_len, t_len, kw["k"]) // 32)
+                ops = OPS_PER_CELL["myers_word"] * words.sum()
             else:  # full-height words x target columns
                 ops = OPS_PER_CELL["semi_word"] * -(-q_len // 32) * t_len
             bounds[name] = bound(4 * (q_len + t_len + 2) + out_bytes(got), ops)
             print(f"{what}: kernel {spread(k)}, {1e6 * statistics.median(k) / t_len:.1f} ns a "
                   f"target column; plain {spread(p)}; bound {bounds[name][0]:.4f} ms "
                   f"({bounds[name][1]})")
+        # the whole 40 kbp band (align_wide's last k-doubling level, k = 8,192):
+        # K4's wide route in mask mode and K5's, kernel only
+        mq40, mt40 = enc.q_lut[raw[0]], enc.t_lut[raw[1]].astype(np.int32)
+        k4_whole = [torch.from_numpy(mq40[None, :]).to(dev), lens(len(q40)),
+                    torch.from_numpy(mt40[None, :]).to(dev), lens(len(t40))]
+        for name, fn, args, kw in (("K4 wide route mask mode", banded_final_column_cuda, k4_whole,
+                                    dict(k=8192, use_mask=True)),
+                                   ("K5 wide route", banded_myers_cuda, pair(q40, t40),
+                                    dict(k=8192))):
+            k, _ = timed(lambda: fn(*args, **kw), 3)
+            print(f"{name} k=8192, the whole 40 kbp pair (q {len(q40)} bp x t {len(t40)} bp): "
+                  f"kernel {spread(k)}, {1e6 * statistics.median(k) / len(t40):.1f} ns a target "
+                  "column")
+        # align_wide's NW distance of the 40 kbp pair end to end, plain codes
+        # (K4's warp route, then K5's warp and wide routes) and mask mode (K4)
+        for what, kw in (("plain", {}), ("mask mode", dict(additionalEqualities=[("N", "A")]))):
+            walls = []
+            d = al.align(q40, t40, mode="NW", device="cuda", **kw)["editDistance"]
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d2 = al.align(q40, t40, mode="NW", device="cuda", **kw)["editDistance"]
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if d2 != d:
+                    raise AssertionError(f"align_wide {what}: distance {d2} != {d}")
+            print(f"align_wide NW distance 40 kbp {what} (d={d}): wall s min / median / max "
+                  f"{min(walls):.4f} / {statistics.median(walls):.4f} / {max(walls):.4f}")
         # K4's wide route forced at the warp route's SHW k = 32 shape, for
         # comparison only (auto takes the warp route there)
         k, got = timed(lambda: banded_final_column_cuda(*k4_shw, k=32, route="wide"), 5)
@@ -2180,7 +2274,8 @@ def main() -> int:
                 arr[i, : len(x)] = x
             batch += [torch.from_numpy(arr).to(dev), lens(*[len(x) for x in seqs])]
         want = banded.banded_final_column(*batch, k=32)
-        cells = int(batch[3].to(torch.int64).sum()) * 65
+        cells = sum(int(band_rows(int(a), int(b), 32).sum())
+                    for a, b in zip(batch[1].tolist(), batch[3].tolist()))
         bd = bound(4 * sum(x.numel() for x in batch) + 4 * want.numel(), OPS_PER_CELL["hw"] * cells)
         for name, route in (("banded_final_column", "warp"), ("banded_final_column_wide", "wide")):
             k, got = timed(lambda: banded_final_column_cuda(*batch, k=32, route=route), 5)

@@ -654,3 +654,320 @@ def semi_staged(q, q_lens, t, free_target_prefix: bool = True, stages: int | Non
             top = act[:, st - 1] & (band < hb)
             tops[g[top], c[top, st - 1]] = out[top, st - 1]
     return ends
+
+
+# ---------------------------------------------------------------------------
+# K4's and K5's wide routes as plain mirrors (test-only; nothing on the main
+# path calls them): pipelines of register stages in absolute rows
+# (csrc/banded.cu banded_wide_kernel, myers_wide_kernel)
+# ---------------------------------------------------------------------------
+WIDE4_R = 32  # K4's wide route: rows a stage (csrc/banded.cu kRows4)
+K4_CLUSTER_MAX = 8  # K4's wide route: blocks a pair, a band each (csrc/banded.cu kClusterMax)
+# K4's wide route: stages a band at most. A step of a band costs about the
+# same at 4 warps as at 16 (its link's chain, ~500 ns on the H100), so
+# smaller bands run more of the band's rows at once on a cluster: on the
+# H100, banded_ab.py --k4-stages measured 128 the fastest of 32 .. 512 on
+# the 262,144 bp pair at k = 256 and 1,024, on 64 pairs of 32,768 bp at k =
+# 256 and on the 40 kbp pair at k = 8,192
+WIDE4_STAGES = 128
+INF_G = 1 << 29  # K4's wide route: a cell past the band or the rows (D - i - j >= BIG)
+
+
+def _wide_stages(units: int, per_stage: int) -> int:
+    """Threads of a wide-route block: stages of per_stage rows or words for
+    `units` of them, whole warps, at most ops/hw_filter.WIDE_MAX_STAGES
+    (past that the kernel runs bands of stages)."""
+    from .hw_filter import WIDE_MAX_STAGES
+
+    return min(WIDE_MAX_STAGES, 32 * max(1, -(-units // (32 * per_stage))))
+
+
+def banded_wide_shape(Lq: int, Lt: int, k: int,
+                      stages: int | None = None) -> tuple[int, int, int]:
+    """(stages a band, seams, blocks a pair) of K4's wide route: rows 0 ..
+    min(q_len, t_len + k), rows = min(Lq, Lt + k) + 1 at most, in stages of
+    WIDE4_R, WIDE4_STAGES a band at most (or `stages` given). A pair past
+    one band of RB = stages * WIDE4_R rows runs its bands at once: band b +
+    1 starts about RB + stages columns after band b and runs RB + 2k +
+    stages, so cs = 1 + ceil(2k / RB) blocks, one a band (each every cs-th
+    band past that), keep up with the bands, at most K4_CLUSTER_MAX and the
+    bands. `seams`, the most bands a pair can take less one, sizes the top
+    links' scratch, 2k + 1 links a seam."""
+    rows = min(Lq, Lt + k) + 1
+    stages = stages or min(_wide_stages(rows, WIDE4_R), WIDE4_STAGES)
+    RB = stages * WIDE4_R
+    bands = -(-rows // RB)
+    return stages, bands - 1, min(K4_CLUSTER_MAX, bands, 1 + -(-2 * k // RB))
+
+
+def myers_wide_stages(Lq: int, Lt: int, k: int) -> tuple[int, bool]:
+    """(stages a band, whether a pair may take more than one band) of K5's
+    wide route: offset rows a = i + k up to min(q_len + k, t_len + 2k), in
+    32-row words, in stages of WIDE_R words (ops/hw_filter.WIDE_R)."""
+    from .hw_filter import WIDE_R
+
+    words = min(Lq + k, Lt + 2 * k) // 32 + 1
+    stages = _wide_stages(words, WIDE_R)
+    return stages, words > stages * WIDE_R
+
+
+def banded_staged(q, q_lens, t, t_lens, k: int, rows: int | None = None,
+                  stages: int | None = None, use_mask: bool = False) -> torch.Tensor:
+    """K4 as its wide route computes it, [P, 2k+1] int32, bit-equal to
+    banded_final_column on every lane. Absolute rows i in stages of `rows`
+    (default WIDE4_R), `stages` a band (default banded_wide_shape's), each
+    cell held as G = D(i, j) - i - j: the left step costs 0, the diagonal
+    sub - 2, the up step 0, so the up chain is a running minimum and the NW
+    boundary row stays G = 0. Only rows up to min(q_len, t_len + k) are
+    held; a band runs the columns where some of its rows lie in the band.
+    At step u stage s steps column jb + u - s: cand = min(G(i, j - 1),
+    G(i - 1, j - 1) + sub - 2) from its own rows (the first row's diagonal
+    the previous link), then the running minimum from the link, the top
+    row's G of the stage below at this column, into the stage's rows.
+    Cells past the band's top keep INF_G (so a row entering it reads exactly
+    BIG from its left, as band_cand), the chain restarts at the band's
+    bottom (rows below it hold stale values and the link from below them is
+    dropped), stages wholly outside the band do nothing, and a band's top
+    links are kept for the next band (which the kernel runs at the same
+    time on another block of a cluster, waiting for the columns it reads)
+    at the 2k + 1 columns it reads, A - k - 1 .. A + k - 1 for its first
+    row A. At j = t_len each stage writes its rows of the band: min(G + i +
+    t_len, BIG)."""
+    P, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    R = rows or WIDE4_R
+    S = stages or banded_wide_shape(Lq, Lt, k)[0]
+    Bw = 2 * k + 1
+    ql = q_lens.to(device=dev, dtype=torch.int64)
+    tl = t_lens.to(device=dev, dtype=torch.int64)
+    n = torch.where((tl < 0) | (tl > Lt), -1, tl)
+    out = torch.full((P, Bw), BIG, dtype=torch.int64, device=dev)
+    last = torch.minimum(ql, n + k)  # the highest row any captured lane needs
+    RB = S * R
+    nb = torch.where((n >= 0) & (last >= 0), last // RB + 1, 0)
+    # the code of row i at index i: the padding code at row 0 and past Lq
+    qpad = torch.full((P, Lq + 2), 0 if use_mask else -1, dtype=torch.int64, device=dev)
+    qpad[:, 1 : 1 + Lq] = q.to(torch.int64)
+    t64 = t.to(device=dev, dtype=torch.int64)
+    tout = None  # the seam above the band: its 2k + 1 top links by column
+    sidx = torch.arange(S, device=dev)
+    pidx = torch.arange(P, device=dev)[:, None, None]
+
+    def g0(i):  # G at column 0: rows [0, min(q_len, k)] hold D = i
+        return torch.where((i <= k) & (i <= ql.view(-1, *[1] * (i.dim() - 1))), 0, INF_G)
+
+    for band in range(int(nb.max()) if P else 0):
+        inb = band < nb
+        A = band * RB
+        used = torch.where(inb, torch.where(band < nb - 1, S, (last - A) // R + 1), 0)
+        a0 = A + sidx * R  # [S] the stages' first rows
+        ri = a0[:, None] + torch.arange(R, device=dev)  # [S, R]
+        jb = max(1, A - k)
+        ncols = torch.where(inb, (torch.minimum(n, A + used * R - 1 + k) - jb + 1).clamp(min=0), 0)
+        # the seams below and above, columns from A - k - 1 and A + RB - k - 1
+        tin, tout = tout, torch.full((P, Bw), INF_G, dtype=torch.int64, device=dev)
+        tin0, tout0 = A - k - 1, A + RB - k - 1
+        lastin = torch.minimum(n, torch.full_like(n, A - 1 + k))
+
+        def seam(col, tin=tin, tin0=tin0, lastin=lastin):
+            """The band below's top link at column col; none past lastin."""
+            return torch.where(col > lastin, INF_G, tin[:, min(max(col - tin0, 0), Bw - 1)])
+
+        G = g0(ri[None].expand(P, S, R))
+        code = qpad[:, ri.clamp(max=Lq + 1)]  # [P, S, R]
+        if band == 0:
+            first = torch.full((P,), INF_G, dtype=torch.int64, device=dev)
+        elif jb > 1:
+            first = seam(jb - 1)
+        else:
+            first = g0(torch.full((P,), A - 1, device=dev))
+        prev = torch.cat([first[:, None], g0((a0[1:] - 1)[None].expand(P, S - 1))], dim=1)
+        handed = torch.full((P, S), INF_G, dtype=torch.int64, device=dev)
+        live = sidx[None, :] < used[:, None]
+        for u in range(int((ncols + used - 1).max()) if int(ncols.max()) else 0):
+            c = u - sidx
+            j = jb + c  # [S], the same for every pair
+            act = live & (c >= 0)[None, :] & (c[None, :] < ncols[:, None])
+            l0 = seam(int(j[0])) if band else torch.full((P,), INF_G, device=dev)
+            link = torch.cat([l0[:, None], handed[:, :-1]], dim=1)
+            tc = t64[:, j.clamp(1, Lt) - 1]
+            lo, hi = j - k, j + k
+            run = torch.where((a0 - 1 >= lo)[None, :], link, INF_G)  # band 0's stage 0: INF_G
+            pv = prev
+            new = G.clone()
+            for r in range(R):
+                i = a0 + r
+                old = G[..., r]
+                match = ((code[..., r] >> tc) & 1) if use_mask else (code[..., r] == tc).to(torch.int64)
+                cand = torch.minimum(old, pv - 1 - match)
+                pv = old
+                run = torch.where((i > lo)[None, :], torch.minimum(run, cand), cand)
+                new[..., r] = torch.where((i <= hi)[None, :], run, old)
+            work = act & ~((a0 + R - 1 < lo) | (a0 > hi))[None, :]
+            G = torch.where(work[..., None], new, G)
+            prev = torch.where(act, link, prev)
+            handed = G[..., R - 1]
+            w = act[:, S - 1] & (band < nb - 1) & (int(j[S - 1]) >= tout0)
+            if bool(w.any()):
+                tout[w, int(j[S - 1]) - tout0] = handed[w, S - 1]
+        # the captured lanes of this band's rows
+        lane = ri[None] - n[:, None, None] + k
+        keep = (live[..., None] & (lane >= 0) & (lane < Bw) & (ri[None] <= ql[:, None, None])
+                & inb[:, None, None])
+        vals = (G + ri[None] + n[:, None, None]).clamp(max=BIG)
+        out[pidx.expand_as(lane)[keep], lane[keep]] = vals[keep]
+    return out.to(torch.int32)
+
+
+def _lowbits(n: torch.Tensor) -> torch.Tensor:
+    """Per word, the mask of its lowest n bits (n clamped to 0..32)."""
+    n = n.clamp(0, 32)
+    return torch.where(n >= 32, M32, (torch.ones_like(n) << n.clamp(max=31)) - 1)
+
+
+def myers_staged(q, q_lens, t, t_lens, k: int, words: int | None = None,
+                 stages: int | None = None) -> torch.Tensor:
+    """K5 as its wide route computes it, [P, 2k+1] int32, bit-equal to
+    banded_final_column_myers on every lane. Offset rows a = i + k (band
+    lane b at column j is row j + b) in 32-row words, in stages of `words`
+    (default WIDE_R), `stages` a band (default myers_wide_stages'), run as
+    K6's pipeline (semi_staged): VP, VN and the Peq words stay in place, a
+    stage steps its words with the link of the stage below (the add's carry,
+    the HP / HN bits of its top row). The band in offset rows: the add
+    starts at cut = max(j, k + 1) with no carry and HP = +1, HN = 0 shifted
+    into it (the NW boundary row a = k while j <= k, the band's bottom a = j
+    after), and the top a = j + 2k rises a row a column. The virtual rows a
+    <= k are held as VP = VN = 0 (no Peq bit), which a step leaves as they
+    are and which hand the row above exactly that; their -1 ramp is put
+    back at the capture. The row entering the top is set to VP = 1, VN = 0
+    (the twin's slid-in top lane); the rows above it are stepped but reach
+    nothing below. Only the stage holding the bottom row j > k masks the
+    rows below it out of the add. Only rows up to min(q_len + k, t_len + 2k)
+    are held, and a stage with no row in [cut, j + 2k] does nothing. The
+    anchor, D at band lane 0, is k while j <= k and then follows row j,
+    stepped by the stage that holds it (in the kernel handed from stage to
+    stage through shared memory). At j = t_len the rows [t_len, t_len + 2k]
+    are captured as the twin's planes and the column rebuilt by
+    reconstruct_myers_column."""
+    from .hw_filter import WIDE_R
+
+    P, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    WR = words or WIDE_R
+    S = stages or myers_wide_stages(Lq, Lt, k)[0]
+    Bw = 2 * k + 1
+    ql = q_lens.to(device=dev, dtype=torch.int64)
+    tl = t_lens.to(device=dev, dtype=torch.int64)
+    n = torch.where((tl < 0) | (tl > Lt), -1, tl)
+    ok = (n >= 0) & (n <= ql + k)  # else no captured lane is a row of the query
+    hi_row = torch.minimum(ql + k, n + 2 * k)
+    nst = torch.where(ok, (hi_row // 32) // WR + 1, 0)  # stages a pair holds
+    nb = -(-nst // S)
+    SR = 32 * WR
+    RB = S * SR
+    nbw = max(1, int(nb.max()) * S * WR) if P else 1
+    peq = peq_bitmaps(q, q_lens, k + 1, nbw)  # [P, 4, words] over offset rows
+    capp = torch.zeros((P, Bw), dtype=torch.int64, device=dev)
+    capn = torch.zeros_like(capp)
+    ca = torch.full((P,), k, dtype=torch.int64, device=dev)
+    anchor = ca.clone()
+    tops = torch.full((P, Lt + 1), 2, dtype=torch.int64, device=dev)
+    t64 = t.to(device=dev, dtype=torch.int64)
+    sidx = torch.arange(S, device=dev)
+    ridx = torch.arange(WR, device=dev)
+    lanes = torch.arange(Bw, device=dev)
+    sh32 = torch.arange(32, dtype=torch.int64, device=dev)
+    for band in range(int(nb.max()) if P else 0):
+        inb = band < nb
+        A = band * RB
+        used = torch.where(inb, torch.where(band < nb - 1, S, nst - band * S), 0)
+        sw = (band * S + sidx) * WR  # [S] the stages' first words
+        R0 = 32 * sw
+        base = R0[:, None] + 32 * ridx  # [S, WR] the row of each word's bit 0
+        aend = A + used * SR - 1
+        jb = max(1, A - 2 * k)
+        je = torch.where(aend >= k + 1, torch.minimum(n, aend), 0)
+        ncols = torch.where(inb, (je - jb + 1).clamp(min=0), 0)
+        # column 0: VP = 1 above row 0 (a > k); the virtual rows held as 0
+        vp = (_lowbits(k + 1 - base) ^ M32).expand(P, S, WR).clone()
+        vn = torch.zeros_like(vp)
+        planes = peq[:, :, sw[:, None] + ridx]  # [P, 4, S, WR]
+        live = sidx[None, :] < used[:, None]
+        handed = torch.full((P, S), 2, dtype=torch.int64, device=dev)
+        for u in range(int((ncols + used - 1).max()) if int(ncols.max()) else 0):
+            c = u - sidx
+            j = jb + c  # [S]
+            act = live & (c >= 0)[None, :] & (c[None, :] < ncols[:, None])
+            cut = torch.clamp(j, min=k + 1)
+            top = j + 2 * k
+            if band:  # the band below's top links, where its top row is stepped
+                l0 = torch.where(A - 1 >= cut[0], tops[:, min(int(j[0]), Lt)], 2)
+            else:
+                l0 = torch.full((P,), 2, dtype=torch.int64, device=dev)
+            link = torch.cat([l0[:, None], handed[:, :-1]], dim=1)
+            tc = t64[:, j.clamp(1, Lt) - 1]
+            eq = torch.zeros_like(vp)
+            for code in range(4):
+                eq = torch.where((tc == code)[..., None], planes[:, code], eq)
+            d = top[:, None] - base  # the row entering the top, as a bit of each word
+            enter = torch.where((d >= 0) & (d < 32), 1 << d.clamp(0, 31), 0)
+            vp0 = vp | enter  # the values the step reads
+            vn0 = vn & (enter ^ M32)
+            # the stage of the bottom row j > k keeps the rows below it out of the add
+            keep = _lowbits(torch.where(j > k, j - R0, 0)[:, None] - 32 * ridx) ^ M32
+            mvp, mvn = vp0 & keep, vn0 & keep
+            x = (eq & keep) | mvn
+            carry = link & 1
+            hpp, hnp = (link >> 1) & 1, (link >> 2) & 1
+            nvp, nvn, hpw, hnw = [], [], [], []
+            for r in range(WR):
+                full = (x[..., r] & mvp[..., r]) + mvp[..., r] + carry
+                carry, sm = full >> 32, full & M32
+                d0 = (sm ^ mvp[..., r]) | x[..., r]
+                hp = mvn[..., r] | ((d0 | mvp[..., r]) ^ M32)
+                hn = d0 & mvp[..., r]
+                hpsh = ((hp << 1) & M32) | hpp
+                hnsh = ((hn << 1) & M32) | hnp
+                nvp.append((hnsh | ((d0 | hpsh) ^ M32)) & M32)
+                nvn.append(d0 & hpsh)
+                hpw.append(hp)
+                hnw.append(hn)
+                hpp, hnp = hp >> 31, hn >> 31
+            out = carry | (hpp << 1) | (hnp << 2)
+            work = act & ~((R0 + SR - 1 < cut) | (R0 > top))[None, :]
+            # the anchor: row j's vertical delta at column j - 1 (none when
+            # k = 0: the twin's lane 1 is past the band) and its HP - HN
+            hold = work & ((j > k) & (R0 <= j) & (j < R0 + SR))[None, :]
+            off = (j - R0).clamp(0, SR - 1)
+            hr, hb = off // 32, off % 32
+            s_i = sidx[None, :].expand(P, S)
+
+            def bit(v, hr=hr, hb=hb):
+                return (v[torch.arange(P, device=dev)[:, None], s_i, hr[None, :].expand(P, S)]
+                        >> hb[None, :]) & 1
+
+            d_old = (bit(vp0) - bit(vn0)) if k > 0 else 0
+            h = bit(torch.stack(hpw, dim=-1)) - bit(torch.stack(hnw, dim=-1))
+            anchor = anchor + torch.where(hold, d_old + h, 0).sum(dim=1)
+            at_n = (hold & (j[None, :] == n[:, None])).any(dim=1)
+            ca = torch.where(at_n, anchor, ca)
+            vp = torch.where(work[..., None], torch.stack(nvp, dim=-1), vp)
+            vn = torch.where(work[..., None], torch.stack(nvn, dim=-1), vn)
+            handed = torch.where(work, out, 2)
+            w = act[:, S - 1] & (band < nb - 1)
+            if bool(w.any()):
+                tops[w, int(j[S - 1])] = handed[w, S - 1]
+        # capture: lane b <- offset row t_len + b, where this band holds it
+        bits_p = ((vp[..., None] >> sh32) & 1).reshape(P, S * SR)
+        bits_n = ((vn[..., None] >> sh32) & 1).reshape(P, S * SR)
+        row = n[:, None] + lanes[None, :] - A  # [P, Bw] index into the band's rows
+        held = inb[:, None] & ok[:, None] & (row >= 0) & (row < used[:, None] * SR)
+        rc = row.clamp(0, S * SR - 1)
+        capp = torch.where(held, bits_p.gather(1, rc), capp)
+        capn = torch.where(held, bits_n.gather(1, rc), capn)
+    # the virtual rows' -1 ramp, rows 1 .. k
+    row = n[:, None] + lanes[None, :]
+    capn = torch.where(ok[:, None] & (row >= 1) & (row <= k), 1, capn)
+    return reconstruct_myers_column(pack_bits(capp), pack_bits(capn), ca, q_lens, t_lens, k)

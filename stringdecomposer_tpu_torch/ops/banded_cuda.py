@@ -10,12 +10,14 @@ does not take. Each kernel has two routes, each with its own launch counter:
   255), K5's and K6's 32-row words (csrc/myers_warp.cu; k <= 8,191 in K5,
   Lq <= 16,384 in K6). K6 under HW splits a long target into segments, one
   warp each (`segment_plan`);
-- the wide route (`launches_wide`; csrc/banded.cu) past that. K4 and K5 run
-  one block a pair, the band's arrays in shared memory while they fit and in
-  a per-pair device-memory scratch beyond that; their block size and items
-  per thread are chosen here. K6 runs its column as a pipeline of register
-  stages a block (ops/hw_filter.wide_shape's stages and bands), under HW in
-  segments too, a block each (`wide_segment_plan`).
+- the wide route (`launches_wide`; csrc/banded.cu) past that: a block a
+  pair whose threads are a pipeline of register stages, K4's and K5's in
+  absolute rows (ops/banded.banded_wide_shape and myers_wide_stages pick
+  the stages a band), K6's over the whole query (ops/hw_filter.wide_shape),
+  under HW in segments too, a block each (`wide_segment_plan`). A pair
+  taller than one band runs bands of stages, their top links by column in
+  a scratch: K4's at once, a block each on a cluster, K5's and K6's one
+  after the other.
 """
 
 from __future__ import annotations
@@ -29,10 +31,6 @@ from ..runtime.build import check, count_launch, library, stream_of
 from . import banded
 from .hw_filter import wide_shape
 
-# dynamic shared memory one block may opt into on the H100 (sm_90)
-SMEM_BYTES = 232_448
-_SLOTS = 32  # the kernels' scan slots, one int per warp
-_PLANE_ARRAYS = 9  # K5's wide route: VP, VN, four Peq planes, d0, HP, HN
 # csrc/myers_warp.cu and csrc/banded_warp.cu: kMaxR = 16 words (K4: band
 # lanes) a lane, kWarps = 8 warps a block
 WARP_MAX_WORDS = 32 * 16
@@ -124,13 +122,6 @@ def _card_blocks(device_index: int, stages: int) -> tuple[int, int]:
     return torch.cuda.get_device_properties(device_index).multi_processor_count, blocks.value
 
 
-def _layout(n: int) -> tuple[int, int]:
-    """(threads, items per thread) for n band lanes or words: one item per
-    thread up to 1024 threads, then R consecutive items each."""
-    T = min(1024, max(32, -(-n // 32) * 32))
-    return T, max(1, -(-n // T))
-
-
 def _checked(q, q_lens, t, t_lens):
     """int32, contiguous, all on q's device, [P, Lq] / [P] / [P, Lt] / [P]."""
     dev = q.device
@@ -147,14 +138,6 @@ def _checked(q, q_lens, t, t_lens):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, q_lens {tuple(q_lens.shape)}, "
                          f"t {tuple(t.shape)}, t_lens {tuple(t_lens.shape)}")
     return out
-
-
-def _scratch(P: int, words: int, dev):
-    """None when `words` int32 per block fit shared memory, else a per-pair
-    device-memory scratch."""
-    if (_SLOTS + words) * 4 <= SMEM_BYTES:
-        return None
-    return torch.empty((P, words), dtype=torch.int32, device=dev)
 
 
 def _ptr(x) -> int | None:
@@ -184,12 +167,15 @@ def banded_final_column_cuda(q, q_lens, t, t_lens, *, k: int, use_mask: bool = F
         ), "banded_final_column warp kernel")
         count_launch(banded_final_column_cuda)
         return out
-    T, R = _layout(Bw)
-    scratch = _scratch(P, R * T, q.device)
+    stages, seams, cs = banded.banded_wide_shape(Lq, Lt, k)
+    tops = prog = None
+    if seams:  # a pair may pass one band: the bands' top links and their progress
+        tops = torch.empty((P, seams, Bw), dtype=torch.int32, device=q.device)
+        prog = torch.zeros((P, seams), dtype=torch.int32, device=q.device)
     check(library().sd_banded_column(
-        q.data_ptr(), q_lens.data_ptr(), t.data_ptr(), t_lens.data_ptr(), _ptr(scratch),
-        out.data_ptr(), P, Lq, Lt, k, int(use_mask), T, R, stream_of(q),
-    ), "banded_final_column kernel")
+        q.data_ptr(), q_lens.data_ptr(), t.data_ptr(), t_lens.data_ptr(), _ptr(tops), _ptr(prog),
+        out.data_ptr(), P, Lq, Lt, k, int(use_mask), stages, seams, cs, stream_of(q),
+    ), "banded_final_column wide kernel")
     count_launch(banded_final_column_cuda, "launches_wide")
     return out
 
@@ -222,12 +208,12 @@ def banded_myers_cuda(q, q_lens, t, t_lens, *, k: int, route: str = "auto"):
         ), "banded_myers warp kernel")
         count_launch(banded_myers_cuda)
     elif P:
-        T, R = _layout(W)
-        scratch = _scratch(P, _PLANE_ARRAYS * R * T, dev)
+        stages, tall = banded.myers_wide_stages(Lq, Lt, k)
+        tops = torch.empty((P, Lt + 1), dtype=torch.uint8, device=dev) if tall else None
         check(library().sd_banded_myers(
-            q.data_ptr(), q_lens.data_ptr(), t.data_ptr(), t_lens.data_ptr(), _ptr(scratch),
-            cvp.data_ptr(), cvn.data_ptr(), ca.data_ptr(), P, Lq, Lt, k, W, T, R, stream_of(q),
-        ), "banded_myers kernel")
+            q.data_ptr(), q_lens.data_ptr(), t.data_ptr(), t_lens.data_ptr(), _ptr(tops),
+            cvp.data_ptr(), cvn.data_ptr(), ca.data_ptr(), P, Lq, Lt, k, W, stages, stream_of(q),
+        ), "banded_myers wide kernel")
         count_launch(banded_myers_cuda, "launches_wide")
     return banded.reconstruct_myers_column(banded.as_uint32(cvp), banded.as_uint32(cvn), ca,
                                            q_lens, t_lens, k)

@@ -53,8 +53,8 @@ _SIGNATURES = {
     "sd_hw_occupancy": (_I, [_I, _I, ctypes.POINTER(_I)]),
     "sd_nw_identity": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "sd_nw_identity_cross": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "sd_banded_column": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "sd_banded_myers": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_banded_column": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sd_banded_myers": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "sd_semi_wide": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_semi_wide_occupancy": (_I, [_I, ctypes.POINTER(_I)]),
     "sd_banded_warp": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),

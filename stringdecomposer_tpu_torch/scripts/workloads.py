@@ -1,7 +1,7 @@
 """Seeded synthetic workloads of chip_smoke.py and the A/B scripts beside
 this file: a HOR-scale monomer library, monomer sets of joined units
 (dimers, trimers, the whole HOR) and their variants, a centromere-like assembly and the
-alignment API's pairs, all drawn from a numpy.random.default_rng. The
+alignment API's pairs (those of its wide routes too), all drawn from a numpy.random.default_rng. The
 import below is absolute, so that the A/B scripts can load this file beside
 another checkout's package."""
 
@@ -132,3 +132,19 @@ def align_pairs(rng) -> dict[str, str]:
     tq, tt = synth_pair(4096, 0.01, rng)
     q8, t8 = synth_pair(8192, 0.01, rng)
     return dict(q=q, t=t, tq=tq, big_t=(tt * 256)[: 1 << 20], q8=q8, t8=t8)
+
+
+def wide_pairs(rng) -> tuple[str, str, str, str]:
+    """The alignment API's wide-route pairs, from one rng (chip_smoke.py's
+    align_wide and banded_ab.py draw them from numpy.random.default_rng(3)):
+    `q40`, `t40`, a 40,000 bp pair at 15 % divergence, whose NW distance by
+    k-doubling reaches k = 8,192 (K5's wide route; K4's in mask mode);
+    `q17`, a random 17,000 bp query (K6's wide route), and `t20`, its first
+    9,000 bp followed by 11,000 random ones."""
+    import numpy as np
+
+    q40, t40 = synth_pair(40_000, 0.15, rng)
+    alpha = np.array(list("ACGT"))
+    q17 = "".join(alpha[rng.integers(0, 4, 17_000)])
+    t20 = q17[:9000] + "".join(alpha[rng.integers(0, 4, 11_000)])
+    return q40, t40, q17, t20

@@ -215,11 +215,21 @@ def test_wrappers_run_the_twins_on_cpu_tensors():
 
 
 def test_layout_covers_every_item():
-    """The kernels' (threads, items per thread): whole warps, at most 1024
-    threads, every band lane or word owned."""
+    """The wide routes' stages a band (threads a block): whole warps, at
+    most WIDE_MAX_STAGES, every row (K4) or word (K5) a pair can hold owned
+    by one band of stages or, where the route says a pair may pass one
+    band, by bands of them with the top links allocated."""
+    from stringdecomposer_tpu_torch.ops.hw_filter import WIDE_MAX_STAGES, WIDE_R
+
     for n in (1, 31, 32, 33, 1000, 1024, 1025, 8193, 80001):
-        T, R = banded_cuda._layout(n)
-        assert T % 32 == 0 and 32 <= T <= 1024 and T * R >= n and T * (R - 1) < n
+        for Lq, Lt, k in ((n, n, 256), (n, 1, 1), (1, n, 300), (n, 2 * n, 8192)):
+            T, seams, cs = banded.banded_wide_shape(Lq, Lt, k)
+            assert T % 32 == 0 and 32 <= T <= WIDE_MAX_STAGES
+            assert T * banded.WIDE4_R * (seams + 1) >= min(Lq, Lt + k) + 1
+            assert 1 <= cs <= banded.K4_CLUSTER_MAX
+            T, tall = banded.myers_wide_stages(Lq, Lt, k)
+            assert T % 32 == 0 and 32 <= T <= WIDE_MAX_STAGES
+            assert tall or T * WIDE_R >= min(Lq + k, Lt + 2 * k) // 32 + 1
 
 
 def test_route_gates():
