@@ -30,25 +30,32 @@ int16 state on both routes against the int16 twin and the int32 kernel and
 drives that path, checks K1's ablation kernels (A) against their plain
 versions and runs the ablation bench (at an eighth of its positions), then
 times each kernel beside its plain version at the main path's shapes and
-prints each one's bound. K2 runs through both of its entries: the cross
+prints each one's bound. Phase `modes` drives the CLI's one-GPU run modes
+on the golden read (--stream-reads, --resume, --serve with --precompile as
+a subprocess, --profile-dir with the device's busy and idle share from its
+trace). K2 runs through both of its entries: the cross
 entry (`nw_identity_cross`, every block x every monomer) on the
 --second-best path, the pairwise one (`nw_identity`) in light mode; its
 times are of the launches alone, apart from the packed call.
 
-Usage: python3 chip_smoke.py        (needs one CUDA device; exits non-zero
+Usage: python3 chip_smoke.py           (needs one CUDA device; exits non-zero
 without one, and prints no result)
+       python3 chip_smoke.py PHASE ...  (setup and the named phases only, in
+the script's order, for a quicker check on the card; no result line)
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import logging
 import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -225,7 +232,7 @@ def spread(ms: list[float]) -> str:
     return f"min {min(ms):.3f} / median {statistics.median(ms):.3f} / max {max(ms):.3f} ms"
 
 
-def main() -> int:
+def main(only: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, "stringdecomposer_tpu_torch")):
         print("chip_smoke: stringdecomposer_tpu_torch/ not found beside this script",
               file=sys.stderr)
@@ -349,6 +356,31 @@ def main() -> int:
     dimers, trimers, hor = joined["dimers"][0], joined["trimers"][0], joined["hor unit"][0]
     variants, trimer_variants = joined["dimers variants"][0], joined["trimers variants"][0]
     cache: dict[str, object] = {}
+
+    class StreamLog(logging.Handler):
+        """Keeps the DP stream's closing line of each run ("DP stream: N
+        batches, at most D in flight")."""
+
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines: list[str] = []
+
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("DP stream: "):
+                self.lines.append(msg)
+
+    stream_log = StreamLog()
+    sd_logger = logging.getLogger("SD-TPU")
+    sd_logger.addHandler(stream_log)
+    if sd_logger.level == logging.NOTSET or sd_logger.level > logging.INFO:
+        sd_logger.setLevel(logging.INFO)
+
+    def inflight_depth() -> str:
+        """The DP stream line of the last run, then forgets the lines."""
+        line = stream_log.lines[-1] if stream_log.lines else "no DP stream line"
+        stream_log.lines.clear()
+        return line
 
     def assembly_fa() -> str:
         """The 1.6 Mbp synthetic DXZ1 assembly (seed 0), written once."""
@@ -1047,6 +1079,7 @@ def main() -> int:
                              out_dir=os.path.join(td, route), second_best=True, device="cuda", **kw)
                 torch.cuda.synchronize()
                 secs[route] = time.perf_counter() - t0
+                print(f"scale 1.6 Mbp, {route} route: {inflight_depth()}")
             for name in ("final_decomposition_raw.tsv", "final_decomposition.tsv",
                          "final_decomposition_alt.tsv"):
                 with open(os.path.join(td, "kernel", name), "rb") as f1, \
@@ -1336,6 +1369,7 @@ def main() -> int:
                 secs["e2e"] = time.perf_counter() - t0
 
             got = drive(f"run (iii) 1.6 Mbp x library --ed_thr {ed}", run_iii)
+            print(f"run (iii) --ed_thr {ed}: {inflight_depth()}")
             path = ("hw_filter", "chain_dp_lanes") if ed >= 0 else ("chain_dp_cluster",)
             bad = [k for k in path + ("block_walk", "nw_identity_cross") if got[k] <= 0]
             if bad or got["chain_dp_large"]:
@@ -1360,6 +1394,128 @@ def main() -> int:
                 raise AssertionError(f"run (iii) ed_thr {ed}: {rows} rows, monomers {sorted(used - names)[:3]}")
             print(f"run (iii) 1.6 Mbp x library --ed_thr {ed} --second-best: e2e {secs['e2e']:.3f} s, "
                   f"{rows} assignments, {rows / secs['e2e']:.1f}/s, {len(used)} monomers used")
+
+    def same_as_golden(d: str, what: str) -> None:
+        for got_f, want in (("final_decomposition_raw.tsv", "raw_decomposition_oracle.tsv"),
+                            ("final_decomposition.tsv", "final_decomposition_fc89af8.tsv")):
+            with open(os.path.join(d, got_f), "rb") as f1, open(os.path.join(DATA, want), "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"{what}: {got_f} differs from {want}")
+
+    def serve_jobs(jobs: list[str], *flags: str) -> tuple[list[dict], float, list[float]]:
+        """`python -m stringdecomposer_tpu_torch --serve` as a subprocess on
+        these job lines: the JSON status lines, the seconds from its start to
+        the first job's start (Python, imports, CUDA context and whatever
+        `flags` warm), and each job's seconds, from its log line `cmd:` to
+        its status line, on this process's clock as the lines arrive."""
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "stringdecomposer_tpu_torch", "--serve",
+                                 *flags], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                text=True, cwd=HERE, env={**os.environ, "PYTHONPATH": HERE})
+        watchdog = threading.Timer(300, proc.kill)
+        watchdog.start()
+        status, starts, ends = [], [], []
+        try:
+            proc.stdin.write("".join(j + "\n" for j in jobs))
+            proc.stdin.close()
+            for line in proc.stdout:
+                if " - SD-TPU - INFO - cmd: " in line:
+                    starts.append(time.perf_counter())
+                elif line.startswith("{"):
+                    ends.append(time.perf_counter())
+                    status.append(json.loads(line))
+            rc = proc.wait()
+        finally:
+            watchdog.cancel()
+            proc.kill()
+            proc.wait()
+        if rc != 0 or len(starts) != len(jobs) or len(status) != len(jobs):
+            raise AssertionError(f"--serve: rc {rc}, {len(starts)} jobs started, statuses {status}")
+        return status, starts[0] - t0, [e - b for b, e in zip(starts, ends)]
+
+    def trace_busy(trace_dir: str) -> float:
+        """Seconds of the union of device intervals (kernels, copies, sets)
+        in the one torch.profiler trace under trace_dir."""
+        (name,) = [n for n in os.listdir(trace_dir) if n.endswith(".pt.trace.json")]
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+        if not spans:
+            raise AssertionError(f"{name}: no device events")
+        busy, end = 0.0, -1.0
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return busy / 1e6
+
+    def cli_ok(argv: list[str]) -> None:
+        rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"CLI {' '.join(argv)}: exit code {rc}")
+
+    def modes_run():
+        """The golden read x DXZ1 through the CLI's one-GPU run modes:
+        --stream-reads 1 on three reads against the one-shot run, --resume
+        (no K1 launch), --serve --precompile (two jobs) and --profile-dir."""
+        d = os.path.join(work.name, "modes")
+        gold = load_fasta(read_fa)[0]
+        three = os.path.join(work.name, "three.fa")
+        write_fasta(three, [gold, Record("golden_copy", gold.seq), Record("short", gold.seq[:3000])])
+        for what, extra in (("one", []), ("stream", ["--stream-reads", "1"])):
+            got = drive(f"three reads x DXZ1 --second-best {' '.join(extra)}",
+                        lambda: cli_ok([three, dxz1, "-o", os.path.join(d, what), "--second-best",
+                                        *extra]))
+            if got["chain_dp_lanes"] <= 0 or got["nw_identity_cross"] <= 0:
+                raise AssertionError(f"{what}: kernels of the path not launched: {got}")
+        same_files(os.path.join(d, "one"), os.path.join(d, "stream"),
+                   "--stream-reads 1 against the one-shot run")
+        print(f"--stream-reads 1, three reads (golden, a copy, 3,000 bp): three TSVs equal to the "
+              f"one-shot run's ({n_rows(os.path.join(d, 'one'))} rows)")
+        res = os.path.join(d, "resume")
+        cli_ok([read_fa, dxz1, "-o", res, "--second-best"])
+        with open(os.path.join(res, "final_decomposition_alt.tsv"), "rb") as f:
+            alt = f.read()
+        os.remove(os.path.join(res, "final_decomposition.tsv"))
+        got = drive("golden --second-best --resume",
+                    lambda: cli_ok([read_fa, dxz1, "-o", res, "--second-best", "--resume"]))
+        k1_launched = {k: got[k] for k in K1_BODY_NAMES + ("block_walk",) if got[k]}
+        if k1_launched or got["nw_identity_cross"] <= 0:
+            raise AssertionError(f"--resume: K1 launched {k1_launched}, or K2 not: {got}")
+        same_as_golden(res, "--resume")
+        with open(os.path.join(res, "final_decomposition_alt.tsv"), "rb") as f:
+            if f.read() != alt:
+                raise AssertionError("--resume: alt TSV differs from the fresh run's")
+        print(f"--resume: no K1 body or walk launched, nw_identity_cross {got['nw_identity_cross']}; "
+              "raw and final TSVs equal to the golden TSVs, alt to the fresh run's")
+        status, warm, job_s = serve_jobs(
+            [f"{read_fa} {dxz1} -o {os.path.join(d, 's1')}",
+                f"{read_fa} {dxz1} -o {os.path.join(d, 's2')} --ed_thr 10"],
+            "--precompile", dxz1, "--second-best")
+        if [x["status"] for x in status] != ["ok", "ok"]:
+            raise AssertionError(f"--serve: {status}")
+        same_as_golden(os.path.join(d, "s1"), "--serve job 1")
+        ed10 = os.path.join(work.name, "i_plain")  # phase ed_thr: the plain route's run (i)
+        same_files(os.path.join(d, "s2"), ed10, "--serve job 2 (--ed_thr 10) against the plain route")
+        print(f"--serve --precompile DXZ1 --second-best: start-up and precompile {warm:.3f} s; job 1 "
+              f"(golden) {job_s[0]:.3f} s, job 2 (golden --ed_thr 10) {job_s[1]:.3f} s; job 1's TSVs "
+              "equal the golden TSVs, job 2's the plain route's")
+        prof, trace = os.path.join(d, "prof"), os.path.join(d, "trace")
+        walls = []
+        for i in range(3):  # the same run unprofiled, warm, for the wall
+            t0 = time.perf_counter()
+            cli_ok([read_fa, dxz1, "-o", os.path.join(d, f"warm{i}"), "--second-best"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        cli_ok([read_fa, dxz1, "-o", prof, "--second-best", "--profile-dir", trace])
+        same_as_golden(prof, "--profile-dir")
+        busy = trace_busy(trace)
+        print(f"--profile-dir, golden --second-best: TSVs equal to the golden TSVs; device busy "
+              f"{busy:.4f} s (the trace's kernels, copies and sets) of the unprofiled run's median "
+              f"{wall:.4f} s ({spread([1e3 * w for w in walls])}): busy {busy / wall:.3f}, idle "
+              f"{1 - busy / wall:.3f}")
 
     def k1_bound(wb_t, mono_t, lens_t, state_bytes, variant="base", blocks_out=0):
         """K1's bound at these inputs: windows, monomers, lengths and column
@@ -2460,31 +2616,29 @@ def main() -> int:
         k2_times()
         banded_times()
 
-    smoke.phase("setup", setup)
-    smoke.phase("k1", k1_checks)
-    smoke.phase("k2", k2_checks)
-    smoke.phase("golden", golden_run)
-    smoke.phase("joined", joined_runs)
-    smoke.phase("chunked", chunked_run)
-    smoke.phase("scale", scale_run)
-    smoke.phase("k3", k3_checks)
-    smoke.phase("ed_thr", ed_thr_run)
-    smoke.phase("ed_thr_long", ed_thr_long)
-    smoke.phase("library", library_run)
-    smoke.phase("k4", k4_checks)
-    smoke.phase("k5", k5_checks)
-    smoke.phase("k6", k6_checks)
-    smoke.phase("align_wide", align_wide)
-    smoke.phase("align", align_checks)
-    smoke.phase("align_scale", align_scale)
-    smoke.phase("p_probe", probe_checks)
-    smoke.phase("k1_int16", k1_int16_run)
-    smoke.phase("ablate", ablate_run)
-    smoke.phase("times", all_times)
+    phases = [
+        ("setup", setup), ("k1", k1_checks), ("k2", k2_checks), ("golden", golden_run),
+        ("joined", joined_runs), ("chunked", chunked_run), ("scale", scale_run),
+        ("k3", k3_checks), ("ed_thr", ed_thr_run), ("ed_thr_long", ed_thr_long),
+        ("library", library_run), ("modes", modes_run), ("k4", k4_checks), ("k5", k5_checks),
+        ("k6", k6_checks), ("align_wide", align_wide), ("align", align_checks),
+        ("align_scale", align_scale), ("p_probe", probe_checks), ("k1_int16", k1_int16_run),
+        ("ablate", ablate_run), ("times", all_times)
+    ]
+    unknown = sorted(set(only) - {n for n, _ in phases})
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}", file=sys.stderr)
+        return 2
+    for name, fn in phases:
+        if not only or name == "setup" or name in only:
+            smoke.phase(name, fn)
     work.cleanup()
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {', '.join(smoke.failed)}")
         return 1
+    if only:
+        print(f"chip_smoke: setup and {', '.join(only)} passed; no result without every phase")
+        return 0
     src = "stringdecomposer_tpu_torch/csrc/"
     meta = [("chain_dp", src + "chain_dp.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
             ("chain_dp_large", src + "chain_dp.cuh", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131"),
@@ -2529,4 +2683,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -32,6 +32,46 @@ class DeviceState:
     coef: np.ndarray  # [3] float64 reliability coefficients (host-side classify)
 
 
+def upload(a: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """A NumPy array on `device` without waiting on the device. On CUDA the
+    copy goes through pinned memory, non-blocking on the current stream (a
+    copy from pageable memory would first wait for all the stream's queued
+    work); on the CPU it is the array itself, shared."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """Start the copy of a CUDA tensor to pinned host memory on the current
+    stream and return the host tensor, to be read once an event recorded
+    after it (`done_event`) has completed (`wait_done`). A CPU tensor comes
+    back as it is."""
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def done_event(device: torch.device | str):
+    """A CUDA event recorded on the current stream of `device`; None on the
+    CPU, where work is done when its call returns."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def wait_done(event) -> None:
+    """Block the host until `event` (from done_event) has completed."""
+    if event is not None:
+        event.synchronize()
+
+
 def pad_codes(codes: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     """Right-pad code arrays to [n, max_len] with 0, plus their lengths."""
     L = max(1, max((len(c) for c in codes), default=1))

@@ -25,7 +25,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .convert import DeviceState, numpy_state, pad_codes, state_from_numpy
+from .convert import (
+    DeviceState, done_event, numpy_state, pad_codes, state_from_numpy, to_host, upload,
+    wait_done,
+)
 from .io.fasta import Record, encode
 from .models.reliability import classify
 from .ops.identity_cuda import nw_identity_batch_cuda, nw_identity_packed_both
@@ -195,7 +198,7 @@ class _DeviceFinishCtx:
             if dev is None:
                 while len(self._reads) >= self.MAX_READS:
                     self._reads.pop(next(iter(self._reads)))
-                dev = self._reads[key] = torch.from_numpy(codes).to(self.device)
+                dev = self._reads[key] = upload(codes, self.device)
             return dev
 
 
@@ -225,7 +228,7 @@ def _dispatch_group_packed(per_read_blocks, codes_cache, ctx, packed_fn):
             parts.append(c)
             off += len(c)
         read_np = np.concatenate(parts) if parts else np.zeros(1, dtype=np.int8)
-        read_dev = torch.from_numpy(read_np).to(ctx.device)
+        read_dev = upload(read_np, ctx.device)
         starts = starts + np.fromiter(
             (offs[key] for _, blocks, key in per_read_blocks for _ in blocks),
             dtype=np.int64, count=n_names,
@@ -240,7 +243,7 @@ def _dispatch_group_packed(per_read_blocks, codes_cache, ctx, packed_fn):
             st.t_raw, st.tl_raw, st.t_homo, st.tl_homo,
             n_pad=n, Lq=max(1, int(part_lens.max())),
         )
-        pending.append((s, n, dev))
+        pending.append((s, n, to_host(dev)))
     return pending
 
 
@@ -251,13 +254,13 @@ def _dispatch_pairs(pairs_q, pairs_t, identity_fn, device):
     for pos in range(0, len(pairs_q), K2_CHUNK):
         q, ql = pad_codes(pairs_q[pos : pos + K2_CHUNK])
         t, tl = pad_codes(pairs_t[pos : pos + K2_CHUNK])
-        _, mt, ln = identity_fn(*(torch.from_numpy(a).to(device) for a in (q, ql, t, tl)))
-        pending.append((pos, len(ql), mt, ln))
+        _, mt, ln = identity_fn(*(upload(a, device) for a in (q, ql, t, tl)))
+        pending.append((pos, len(ql), to_host(mt), to_host(ln)))
     return pending
 
 
 def _gather_finish_group(pg: dict, mono_names, name_to_idx, coef):
-    """Bring a dispatched group's results to the host and run the
+    """Wait for a dispatched group's results in host memory and run the
     vectorized per-block logic (main.py:107-150)."""
     per_read_blocks = pg["group"]
     second_best = pg["second_best"]
@@ -265,13 +268,14 @@ def _gather_finish_group(pg: dict, mono_names, name_to_idx, coef):
     n = pg["n"]
     mt_raw = ln_raw = mt_homo = ln_homo = matches = totals = None
     with stage("fin.gather"):
+        wait_done(pg["done"])
         if second_best:
             mt_raw = np.zeros((n, M_), dtype=np.int64)
             ln_raw = np.zeros((n, M_), dtype=np.int64)
             mt_homo = np.zeros((n, M_), dtype=np.int64)
             ln_homo = np.zeros((n, M_), dtype=np.int64)
             for s, cn, dev in pg["pend_packed"]:
-                arr = dev.cpu().numpy().astype(np.int64)  # [2, n * M, 2]
+                arr = dev.numpy().astype(np.int64)  # [2, n * M, 2]
                 for v, (mt_o, ln_o) in enumerate(((mt_raw, ln_raw), (mt_homo, ln_homo))):
                     d2 = arr[v].reshape(-1, M_, 2)[:cn]
                     ln_o[s : s + cn] = d2[..., 1]
@@ -280,8 +284,8 @@ def _gather_finish_group(pg: dict, mono_names, name_to_idx, coef):
             matches = np.zeros(n, dtype=np.int64)
             totals = np.zeros(n, dtype=np.int64)
             for s, cn, mt, ln in pg["pend_light"]:
-                matches[s : s + cn] = mt.cpu().numpy()[:cn]
-                totals[s : s + cn] = ln.cpu().numpy()[:cn]
+                matches[s : s + cn] = mt.numpy()[:cn]
+                totals[s : s + cn] = ln.numpy()[:cn]
     with stage("fin.assemble"):
         return _assemble_group(
             per_read_blocks, second_best, mono_names, name_to_idx, coef,
@@ -389,8 +393,10 @@ def _assemble_group(
 
 class AsyncFinisher:
     """Bounded-in-flight finishing: submit() encodes one chunk's blocks and
-    queues its device work at once (CUDA launches are asynchronous); results
-    come back to the host FIFO once more than MAX_INFLIGHT groups wait.
+    queues its device work and the copy of its results to pinned host
+    memory at once (CUDA launches and those copies are asynchronous); a
+    group is gathered, FIFO, once more than MAX_INFLIGHT groups wait, and
+    the host then waits on that group's event alone.
 
     `identity_fn` (light mode) and `packed_fn` (--second-best) default to the
     kernel wrappers, which run the plain twins on CPU tensors; passing the
@@ -442,6 +448,8 @@ class AsyncFinisher:
                         subs.append(codes[d["start"] : d["end"] + 1])
                         pairs_t.append(self.mono_codes[self.name_to_idx[d["m"]]])
                 pg["pend_light"] = _dispatch_pairs(subs, pairs_t, self.identity_fn, self.device)
+            # the results' copies to host memory are queued; gather waits on this
+            pg["done"] = done_event(self.device)
             return pg
 
     def submit_group(self, group: list[tuple]):
@@ -490,18 +498,22 @@ def finish_reads(
     model_file: str | None = None,
     flush_pairs: int = 1 << 20,
     threads: int = 1,
+    identity_fn=nw_identity_batch_cuda,
+    packed_fn=nw_identity_packed_both,
 ) -> list[tuple[str, Rows]]:
     """Rescore every block; returns finished blocks per read, same order.
     Reads accumulate into one group until `flush_pairs` pairs are pending;
-    a read larger than that is split into block chunks and re-merged."""
+    a read larger than that is split into block chunks and re-merged.
+    `identity_fn` / `packed_fn` as in AsyncFinisher."""
     state = state_from_numpy(*numpy_state([], monomers_interleaved, model_file), device)
     stride = 2 * len(monomers_interleaved) if second_best else 1
     max_blocks = max(1, flush_pairs // stride)
     out: list = []
     group: list = []
     pending = 0
-    fin_ = AsyncFinisher(reads_by_key, monomers_interleaved, state, device,
-                         second_best=second_best, threads=threads)
+    fin_ = AsyncFinisher(reads_by_key, monomers_interleaved, state, torch.device(device),
+                         second_best=second_best, identity_fn=identity_fn, packed_fn=packed_fn,
+                         threads=threads)
     try:
         for e in per_read_blocks:
             read_name, blocks, key = _entry(e)

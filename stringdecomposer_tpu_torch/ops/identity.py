@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..convert import upload
 from .chain_dp import pair_scan
 
 BIG = 1 << 28
@@ -270,9 +271,9 @@ def packed_both(read, starts, lens, t_raw, tl_raw, t_homo, tl_homo, n_pad, Lq, c
     lens_np[:n] = np.asarray(lens)
     if n and int(lens_np.max()) > Lq:
         raise ValueError(f"a block of length {int(lens_np.max())} exceeds Lq={Lq}")
-    starts_p = torch.zeros(n_pad, dtype=torch.int64, device=dev)
-    starts_p[:n] = torch.as_tensor(np.asarray(starts), dtype=torch.int64).to(dev)
-    lens_p = torch.from_numpy(lens_np).to(dev)
+    starts_np = np.zeros(n_pad, dtype=np.int64)
+    starts_np[:n] = np.asarray(starts)
+    starts_p, lens_p = upload(starts_np, dev), upload(lens_np, dev)
     # sort blocks by length so that neighbouring pairs do similar work;
     # results are un-permuted below
     order = torch.argsort(lens_p, stable=True)

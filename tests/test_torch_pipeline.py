@@ -229,10 +229,9 @@ def test_cli_host_id_0_num_processes_1_matches_jax_cli(tmp_path):
     assert (tmp_path / "torch" / TSVS[0]).stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags", [["--data-parallel"], ["--resume"], ["--serve"],
-                                   ["--stream-reads", "4"], ["--num-hosts", "2"],
+@pytest.mark.parametrize("flags", [["--data-parallel"], ["--num-hosts", "2"],
                                    ["--host-id", "1"], ["--num-processes", "2"],
-                                   ["--num-processes", "0"]])
+                                   ["--num-processes", "0"], ["--coordinator", "host:1"]])
 def test_cli_unported_flag_is_refused(tmp_path, flags):
     fa, mono = _small_inputs(tmp_path, "ACGT")
     res = _cli(fa, mono, "-o", tmp_path / "out", "--device", "cpu", *flags)
