@@ -33,7 +33,13 @@ times each kernel beside its plain version at the main path's shapes and
 prints each one's bound. Phase `modes` drives the CLI's one-GPU run modes
 on the golden read (--stream-reads, --resume, --serve with --precompile as
 a subprocess, --profile-dir with the device's busy and idle share from its
-trace). K2 runs through both of its entries: the cross
+trace). Phase `parallel` drives the scale-out modes on the one card: the
+sharded functions of parallel/sharding.py at [cuda:0] x 2 and x 3 against
+one call, the alignment API's row split against one device, the CLI with
+--data-parallel (the golden read; 1.6 Mbp with its batches in flight), two
+CLI processes as two hosts (--num-hosts 2) and as a torch.distributed
+group (--coordinator) against one process, and the reliability trainer on
+the card against the CPU. K2 runs through both of its entries: the cross
 entry (`nw_identity_cross`, every block x every monomer) on the
 --second-best path, the pairwise one (`nw_identity`) in light mode; its
 times are of the launches alone, apart from the packed call.
@@ -51,6 +57,7 @@ import json
 import logging
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -1517,6 +1524,249 @@ def main(only: list[str]) -> int:
               f"{wall:.4f} s ({spread([1e3 * w for w in walls])}): busy {busy / wall:.3f}, idle "
               f"{1 - busy / wall:.3f}")
 
+    def cli_procs(argvs: list[list[str]], timeout: float = 300) -> list[float]:
+        """Each argv as `python -m stringdecomposer_tpu_torch` in its own
+        process, all started together: each one's wall seconds from the
+        common start to its exit. Fails unless every process exits 0; kills
+        them all at `timeout` seconds."""
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", "stringdecomposer_tpu_torch", *a],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  cwd=HERE, env={**os.environ, "PYTHONPATH": HERE})
+                 for a in argvs]
+        walls, outs = [0.0] * len(procs), [""] * len(procs)
+
+        def wait(i):
+            outs[i] = procs[i].communicate()[0]
+            walls[i] = time.perf_counter() - t0
+
+        waiters = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+        try:
+            for w in waiters:
+                w.start()
+            for w in waiters:
+                w.join(max(1.0, timeout - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for w in waiters:
+                w.join()
+        bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            raise AssertionError("; ".join(
+                f"{' '.join(argvs[i])}: exit code {procs[i].returncode}\n{outs[i][-3000:]}"
+                for i in bad))
+        return walls
+
+    def parallel_run():
+        """Data parallelism and multi-host runs on the one card: the sharded
+        functions (parallel/sharding.py) at [cuda:0] x 2 and x 3 against
+        one call, bit-equal; the alignment API's row split against one
+        device; the CLI with --data-parallel; two processes as two hosts
+        (--num-hosts 2) and as a torch.distributed group (--coordinator)
+        against one process; the reliability trainer on the card against
+        the trainer on the CPU."""
+        from stringdecomposer_tpu_torch.convert import numpy_state, pad_codes, state_from_numpy
+        from stringdecomposer_tpu_torch.models import reliability as rel
+        from stringdecomposer_tpu_torch.parallel.sharding import (
+            make_sharded_forward, make_sharded_identity, make_sharded_packed,
+        )
+
+        d = os.path.join(work.name, "parallel")
+        dev0 = torch.device("cuda", torch.cuda.current_device())
+        gold = load_fasta(read_fa)[0]
+        codes = encode(gold.seq)
+        wins = [codes[o : o + n] for o, n in make_windows(len(codes), 5000, 500)]
+        wb, wl = (torch.from_numpy(a).to(dev) for a in k1_plain.build_window_batch(wins, 5500))
+        _, (mono_np, lens_np) = mono_set(load_fasta(dxz1))
+        mono, lens = torch.from_numpy(mono_np).to(dev), torch.from_numpy(lens_np).to(dev)
+
+        def same_forward(args, what):
+            want = chain_dp_forward_cuda(*args)
+            for n in (2, 3):
+                got = drive(f"sharded K1 x {n}, {what}",
+                            lambda: make_sharded_forward([dev0] * n)(*args))
+                if not any(got[k] for k in K1_BODY_NAMES) or got["block_walk"] < n:
+                    raise AssertionError(f"sharded K1 x {n}, {what}: launches {got}")
+                out = make_sharded_forward([dev0] * n)(*args)
+                smoke.same("block_walk", f"sharded K1 x {n}, {what}: blocks", out[0], want[0])
+                smoke.same("block_walk", f"sharded K1 x {n}, {what}: counts", out[1], want[1])
+            print(f"make_sharded_forward at [cuda:0] x 2 and x 3, {what}: blocks and counts "
+                  "bit-equal to one chain_dp_forward_cuda call")
+
+        same_forward((wb, wl, mono, lens), f"golden {len(wins)} windows x DXZ1 (M = 24)")
+        _, (lib_np, llib_np) = mono_set(library)
+        lib, llib = torch.from_numpy(lib_np).to(dev), torch.from_numpy(llib_np).to(dev)
+        dist = hw_distance_batch_cuda(wb, wl, lib, llib)
+        mono_w, lens_w, _ = k3_plain.filter_monomers_device(dist, lib, llib, 10)
+        m = int((dist <= 10).sum(dim=1).clamp(min=1).max())
+        same_forward((wb, wl, mono_w[:, :m].contiguous(), lens_w[:, :m].contiguous()),
+                     f"golden windows x the library under --ed_thr 10 (rank 3, M = {m})")
+        cfg = pipeline.PipelineConfig(ed_thr=10)
+        lib_dp = add_reverse_complement(library)
+        want = pipeline.decompose_reads([gold], lib_dp, cfg, "cuda")
+        got = pipeline.decompose_reads([gold], lib_dp, cfg, "cuda",
+                                       forward_fn=make_sharded_forward([dev0] * 3))
+        if [[(b.monomer, b.start, b.end, b.identity) for b in bl] for _, bl in got] != \
+                [[(b.monomer, b.start, b.end, b.identity) for b in bl] for _, bl in want]:
+            raise AssertionError("decompose_reads --ed_thr 10 x library, sharded x 3: "
+                                 "blocks differ")
+        print(f"decompose_reads, golden x the library --ed_thr 10 with K1 sharded x 3: "
+              f"{len(got[0][1])} blocks equal to the unsharded run's")
+
+        # K2: the golden blocks (raw oracle) x DXZ1, pairwise and packed
+        with open(os.path.join(DATA, "raw_decomposition_oracle.tsv")) as f:
+            rows = [ln.split("\t") for ln in f.read().splitlines()]
+        starts = np.array([int(r[2]) for r in rows], dtype=np.int64)
+        blens = np.array([int(r[3]) - int(r[2]) + 1 for r in rows], dtype=np.int32)
+        fin = add_rc_interleaved(load_fasta(dxz1, upper=True))
+        st = state_from_numpy(*numpy_state([], fin), dev)
+        read_dev = torch.from_numpy(codes).to(dev)
+        pargs = (read_dev, starts, blens, st.t_raw, st.tl_raw, st.t_homo, st.tl_homo)
+        kw = dict(n_pad=len(starts) + 5, Lq=int(blens.max()))
+        want = nw_identity_packed_both(*pargs, **kw)
+        got = drive("sharded packed call x 3",
+                    lambda: make_sharded_packed([dev0] * 3)(*pargs, **kw))
+        if got["nw_identity_cross"] < 6:  # both variants on each of 3 shards
+            raise AssertionError(f"sharded packed call x 3: launches {got}")
+        smoke.same("nw_identity_cross", "packed call sharded x 3, golden blocks",
+                   make_sharded_packed([dev0] * 3)(*pargs, **kw), want)
+        idx = {r.name: i for i, r in enumerate(fin)}
+        q, ql = pad_codes([codes[s : s + n] for s, n in zip(starts, blens)])
+        t, tl = pad_codes([encode(fin[idx[r[1]]].seq) for r in rows])
+        iargs = [torch.from_numpy(a).to(dev) for a in (q, ql, t, tl)]
+        want = nw_identity_batch_cuda(*iargs)
+        got = drive("sharded identity x 3", lambda: make_sharded_identity([dev0] * 3)(*iargs))
+        if got["nw_identity"] != 3:
+            raise AssertionError(f"sharded identity x 3: launches {got}")
+        for k, (g, w) in enumerate(zip(make_sharded_identity([dev0] * 3)(*iargs), want)):
+            smoke.same("nw_identity", f"identity sharded x 3, golden pairs, output {k}", g, w)
+        print(f"K2 sharded x 3: the packed call on {len(starts)} golden blocks (+5 padding) x "
+              f"{len(fin)} monomers x 2 variants and the pairwise entry on the {len(rows)} "
+              "(block, best monomer) pairs bit-equal to one call")
+
+        # the alignment API's row split: [cuda:0] x 3 against one device
+        cases = fixtures("align_cases.json", "align_cases_b.json")
+        rng = np.random.default_rng(16)
+        alpha = np.array(list("ACGT"))
+        qs19, ts19 = [], []
+        for _ in range(19):
+            n = int(rng.integers(50, 500))
+            a = rng.integers(0, 4, n)
+            b = a.copy()
+            for i in sorted(rng.choice(n, int(rng.integers(0, 12)), replace=False).tolist(),
+                            reverse=True):
+                b[i] = (b[i] + 1 + rng.integers(3)) % 4
+            qs19.append("".join(alpha[a]))
+            ts19.append("".join(alpha[b]))
+        runs = [(f"{mode} {task} fixtures", [c["q"] for c in cases if c["mode"] == mode],
+                 [c["t"] for c in cases if c["mode"] == mode], mode, task, -1)
+                for mode in ("SHW", "HW") for task in ("path", "locations", "distance")]
+        runs += [(f"19 pairs {mode} {task} k=40", qs19, ts19, mode, task, 40)
+                 for mode, task in (("NW", "path"), ("SHW", "locations"), ("HW", "locations"))]
+        saved = al.ALIGN_DATA_PARALLEL, al.ROW_DEVICES
+        try:
+            for what, qs, ts, mode, task, k in runs:
+                al.ALIGN_DATA_PARALLEL, al.ROW_DEVICES = "off", None
+                single = al.align_batch(qs, ts, mode=mode, task=task, k=k, device="cuda")
+                al.ALIGN_DATA_PARALLEL, al.ROW_DEVICES = "auto", [dev0] * 3
+                res = {}
+                got = drive(f"align rows x 3, {what}", lambda: res.update(
+                    out=al.align_batch(qs, ts, mode=mode, task=task, k=k, device="cuda")))
+                if not sum(got[x] for x in banded_kernels):
+                    raise AssertionError(f"align rows x 3, {what}: no K4-K6 launch: {got}")
+                if res["out"] != single:
+                    raise AssertionError(f"align rows x 3, {what}: differs from one device")
+        finally:
+            al.ALIGN_DATA_PARALLEL, al.ROW_DEVICES = saved
+        print(f"_rows_sharded at [cuda:0] x 3: {len(runs)} align_batch runs (SHW / HW fixtures "
+              "x path, locations, distance; 19 seeded pairs NW path, SHW and HW locations at "
+              "k = 40) equal to SDTPU_ALIGN_DP=off, K4-K6 launched in each")
+
+        # the CLI: --data-parallel, two hosts, a torch.distributed group
+        one = os.path.join(d, "one")
+        cli_ok([read_fa, dxz1, "-o", one, "--second-best"])
+        got = drive("golden CLI --data-parallel --second-best",
+                    lambda: cli_ok([read_fa, dxz1, "-o", os.path.join(d, "dp"),
+                                    "--data-parallel", "--second-best"]))
+        if got["chain_dp_lanes"] <= 0 or got["nw_identity_cross"] <= 0:
+            raise AssertionError(f"--data-parallel: kernels of the path not launched: {got}")
+        same_as_golden(os.path.join(d, "dp"), "--data-parallel")
+        same_files(os.path.join(d, "dp"), one, "--data-parallel against the one-GPU run")
+        print("CLI --data-parallel --second-best (every visible GPU: "
+              f"{torch.cuda.device_count()}): raw and final TSVs equal to the golden TSVs, alt "
+              "to the one-GPU run's")
+        # the DP stream keeps its batches in flight through the sharded forward
+        asm = assembly_fa()
+        cli_ok([asm, dxz1, "-o", os.path.join(d, "asm_one"), "--second-best"])
+        one_depth = inflight_depth()
+        cli_ok([asm, dxz1, "-o", os.path.join(d, "asm_dp"), "--second-best", "--data-parallel"])
+        dp_depth = inflight_depth()
+        same_files(os.path.join(d, "asm_dp"), os.path.join(d, "asm_one"),
+                   "1.6 Mbp --data-parallel against the one-GPU run")
+        if dp_depth != one_depth or "at most 4 in flight" not in dp_depth:
+            raise AssertionError(f"--data-parallel: {dp_depth}; one GPU: {one_depth}")
+        print(f"1.6 Mbp --data-parallel --second-best: TSVs equal to the one-GPU run's; "
+              f"{dp_depth} (one GPU: {one_depth})")
+        four = os.path.join(d, "four.fa")
+        cut = len(gold.seq) // 4
+        write_fasta(four, [Record(f"{gold.name}_{i}", gold.seq[i * cut : (i + 1) * cut])
+                           for i in range(4)])
+        base = [four, dxz1, "--second-best", "-o"]
+        wall_one = cli_procs([base + [os.path.join(d, "four_one")]])
+        hosts = os.path.join(d, "four_hosts")
+        wall_hosts = cli_procs([base + [hosts, "--num-hosts", "2", "--host-id", str(h)]
+                                for h in (1, 0)])
+        same_files(hosts, os.path.join(d, "four_one"), "--num-hosts 2 (two processes)")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        group = os.path.join(d, "four_group")
+        wall_group = cli_procs([base + [group, "--coordinator", f"localhost:{port}",
+                                        "--num-processes", "2", "--host-id", str(h)]
+                                for h in (0, 1)])
+        same_files(group, os.path.join(d, "four_one"), "--coordinator (two processes)")
+        if not os.path.exists(os.path.join(group, "final_decomposition_raw.shard00001.tsv")):
+            raise AssertionError("--coordinator: no fragment of host 1")
+        print(f"the golden read in 4 pieces ({n_rows(hosts)} rows), one card: one process "
+              f"{wall_one[0]:.2f} s; --num-hosts 2: host 1 {wall_hosts[0]:.2f} s, host 0 "
+              f"{wall_hosts[1]:.2f} s; --coordinator localhost:{port} --num-processes 2: rank 0 "
+              f"{wall_group[0]:.2f} s, rank 1 {wall_group[1]:.2f} s (process walls from a "
+              "common start, start-up included); three merged TSVs equal to the one-process "
+              "run's each time")
+
+        # the reliability trainer: the card against the CPU
+        rng = np.random.default_rng(0)
+        feats, labels = [], []
+        for _ in range(400):  # the set of test_reliability_trainer_roundtrip, as main reads it
+            idnt, diff = rng.uniform(50, 100), rng.uniform(0, 20)
+            shown, second = float(f"{idnt:.2f}"), float(f"{idnt - diff:.2f}")
+            feats.append([shown, shown - second])
+            labels.append(1.0 if (idnt + diff) > 95 else 0.0)
+        feats, labels = np.asarray(feats), np.asarray(labels)
+        secs = {}
+
+        def train(device, what):
+            t0 = time.perf_counter()
+            coef = rel.train_logreg(feats, labels, device=device)
+            secs[what] = time.perf_counter() - t0
+            return coef
+
+        # twice on the card: the first call also loads PyTorch's kernels
+        coef_gpu, coef_gpu2 = train("cuda", "card, first"), train("cuda", "card, again")
+        coef_cpu = train("cpu", "CPU")
+        err = float(max(np.abs(coef_gpu - coef_cpu).max(), np.abs(coef_gpu2 - coef_cpu).max()))
+        tol = 1e-3 * max(1.0, float(np.abs(coef_cpu).max()))
+        same = np.array_equal(rel.classify(feats[:, 0], feats[:, 0] - feats[:, 1], coef_gpu),
+                              rel.classify(feats[:, 0], feats[:, 0] - feats[:, 1], coef_cpu))
+        print(f"reliability trainer, 400 rows x 2,000 Adam steps: card {coef_gpu.tolist()}, CPU "
+              f"{coef_cpu.tolist()}; max |diff| {err:.3g} (tolerance {tol:.3g}); classify equal "
+              f"on every row: {same}; seconds: "
+              f"{', '.join(f'{k} {v:.2f}' for k, v in secs.items())}")
+        if err > tol or not same:
+            raise AssertionError("the trainer on the card disagrees with the trainer on the CPU")
+
     def k1_bound(wb_t, mono_t, lens_t, state_bytes, variant="base", blocks_out=0):
         """K1's bound at these inputs: windows, monomers, lengths and column
         0 read once; end and spend written once (noemit: one position);
@@ -2620,7 +2870,8 @@ def main(only: list[str]) -> int:
         ("setup", setup), ("k1", k1_checks), ("k2", k2_checks), ("golden", golden_run),
         ("joined", joined_runs), ("chunked", chunked_run), ("scale", scale_run),
         ("k3", k3_checks), ("ed_thr", ed_thr_run), ("ed_thr_long", ed_thr_long),
-        ("library", library_run), ("modes", modes_run), ("k4", k4_checks), ("k5", k5_checks),
+        ("library", library_run), ("modes", modes_run), ("parallel", parallel_run),
+        ("k4", k4_checks), ("k5", k5_checks),
         ("k6", k6_checks), ("align_wide", align_wide), ("align", align_checks),
         ("align_scale", align_scale), ("p_probe", probe_checks), ("k1_int16", k1_int16_run),
         ("ablate", ablate_run), ("times", all_times)

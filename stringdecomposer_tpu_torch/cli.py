@@ -1,10 +1,11 @@
 """Command-line interface of the PyTorch port, ported from
 stringdecomposer_tpu/cli.py. The eleven reference flags (main.py:201-245)
 keep their names and defaults; `--device-batch` and `--device` are added.
-The JAX package's one-process run modes (`--stream-reads`, `--resume`,
-`--serve` with `--precompile`, `--profile-dir`) are served; its flags of
-more than one GPU or host are parsed and refused with a clear message,
-never ignored.
+Every flag of the JAX package's CLI is served with its meaning: the run
+modes (`--stream-reads`, `--resume`, `--serve` with `--precompile`,
+`--profile-dir`), data parallelism over the GPUs (`--data-parallel`) and
+multi-host runs by fragment merge (`--num-hosts`, `--host-id`,
+`--coordinator`, `--num-processes`; parallel/multihost.py).
 
 Usage:
     python -m stringdecomposer_tpu_torch <sequences.fa> <monomers.fa> [options]
@@ -18,8 +19,6 @@ import pathlib
 import sys
 import traceback
 from contextlib import nullcontext
-
-NOT_PORTED = "not yet ported to stringdecomposer_tpu_torch (see ROADMAP.md)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,8 +58,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (the hand-written kernels; default) or cpu "
                    "(the plain PyTorch twins)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard the window batch and the finishing stage's pairs "
+                   "across all visible GPUs (of --device)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run here")
+    p.add_argument("--coordinator", default=None,
+                   help="torch.distributed rendezvous address host:port "
+                   "(multi-host; topology is then taken from the process group)")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="number of cooperating hosts (reads are sharded "
+                   "round-robin; host 0 merges the fragments)")
+    p.add_argument("--host-id", type=int, default=0,
+                   help="this host's index in [0, num-hosts)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="process count for --coordinator (defaults to WORLD_SIZE)")
     p.add_argument("--resume", action="store_true",
                    help="reuse an existing raw TSV whose stamp matches the inputs "
                    "instead of recomputing the DP stage")
@@ -75,22 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(with --serve) run a warm-up job for this monomer set "
                    "before accepting jobs, so that no job pays the kernels' "
                    "first build, load or launch")
-    unported = p.add_argument_group(f"flags of stringdecomposer_tpu {NOT_PORTED}")
-    for flag, default in (("--num-hosts", 1), ("--host-id", 0), ("--num-processes", None)):
-        unported.add_argument(flag, type=int, default=default)
-    unported.add_argument("--coordinator", default=None)
-    unported.add_argument("--data-parallel", action="store_true")
     return p
-
-
-def _unported_flags(args) -> list[str]:
-    checks = [
-        ("--data-parallel", args.data_parallel),
-        ("--coordinator", args.coordinator is not None), ("--num-hosts", args.num_hosts > 1),
-        ("--host-id", args.host_id != 0),
-        ("--num-processes", args.num_processes not in (None, 1)),
-    ]
-    return [flag for flag, used in checks if used]
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -155,10 +152,6 @@ def serve(default_argv: list[str]) -> int:
 
 
 def _execute(args) -> int:
-    bad = _unported_flags(args)
-    if bad:
-        print(f"stringdecomposer-tpu-torch: {', '.join(bad)}: {NOT_PORTED}", file=sys.stderr)
-        return 2
     pathlib.Path(args.out_dir).mkdir(parents=True, exist_ok=True)
 
     from .io.fasta import InvalidSymbolError
@@ -167,6 +160,26 @@ def _execute(args) -> int:
 
     logger = get_logger(os.path.join(args.out_dir, "stringdecomposer.log"), logger_name="SD-TPU")
     logger.info("cmd: %s", sys.argv)
+    multihost_mode = args.coordinator is not None or args.num_hosts > 1
+    kernels = {}
+    if args.data_parallel and not multihost_mode:
+        # a multi-host run builds its own sharded kernels after the
+        # torch.distributed bring-up
+        from .parallel.mesh import get_devices
+        from .parallel.sharding import (
+            make_sharded_forward, make_sharded_identity, make_sharded_packed,
+        )
+
+        devices = get_devices(args.device)
+        kernels = dict(forward_fn=make_sharded_forward(devices),
+                       identity_fn=make_sharded_identity(devices),
+                       packed_fn=make_sharded_packed(devices))
+    common = dict(out_dir=args.out_dir, out_file=args.out_file, min_identity=args.min_identity,
+                  scoring=args.scoring, batch_size=int(args.batch_size),
+                  overlap=int(args.overlap), second_best=args.second_best,
+                  device_batch=args.device_batch, device=args.device,
+                  threads=max(1, int(args.threads)), ed_thr=args.ed_thr, resume=args.resume,
+                  stream_reads=args.stream_reads)
     profiler = nullcontext()
     if args.profile_dir:
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
@@ -178,23 +191,16 @@ def _execute(args) -> int:
                            on_trace_ready=tensorboard_trace_handler(args.profile_dir))
     try:
         with profiler:
-            run(
-                args.sequences,
-                args.monomers,
-                out_dir=args.out_dir,
-                out_file=args.out_file,
-                min_identity=args.min_identity,
-                scoring=args.scoring,
-                batch_size=int(args.batch_size),
-                overlap=int(args.overlap),
-                second_best=args.second_best,
-                device_batch=args.device_batch,
-                device=args.device,
-                threads=max(1, int(args.threads)),
-                ed_thr=args.ed_thr,
-                resume=args.resume,
-                stream_reads=args.stream_reads,
-            )
+            if multihost_mode:
+                from .parallel.multihost import HostTopology, run_multihost
+
+                run_multihost(args.sequences, args.monomers,
+                              topology=HostTopology(args.num_hosts, args.host_id),
+                              coordinator=args.coordinator, num_processes=args.num_processes,
+                              process_id=args.host_id if args.coordinator else None,
+                              data_parallel=args.data_parallel, **common)
+            else:
+                run(args.sequences, args.monomers, **common, **kernels)
     except InvalidSymbolError as e:
         logger.error("ERROR: %s", e)
         return 255  # reference binary exit(-1) semantics (main.cpp:336)

@@ -23,12 +23,16 @@ device. The banded final-column sweep and the semi-global end-row scan have
 hand-written CUDA kernels (ops/banded_cuda.py: K4, K5, K6); the routers
 (_banded_final_column, _banded_nw_dist, _banded_shw_rows_routed,
 _semi_rows_routed) pick them per ops/banded.DEFAULT_BACKEND. Host arrays are
-NumPy; each router moves its inputs to `device` and its result back.
+NumPy; each router moves its inputs to `device` and its result back, with
+the batch's pairs split over the devices of `device`'s type
+(_rows_sharded, SDTPU_ALIGN_DP).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -329,6 +333,65 @@ def _eq_on(device, eq_flat):
     return None if eq_flat is None else _on(device, eq_flat)[0]
 
 
+# data-parallel alignment batches: "auto" splits the pair axis of every
+# routed sweep over the devices of the call's device type (every visible GPU
+# for "cuda"; rows are independent pairs, so no collective); "off" keeps
+# one device. Read once at import.
+ALIGN_DATA_PARALLEL = os.environ.get("SDTPU_ALIGN_DP", "auto")
+# the devices _rows_sharded splits over in place of the call device's
+# (None: those); a repeated list runs several shards on one device, as the
+# tests and chip_smoke.py do to show that the bytes do not depend on it
+ROW_DEVICES: list | None = None
+
+
+def _row_devices(device) -> list[torch.device]:
+    if ROW_DEVICES is not None:
+        return [torch.device(d) for d in ROW_DEVICES]
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _rows_sharded(fn, arrays, eq_flat=None, *, device):
+    """fn(*arrays[, eq_flat=]) with the leading axis of the NumPy `arrays`
+    split over the devices (_row_devices), the equality table copied to
+    each: bit-identical to one call, since each row is an independent pair
+    and the rows come back in order. `fn` takes int32 tensors on one device
+    and returns a tensor or a tuple of tensors led by the rows; the result
+    is NumPy. Every shard is launched
+    before any is read back, so the devices run at once. Falls through to
+    one call on `device` with one device, fewer rows than devices, or
+    SDTPU_ALIGN_DP=off."""
+    from ..parallel.sharding import device_guard
+
+    devs = _row_devices(device)
+    n_dev = len(devs)
+    P0 = arrays[0].shape[0]
+
+    def call(d, parts):
+        eq = {} if eq_flat is None else {"eq_flat": _eq_on(d, eq_flat)}
+        return fn(*_on(d, *parts), **eq)
+
+    def host(out):
+        return out.cpu().numpy()
+
+    if ALIGN_DATA_PARALLEL == "off" or n_dev == 1 or P0 < n_dev:
+        out = call(device, arrays)
+        return tuple(map(host, out)) if isinstance(out, tuple) else host(out)
+    S = -(-P0 // n_dev)
+    padded = [np.pad(np.asarray(a), [(0, S * n_dev - P0)] + [(0, 0)] * (np.ndim(a) - 1))
+              for a in arrays]
+    outs = []
+    for i, d in enumerate(devs):
+        with device_guard(d):
+            outs.append(call(d, [a[i * S : (i + 1) * S] for a in padded]))
+    if isinstance(outs[0], tuple):
+        return tuple(np.concatenate([host(o[k]) for o in outs])[:P0]
+                     for k in range(len(outs[0])))
+    return np.concatenate([host(o) for o in outs])[:P0]
+
+
 def _kernel_routes(device) -> bool:
     """Whether the routers take the K4/K5/K6 routes: ops/banded's
     DEFAULT_BACKEND "kernel" always (on CPU tensors the wrappers run their
@@ -351,14 +414,14 @@ def _banded_final_column(q, ql, t, tl, k, use_mask=False, eq_flat=None, *, devic
     if enabled and banded.myers_supported(t.shape[1], int(k), eq_flat, use_mask):
         remap = _myers_compact_alphabet(q, ql, t, tl)
         if remap is not None:
-            args = _on(device, remap[0], ql, remap[1], tl)
-            return banded_cuda.banded_myers_cuda(*args, k=int(k)).cpu().numpy()
+            return _rows_sharded(partial(banded_cuda.banded_myers_cuda, k=int(k)),
+                                 (remap[0], ql, remap[1], tl), device=device)
     if enabled and banded.supported(q.shape[0], q.shape[1], t.shape[1], int(k), eq_flat):
-        args = _on(device, q, ql, t, tl)
-        return banded_cuda.banded_final_column_cuda(*args, k=int(k),
-                                                    use_mask=use_mask).cpu().numpy()
-    return dp_banded_lastrow_batch(*_on(device, q, ql, t, tl), k=int(k), use_mask=use_mask,
-                                   eq_flat=_eq_on(device, eq_flat)).cpu().numpy()
+        return _rows_sharded(
+            partial(banded_cuda.banded_final_column_cuda, k=int(k), use_mask=use_mask),
+            (q, ql, t, tl), device=device)
+    return _rows_sharded(partial(dp_banded_lastrow_batch, k=int(k), use_mask=use_mask),
+                         (q, ql, t, tl), eq_flat, device=device)
 
 
 # minimum padded length before exact NW distance (k=-1) switches from the
@@ -397,9 +460,10 @@ def _myers_compact_alphabet(q, ql, t, tl):
 
 
 def _lastrow(q, ql, t, tl, free_target_prefix=False, use_mask=False, eq_flat=None, *, device):
-    """dp_lastrow_batch on `device`, NumPy in and out."""
-    return dp_lastrow_batch(*_on(device, q, ql, t, tl), free_target_prefix=free_target_prefix,
-                            use_mask=use_mask, eq_flat=_eq_on(device, eq_flat)).cpu().numpy()
+    """dp_lastrow_batch with the pairs split over the devices, NumPy in and out."""
+    return _rows_sharded(
+        partial(dp_lastrow_batch, free_target_prefix=free_target_prefix, use_mask=use_mask),
+        (q, ql, t, tl), eq_flat, device=device)
 
 
 def _banded_shw_rows_routed(q, ql, t, tl, k, Ltc, use_mask, eq_flat, *, device):
@@ -417,8 +481,8 @@ def _banded_shw_rows_routed(q, ql, t, tl, k, Ltc, use_mask, eq_flat, *, device):
     )
     t_cut = np.ascontiguousarray(np.asarray(t)[:, :Ltc])
     if not eligible:
-        return dp_banded_shw_rows(*_on(device, q, ql, t_cut, tl), k=int(k), use_mask=use_mask,
-                                  eq_flat=_eq_on(device, eq_flat)).cpu().numpy()
+        return _rows_sharded(partial(dp_banded_shw_rows, k=int(k), use_mask=use_mask),
+                             (q, ql, t_cut, tl), eq_flat, device=device)
     q2l = np.minimum(np.asarray(tl), Ltc).astype(np.int32)
     cap = _banded_final_column(t_cut, q2l, np.asarray(q), np.asarray(ql).astype(np.int32),
                                k=int(k), device=device)
@@ -444,9 +508,8 @@ def _semi_rows_routed(q, ql, t, tl, free_target_prefix, use_mask, eq_flat, *, de
     remap = _myers_compact_alphabet(q, ql, t, tl)
     if remap is None:
         return None
-    args = _on(device, remap[0], ql, remap[1], tl)
-    ends = banded_cuda.semi_ends_cuda(*args, free_target_prefix=free_target_prefix)
-    ends = ends.cpu().numpy().astype(np.int64)
+    ends = _rows_sharded(partial(banded_cuda.semi_ends_cuda, free_target_prefix=free_target_prefix),
+                         (remap[0], ql, remap[1], tl), device=device).astype(np.int64)
     if not free_target_prefix:
         # SHW with an empty query: D(0, j) = j (the kernel's end-row
         # tracking starts at row 0 whose boundary it does not model)
@@ -467,8 +530,8 @@ def _banded_nw_dist(q, ql, t, tl, k, use_mask=False, eq_flat=None, *, device):
         banded.myers_supported(t.shape[1], int(k), eq_flat, use_mask)
         or banded.supported(q.shape[0], q.shape[1], t.shape[1], int(k), eq_flat)
     )):
-        return dp_banded_nw_batch(*_on(device, q, ql, t, tl), k=int(k), use_mask=use_mask,
-                                  eq_flat=_eq_on(device, eq_flat)).cpu().numpy()
+        return _rows_sharded(partial(dp_banded_nw_batch, k=int(k), use_mask=use_mask),
+                             (q, ql, t, tl), eq_flat, device=device)
     cap = _banded_final_column(q, ql, t, tl, k=int(k), use_mask=use_mask, eq_flat=eq_flat,
                                device=device)
     ql_np = np.asarray(ql, dtype=np.int64)
@@ -494,7 +557,6 @@ def _hw_banded_scan(q, ql, t, tl, k, use_mask, eq_flat, Wc=256, *, device):
     wm = np.minimum(np.asarray(ql, dtype=np.int64), k)
     C_cur = None
     R_prev = 0
-    eq_d = _eq_on(device, eq_flat)
     for j0 in range(0, Lt, Wc):
         if not np.any(j0 < np.asarray(tl)):
             break
@@ -508,14 +570,15 @@ def _hw_banded_scan(q, ql, t, tl, k, use_mask, eq_flat, Wc=256, *, device):
             keep = min(R_prev, R) + 1
             c_in[:, :keep] = C_cur[:, :keep]
         tl_chunk = np.clip(np.asarray(tl) - j0, 0, Wc).astype(np.int32)
-        args = _on(device, q[:, :R], np.minimum(ql_np, R), c_in, t[:, j0 : j0 + Wc], tl_chunk)
-        c_out, ends, wm_d = dp_hw_chunk_batch(*args, k, use_mask=use_mask, eq_flat=eq_d)
-        ends = ends.cpu().numpy()
+        # R is the whole batch's, so each pair's chunk is the same at any split
+        C_cur, ends, wm_d = _rows_sharded(
+            partial(dp_hw_chunk_batch, wm_thr=k, use_mask=use_mask),
+            (q[:, :R], np.minimum(ql_np, R), c_in, t[:, j0 : j0 + Wc], tl_chunk), eq_flat,
+            device=device)
         w = min(Wc, Lt - j0)
         # rows past R are pruned (> k): their end values must not leak
         out[:, j0 : j0 + w] = np.where(ql_np[:, None] <= R, ends[:, :w], BIG)
-        C_cur = c_out.cpu().numpy()
-        wm = np.maximum(wm_d.cpu().numpy().astype(np.int64), 0)
+        wm = np.maximum(wm_d.astype(np.int64), 0)
         R_prev = R
     return out
 

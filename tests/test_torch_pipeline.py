@@ -196,9 +196,9 @@ def _jax_option_strings():
 @pytest.mark.parametrize("opt", [s for s, _ in _jax_option_strings()])
 def test_cli_parses_every_jax_option(opt):
     """Every option string of the JAX CLI parses in the port's parser, with
-    the JAX option's default as its value (or a sample where that is None);
-    at the defaults nothing is refused."""
-    from stringdecomposer_tpu_torch.cli import _unported_flags, build_parser
+    the JAX option's default as its value (or a sample where that is None),
+    into the same destination and value."""
+    from stringdecomposer_tpu_torch.cli import build_parser
 
     action = dict(_jax_option_strings())[opt]
     if action.nargs == 0:  # a switch
@@ -210,8 +210,8 @@ def test_cli_parses_every_jax_option(opt):
     # one token, so that a value such as "-1,-1,-1,1" is not read as an option
     token = opt if value is None else opt + ("=" if opt.startswith("--") else "") + value
     args = build_parser().parse_args(["reads.fa", "mono.fa", token])
-    if value is not None and (action.default is not None or action.type is int):
-        assert not _unported_flags(args)
+    want = True if value is None else (action.type(value) if action.type else value)
+    assert getattr(args, action.dest) == want
 
 
 def test_cli_host_id_0_num_processes_1_matches_jax_cli(tmp_path):
@@ -229,15 +229,63 @@ def test_cli_host_id_0_num_processes_1_matches_jax_cli(tmp_path):
     assert (tmp_path / "torch" / TSVS[0]).stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags", [["--data-parallel"], ["--num-hosts", "2"],
+@pytest.mark.parametrize("flags", [["--data-parallel"], ["--data-parallel", "--second-best"],
                                    ["--host-id", "1"], ["--num-processes", "2"],
-                                   ["--num-processes", "0"], ["--coordinator", "host:1"]])
-def test_cli_unported_flag_is_refused(tmp_path, flags):
-    fa, mono = _small_inputs(tmp_path, "ACGT")
-    res = _cli(fa, mono, "-o", tmp_path / "out", "--device", "cpu", *flags)
-    assert res.returncode != 0
-    assert "not yet ported to stringdecomposer_tpu_torch (see ROADMAP.md)" in res.stderr
-    assert not (tmp_path / "out").exists()
+                                   ["--num-processes", "0"], ["--num-hosts", "2"],
+                                   ["--num-hosts", "2", "--second-best", "--stream-reads", "1"]])
+def test_cli_multi_device_flags_match_jax_cli(tmp_path, flags):
+    """The JAX CLI's flags of more than one device or host run with rc 0 on
+    the CPU and write the JAX CLI's three TSVs, byte for byte: the flags
+    that are single-host in JAX (--data-parallel, a lone --host-id or
+    --num-processes) against jax_cli.main on the same flags; --num-hosts 2
+    as two port processes (host 1 and host 0, started together) into one
+    out-dir, against the JAX CLI's one-process run. (--coordinator:
+    tests/test_torch_multihost.py::test_coordinator_two_processes_match_jax_cli.)"""
+    from stringdecomposer_tpu import cli as jax_cli
+
+    fa = tmp_path / "reads.fa"
+    seq = "ACGTTGCAAGGTTTGACCATGCAGACGTTGCATGGT"
+    write_fasta(str(fa), [Record(f"r{i}", seq * (i + 2)) for i in range(3)])
+    mono = tmp_path / "mono.fa"
+    write_fasta(str(mono), [Record("m0", "ACGTTGCAAGGT"), Record("m1", "TTGACCATGCAG")])
+    multihost = "--num-hosts" in flags
+    jax_flags = [f for f in flags if f not in ("--num-hosts", "2")] if multihost else flags
+    assert jax_cli.main([str(fa), str(mono), "-o", str(tmp_path / "jax"), *jax_flags]) == 0
+    out = tmp_path / "torch"
+    if multihost:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "stringdecomposer_tpu_torch", str(fa), str(mono), "-o",
+             str(out), "--device", "cpu", *flags, "--host-id", str(h)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=ENV)
+            for h in (1, 0)]
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=120)
+                assert p.returncode == 0, err[-3000:]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        assert (out / "final_decomposition_raw.shard00001.tsv").exists()
+    else:
+        res = _cli(fa, mono, "-o", out, "--device", "cpu", *flags)
+        assert res.returncode == 0, res.stderr
+    for f in TSVS:
+        assert filecmp.cmp(out / f, tmp_path / "jax" / f, shallow=False), f
+    assert (out / TSVS[1]).stat().st_size > 0
+
+
+def test_cli_data_parallel_without_a_card_raises(tmp_path, monkeypatch):
+    """--data-parallel on the default device asks for every GPU: without a
+    card it raises, and never shards over the CPU instead."""
+    from stringdecomposer_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fa, mono = _small_inputs(tmp_path, "ACGTTGCAAGGT")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([str(fa), str(mono), "-o", str(tmp_path / "o"), "--data-parallel"])
+    assert not (tmp_path / "o" / TSVS[0]).exists()
 
 
 def test_port_never_imports_jax(tmp_path):
