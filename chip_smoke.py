@@ -18,8 +18,12 @@ body at L = 360), and against DXZ1 trimers and 150 trimer variants (L =
 route and its tiled cluster body on the large route) and against the DXZ1
 HOR unit (`workloads.hor_unit`, L = 2,056: the tiled body, a row over two
 warps), drives a ~17 kbp unit through decompose_reads unfiltered (the tiled
-cluster body, a row a block), holds K1's chunked body to its plain twin at
-the shapes it keeps (phase `chunked`), drives the
+cluster body, a row a block), drives K1's grid routes past one cluster of
+16 blocks at full width (2,400 DXZ1 monomer variants, 256 HOR-unit
+variants, a ~34 kbp unit: raw rows equal to K1's plain twin's route) and
+holds them and K1's chunked body under force_body to the plain twin on
+short windows (phase `chunked`, with the grid routes' co-residency
+refusals), drives the
 general alignment API through K4, K5 and K6 (the reference edlib fixtures,
 a 262,144 bp NW path and a 4 kbp query against a 1 Mbp target, and both at
 cut sizes against the scan route; K4, K5 and K6 on their warp routes, K6's
@@ -79,11 +83,14 @@ KERNELS = ("chain_dp", "chain_dp_large", "block_walk", "nw_identity", "nw_identi
            "chain_dp_cluster_int16", "chain_dp_lanes_long", "chain_dp_lanes_long_int16",
            "chain_dp_cluster_long", "chain_dp_cluster_long_int16", "chain_dp_tiled",
            "chain_dp_tiled_int16", "chain_dp_cluster_tiled",
-           "chain_dp_cluster_tiled_int16") + ABLATE
+           "chain_dp_cluster_tiled_int16", "chain_dp_grid", "chain_dp_grid_int16",
+           "chain_dp_grid_long", "chain_dp_grid_long_int16", "chain_dp_grid_tiled",
+           "chain_dp_grid_tiled_int16", "chain_dp_split", "chain_dp_split_int16") + ABLATE
 # K1's kernel bodies (ops/chain_dp_cuda.body) -> chip_smoke kernel names
 K1_NAMES = {"lanes": "chain_dp_lanes", "chunked": "chain_dp", "large": "chain_dp_large",
             "cluster": "chain_dp_cluster", "tiled": "chain_dp_tiled",
-            "cluster_tiled": "chain_dp_cluster_tiled"}
+            "cluster_tiled": "chain_dp_cluster_tiled", "grid": "chain_dp_grid",
+            "grid_tiled": "chain_dp_grid_tiled", "split": "chain_dp_split"}
 # every K1 body's kernel names (and launch counters), int32 and int16
 K1_BODY_NAMES = tuple(k for k in KERNELS if k.startswith("chain_dp"))
 # The card's peak rates for the bounds (H100 SXM datasheet, 700 W): HBM at
@@ -291,7 +298,7 @@ def main(only: list[str]) -> int:
         """The kernel name (and launch counter) of a K1 body at rows padded
         to L: the lanes and cluster bodies' rows past k1.LANES_LONG_L (C =
         9..16, two rows a warp in registers) apart, int16 state apart."""
-        long = "_long" if body in ("lanes", "cluster") and L > k1.LANES_LONG_L else ""
+        long = "_long" if body in ("lanes", "cluster", "grid") and L > k1.LANES_LONG_L else ""
         return K1_NAMES[body] + long + ("_int16" if state_bytes == 2 else "")
 
     dev = torch.device("cuda")
@@ -332,6 +339,10 @@ def main(only: list[str]) -> int:
                 "chain_dp_cluster_tiled": (chain_dp_large_cuda, "launches_cluster_tiled"),
                 "chain_dp_cluster_tiled_int16": (chain_dp_large_cuda,
                                                  "launches_cluster_tiled_int16")}
+    counters.update({f"chain_dp_{kind}{suffix}": (chain_dp_large_cuda,
+                                                  f"launches_{kind}{suffix}")
+                     for kind in ("grid", "grid_long", "grid_tiled", "split")
+                     for suffix in ("", "_int16")})
     counters.update({f"ablate_{'large_' if large else ''}{v}":
                      (chain_dp_ablate_cuda, k1.ablate_counter(v, large))
                      for large in (False, True) for v in VARIANTS})
@@ -930,7 +941,9 @@ def main(only: list[str]) -> int:
         or of the route with K1's plain twin (the variants). Then the ~17 kbp
         unit against two copies of itself (`decompose_reads`, unfiltered) on
         the tiled cluster body, its raw rows equal to the route with K1's
-        plain twin."""
+        plain twin; then, the same way, the sets past one cluster of 16
+        blocks on K1's grid routes (2,400 monomer variants, 256 HOR-unit
+        variants, a ~34 kbp unit), each with no other K1 body launched."""
         from stringdecomposer_tpu_torch.ops.identity_cuda import cells_per_lane
 
         out = work.name
@@ -1009,24 +1022,88 @@ def main(only: list[str]) -> int:
               f"raw rows equal to the route with K1's plain twin; "
               f"{raw['kernel'].count(chr(10))} rows; kernel route {res['secs']:.3f} s, the "
               f"other {secs:.3f} s")
+        # K1 past one cluster at full width (19 windows x 5,500 positions of
+        # the golden read; the read of two ~34 kbp copies): 2,400 DXZ1
+        # monomer variants (L = 192, the grid route), 256 HOR-unit variants
+        # (L = 2,056, the grid route past 512), a unit of 200 DXZ1 monomers
+        # (a row past one block: the split form); raw rows equal to the
+        # route with K1's plain twin, and no chunked launch
+        golden = load_fasta(read_fa)
+        dx = load_fasta(dxz1)
+        big = (("golden x 2,400 DXZ1 monomer variants", golden, add_reverse_complement(
+                    joined_variants(dx, 1, 2400, np.random.default_rng(0))), "chain_dp_grid"),
+               ("golden x 256 DXZ1 HOR-unit variants", golden, add_reverse_complement(
+                   joined_variants(dx, 12, 256, np.random.default_rng(0))), "chain_dp_grid_tiled"),
+               ("two copies x a 200-monomer unit", *wide_case(200), "chain_dp_split"))
+        for what, reads, monos, body in big:
+            res = {}
+
+            def big_run():
+                t0 = time.perf_counter()
+                res["kernel"] = pipeline.decompose_reads(reads, monos, pipeline.PipelineConfig(),
+                                                         "cuda")
+                torch.cuda.synchronize()
+                res["secs"] = time.perf_counter() - t0
+
+            got = drive(f"{what} (decompose_reads)", big_run)
+            if got[body] <= 0 or any(got[k] for k in K1_BODY_NAMES if k != body):
+                raise AssertionError(f"{what}: K1 launches {got}")
+            launches[body] = launches.get(body, 0) + got[body]
+            t0 = time.perf_counter()
+            res["plain"] = pipeline.decompose_reads(reads, monos, pipeline.PipelineConfig(),
+                                                    "cuda", forward_fn=k1_plain.chain_dp_forward)
+            secs = time.perf_counter() - t0
+            names = [m.name for m in monos]
+            raw = {k: "".join(r + "\n" for rn, b in res[k] for r in format_raw_rows(rn, b, names))
+                   for k in ("kernel", "plain")}
+            if raw["kernel"] != raw["plain"] or not raw["kernel"]:
+                raise AssertionError(f"{what}: raw rows differ from the route with K1's plain twin")
+            L = (max(len(m.seq) for m in monos) + 7) // 8 * 8
+            print(f"{what} (M={len(monos)}, L={L}, {body}): raw rows equal to "
+                  f"the route with K1's plain twin; {raw['kernel'].count(chr(10))} rows; kernel "
+                  f"route {res['secs']:.3f} s, the other {secs:.3f} s")
 
     def chunked_run():
-        """K1's chunked body at the shapes it keeps, through
-        chain_dp_forward_cuda on short windows, each against the plain twin:
-        a row the tiled form cannot hold in one block (M = 1, L = 25,800 on
-        the shared route: `chain_dp`), more rows than 16 blocks hold (800
-        int32 rows of 528 bp: `chain_dp_large`; 1,400 int16 rows:
-        `chain_dp_large_int16`), and, since the int16 range check leaves it
-        no shared-route set, 20 rows of 544 bp with force_body="chunked"
-        (`chain_dp_int16`)."""
+        """K1 past one cluster of 16 blocks, through chain_dp_forward_cuda on
+        short windows, each against the plain twin: the sets the chunked
+        body ran until the grid routes took them (a row the tiled form cannot
+        hold in one block, M = 1 x 25,800 bp: `chain_dp_split`; more rows
+        than 16 blocks hold: 800 int32 rows of 528 bp `chain_dp_grid_tiled`,
+        1,400 int16 rows `chain_dp_grid_tiled_int16`, 2,400 rows of 192 bp
+        `chain_dp_grid`, 4,000 int16 `chain_dp_grid_int16`, 1,500 of 360 bp
+        `chain_dp_grid_long`, 2,500 int16 `chain_dp_grid_long_int16`); the
+        split form in int16 at grid=(1, 4, 4) (the int16 range check admits
+        no row past one block, so no set is routed there); and the chunked
+        body itself under force_body (A's base) at the first three shapes
+        and at 20 int16 rows of 544 bp (`chain_dp`, `chain_dp_large`,
+        `chain_dp_large_int16`, `chain_dp_int16`). Then other grid plans
+        (K, cs, S) and per-window rows (of length 0, and ending before a
+        block of a split row) against the twin."""
         rng = np.random.default_rng(12)
-        cases = (("M=1 L=25800", 1, 25800, 48, "int32", None, "chain_dp"),
-                 ("M=800 L=528", 800, 528, 64, "int32", None, "chain_dp_large"),
-                 ("M=1400 L=528 int16", 1400, 528, 64, "int16", None, "chain_dp_large_int16"),
-                 ("M=20 L=544 int16, force_body='chunked'", 20, 544, 400, "int16", "chunked",
-                  "chain_dp_int16"))
+        fwd, large = chain_dp_forward_cuda, chain_dp_large_cuda
+        cases = (("M=1 L=25800", 1, 25800, 48, "int32", fwd, {}, "chain_dp_split"),
+                 ("M=800 L=528", 800, 528, 64, "int32", fwd, {}, "chain_dp_grid_tiled"),
+                 ("M=1400 L=528 int16", 1400, 528, 64, "int16", fwd, {},
+                  "chain_dp_grid_tiled_int16"),
+                 ("M=2400 L=192", 2400, 192, 64, "int32", fwd, {}, "chain_dp_grid"),
+                 ("M=4000 L=192 int16", 4000, 192, 64, "int16", fwd, {}, "chain_dp_grid_int16"),
+                 ("M=1500 L=360", 1500, 360, 64, "int32", fwd, {}, "chain_dp_grid_long"),
+                 ("M=2500 L=360 int16", 2500, 360, 64, "int16", fwd, {},
+                  "chain_dp_grid_long_int16"),
+                 ("M=1 L=6000 int16 grid=(1, 4, 4)", 1, 6000, 64, "int16", large,
+                  {"grid": (1, 4, 4)}, "chain_dp_split_int16"),
+                 ("M=1 L=25800 force_body='chunked'", 1, 25800, 48, "int32", fwd,
+                  {"force_body": "chunked"}, "chain_dp"),
+                 ("M=800 L=528 force_body='large'", 800, 528, 64, "int32", fwd,
+                  {"force_body": "large"}, "chain_dp_large"),
+                 ("M=1400 L=528 int16 force_body='large'", 1400, 528, 64, "int16", fwd,
+                  {"force_body": "large"}, "chain_dp_large_int16"),
+                 ("M=20 L=544 int16 force_body='chunked'", 20, 544, 400, "int16", fwd,
+                  {"force_body": "chunked"}, "chain_dp_int16"))
         inputs, outs = {}, {}
-        for what, M, L, W, *_ in cases:
+        for _, M, L, W, *_ in cases:
+            if (M, L, W) in inputs:
+                continue
             lens = rng.integers(L // 2, L + 1, M).astype(np.int32)
             lens[0] = L
             mono = np.full((M, L), 5, dtype=np.int8)
@@ -1035,39 +1112,133 @@ def main(only: list[str]) -> int:
             win = rng.integers(0, 4, (2, W)).astype(np.int8)
             wl = np.array([W, W - 7], dtype=np.int32)
             win[1, W - 7 :] = k1_plain.READ_PAD
-            inputs[what] = [torch.from_numpy(a).to(dev) for a in (win, wl, mono, lens)]
+            inputs[M, L, W] = [torch.from_numpy(a).to(dev) for a in (win, wl, mono, lens)]
+        for what, M, L, W, dt, fn, kw, name in cases:
+            want = k1_body(M, L, 2 if dt == "int16" else 4) if not kw else None
+            if want is not None and k1_name(want, L, 2 if dt == "int16" else 4) != name:
+                raise AssertionError(f"{what}: body {want}, expected {name}")
 
         def path():
-            for what, _, _, _, dt, body, _ in cases:
-                outs[what] = chain_dp_forward_cuda(*inputs[what], return_debug=True,
-                                                   state_dtype=dt, force_body=body)
+            for what, M, L, W, dt, fn, kw, _ in cases:
+                outs[what] = fn(*inputs[M, L, W], return_debug=True, state_dtype=dt, **kw)
 
-        got = drive("K1's chunked body at the shapes it keeps (chain_dp_forward_cuda)", path)
+        got = drive("K1 past one cluster: the grid routes and the chunked body "
+                    "(chain_dp_forward_cuda, chain_dp_large_cuda)", path)
         names = [name for *_, name in cases]
         if any(got[k] <= 0 for k in names) or any(
                 got[k] for k in K1_BODY_NAMES if k not in names):
-            raise AssertionError(f"chunked body: launches {got}")
-        launches.update({k: got[k] for k in names})
-        for what, _, _, _, dt, body, name in cases:
+            raise AssertionError(f"K1 past one cluster: launches {got}")
+        for k in names:
+            launches[k] = launches.get(k, 0) + got[k]
+        plans = {}
+        for what, M, L, W, dt, fn, kw, name in cases:
+            sb = 2 if dt == "int16" else 4
             (bk, ck, (chk, ek, sk)) = outs[what]
             p, (bp, cp, (chp, ep, spp)) = timed(lambda: k1_plain.chain_dp_forward(
-                *inputs[what], return_debug=True, state_dtype=dt), 0)
+                *inputs[M, L, W], return_debug=True, state_dtype=dt), 0)
             for nm, g, w in (("blocks", bk, bp), ("counts", ck, cp), ("chain", chk, chp),
                              ("end", ek, ep), ("spend", sk, spp)):
                 smoke.same(name, f"{what} {nm}", g, w)
             # the kernels line's row: K1 + walk at this shape, the launch's own
-            k, got = timed(lambda: chain_dp_forward_cuda(*inputs[what], state_dtype=dt,
-                                                         force_body=body), 5)
+            k, got = timed(lambda: fn(*inputs[M, L, W], state_dtype=dt, **kw), 5)
             smoke.same(name, f"{what} timed blocks", got[0], bk)
-            win, _, mono, lens = inputs[what]
-            B, W = win.shape
-            bd = k1_bound(win, mono, lens, 2 if dt == "int16" else 4, blocks_out=B * (W * 16 + 4))
+            win, _, mono, lens = inputs[M, L, W]
+            B = win.shape[0]
+            bd = k1_bound(win, mono, lens, sb, blocks_out=B * (W * 16 + 4))
             timing[name], bounds[name] = (statistics.median(k), p[0]), bd
-            print(f"K1 {name} + walk, {what}, {B} windows x {W}: kernel {spread(k)}; plain "
-                  f"{p[0]:.3f} ms; bound {bd[0]:.4f} ms ({bd[1]}), "
+            plan = ""
+            if name.startswith(("chain_dp_grid", "chain_dp_split")):
+                gp = tuple(kw["grid"]) if "grid" in kw else k1.grid_plan(
+                    M, L, sb, B, lambda pl: k1.grid_occupancy(M, L, sb, pl))[:3]
+                plans[what] = gp
+                plan = f" (K, cs, S) = {gp},"
+            print(f"K1 {name} + walk, {what}, {B} windows x {W}:{plan} kernel {spread(k)}; "
+                  f"plain {p[0]:.3f} ms; bound {bd[0]:.4f} ms ({bd[1]}), "
                   f"{100 * bd[0] / statistics.median(k):.2f} % of it")
-        print("K1's chunked body: " + "; ".join(f"{what} ({name})" for what, *_, name in cases)
-              + ": launched through chain_dp_forward_cuda, bit-equal to the plain twin")
+        print("K1 past one cluster: " + "; ".join(f"{what} ({name})" for what, *_, name in cases)
+              + ": launched through the wrappers, bit-equal to the plain twin")
+        # other plans at the same inputs, each against the twin
+        others = (("M=2400 L=192", 2400, 192, 64, "int32", [(2, 16, 1), (19, 1, 1), (5, 15, 1),
+                                                            (30, 4, 1)]),
+                  ("M=800 L=528", 800, 528, 64, "int32", [(2, 16, 1), (50, 2, 1), (5, 16, 1)]),
+                  ("M=1 L=25800", 1, 25800, 48, "int32", [(1, 2, 2), (1, 4, 4), (1, 16, 16)]),
+                  ("M=2500 L=360 int16", 2500, 360, 64, "int16", [(3, 16, 1), (30, 3, 1)]))
+        held = []
+        for what, M, L, W, dt, grids in others:
+            sb = 2 if dt == "int16" else 4
+            want = k1_plain.chain_dp_forward(*inputs[M, L, W], return_debug=True,
+                                             state_dtype=dt)
+            for g in grids:
+                kind = k1.grid_body(k1.grid_shape(M, L, sb, *g)[1])
+                res = large(*inputs[M, L, W], return_debug=True, state_dtype=dt, grid=g)
+                torch.cuda.synchronize()
+                for nm, a, w in zip(("blocks", "counts", "chain", "end", "spend"),
+                                    res[:2] + res[2], want[:2] + want[2]):
+                    smoke.same(k1_name(kind, L, sb), f"{what} grid={g} {nm}", a, w)
+            held.append(f"{what} at {grids}")
+        # per-window rows: rows of length 0 on the grid route; split rows that
+        # end before a block's cells start, or of length 0 (S = 2: blocks of
+        # 12,900 cells; S = 4 at grid=(1, 8, 4), both rows on one cluster)
+        win, wl, mono, lens = (x.cpu().numpy() for x in inputs[800, 528, 64])
+        perm = np.stack([rng.permutation(800) for _ in range(2)])
+        lens_w = lens[perm].copy()
+        lens_w[:, -5:] = 0
+        per_window = [("M=800 L=528 per-window", (win, wl, mono[perm], lens_w), None)]
+        win, wl, mono, _ = (x.cpu().numpy() for x in inputs[1, 25800, 48])
+        mono2 = np.stack([np.concatenate([mono, mono[:, ::-1]])] * 2)
+        lens2 = np.array([[25800, 0], [300, 12901]], dtype=np.int32)
+        for g in (None, (1, 8, 4)):
+            per_window.append(("M=2 L=25800 per-window" + (f" grid={g}" if g else ""),
+                               (win, wl, mono2, lens2), g))
+        for what, arrays, g in per_window:
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+            M, L = args[2].shape[-2:]
+            want = k1_plain.chain_dp_forward(*args, return_debug=True)
+            res = large(*args, return_debug=True, grid=g) if g else fwd(*args, return_debug=True)
+            kind = k1.grid_body(k1.grid_shape(M, L, 4, *g)[1]) if g else k1_body(M, L)
+            torch.cuda.synchronize()
+            for nm, a, w in zip(("blocks", "counts", "chain", "end", "spend"),
+                                res[:2] + res[2], want[:2] + want[2]):
+                smoke.same(k1_name(kind, L, 4), f"{what} {nm}", a, w)
+            held.append(what)
+        print(f"K1 grid routes at other plans and per-window rows: {'; '.join(held)}: "
+              "bit-equal to the plain twin")
+        # no hidden fallback: a plan whose K clusters the card cannot run at
+        # once raises before its launch; a launch whose clusters do not all
+        # run at once (the occupancy overstated to the wrapper) raises when
+        # its reads of the other clusters' slots run out of time
+        M, L, W, cs = 2500, 360, 64, 3
+        args = [x[:1] for x in inputs[M, L, W][:2]] + inputs[M, L, W][2:]
+        plan = None
+        for K in range(132 // cs, 1, -1):
+            shape = k1.grid_shape(M, L, 2, K, cs)
+            if shape is not None and k1.grid_occupancy(M, L, 2, (K, cs, 1, *shape)) < K:
+                plan = (K, cs, 1, *shape)
+                break
+        if plan is None:
+            raise AssertionError("no grid plan past the card's occupancy at cs = 3")
+        act = k1.grid_occupancy(M, L, 2, plan)
+        try:
+            large(*args, state_dtype="int16", grid=plan[:3])
+            raise AssertionError(f"grid={plan[:3]} past occupancy {act} did not raise")
+        except RuntimeError as e:
+            if "cannot all be resident" not in str(e):
+                raise
+        real = k1.grid_occupancy
+        k1.grid_occupancy = lambda *a: plan[0]
+        t0 = time.perf_counter()
+        try:
+            large(*args, state_dtype="int16", grid=plan[:3])
+            raise AssertionError(f"grid={plan[:3]} with overstated occupancy did not raise")
+        except RuntimeError as e:
+            if "ran out of time" not in str(e):
+                raise
+        finally:
+            k1.grid_occupancy = real
+        torch.cuda.synchronize()
+        print(f"K1 grid route: grid={plan[:3]} ({plan[0]} clusters of {cs} a window, the card "
+              f"runs {act} at once) refused before launch; launched with the occupancy "
+              f"overstated, raised after {time.perf_counter() - t0:.2f} s (the spin bound)")
 
     def scale_run():
         monomers_fwd = load_fasta(os.path.join(DATA, "DXZ1_star_monomers.fa"))
@@ -1306,16 +1477,18 @@ def main(only: list[str]) -> int:
                   f"{n_rows(os.path.join(out, f'ii_{ed}_kernel'))} assignments; kernel route "
                   f"{secs['kernel']:.3f} s, plain route {secs['plain']:.3f} s")
 
-    def wide_case():
+    def wide_case(n=100):
         """A macrosatellite-like workload past the K3 warp route's 16,384 bp:
-        one unit of 100 DXZ1 monomers (~17 kbp, `workloads.joined_set`) and
-        a read of two copies of it with 1 % of bases substituted (seed 0)."""
-        unit = joined_set(load_fasta(dxz1), 100)[0]
+        one unit of n DXZ1 monomers (100: ~17 kbp; 200: ~34 kbp, a row past
+        one block for K1; `workloads.joined_set`) and a read of two copies of
+        it with 1 % of bases substituted (seed 0)."""
+        unit = joined_set(load_fasta(dxz1), n)[0]
         r = np.random.default_rng(0)
         seq = np.array(list(unit.seq * 2))
         hit = r.choice(len(seq), len(seq) // 100, replace=False)
         seq[hit] = [("ACGT".replace(c, ""))[int(r.integers(3))] for c in seq[hit]]
-        return [Record("read_x2", "".join(seq))], add_reverse_complement([Record("dxz1_x100", unit.seq)])
+        return [Record("read_x2", "".join(seq))], add_reverse_complement([Record(f"dxz1_x{n}",
+                                                                                 unit.seq)])
 
     def ed_thr_long():
         """--ed_thr past the thread route: the golden read against the DXZ1
@@ -2921,6 +3094,12 @@ def main(only: list[str]) -> int:
     meta += [(n, src + "chain_dp_tiled.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
              for n in ("chain_dp_tiled", "chain_dp_tiled_int16", "chain_dp_cluster_tiled",
                        "chain_dp_cluster_tiled_int16")]
+    meta += [(n, src + "chain_dp_grid.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
+             for n in ("chain_dp_grid", "chain_dp_grid_int16", "chain_dp_grid_long",
+                       "chain_dp_grid_long_int16")]
+    meta += [(n, src + "chain_dp_tiled.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
+             for n in ("chain_dp_grid_tiled", "chain_dp_grid_tiled_int16", "chain_dp_split",
+                       "chain_dp_split_int16")]
     meta += [(n, src + ("chain_dp.cuh" if n.endswith("_base") else "chain_dp_ablate.cu"),
               "scripts/ablate_chain.py:31") for n in ABLATE]
     print(json.dumps({"kernels": [

@@ -21,13 +21,14 @@ int dispatch(int* max_clusters, int state_bytes, int cs, int R, const void* wind
              long long lens_bstride, const void* dp0, void* end, void* spend, int B, int W, int M,
              int L, int ins, int dele, int mismatch, int match, void* stream) {
   if (!cluster_shape_ok(state_bytes, cs, R, M, L)) return (int)cudaErrorInvalidValue;
+  const GridExchange none = {nullptr, nullptr, 1};
   if (state_bytes == 4)
-    return launch_cluster<int>(max_clusters, cs, R, windows, mono, mono_bstride, mono_lens,
-                               lens_bstride, dp0, end, spend, B, W, M, L, ins, dele, mismatch,
-                               match, stream);
-  return launch_cluster<int16_t>(max_clusters, cs, R, windows, mono, mono_bstride, mono_lens,
-                                 lens_bstride, dp0, end, spend, B, W, M, L, ins, dele, mismatch,
-                                 match, stream);
+    return launch_cluster<int, false>(max_clusters, cs, R, windows, mono, mono_bstride,
+                                      mono_lens, lens_bstride, dp0, end, spend, B, W, M, L, ins,
+                                      dele, mismatch, match, none, stream);
+  return launch_cluster<int16_t, false>(max_clusters, cs, R, windows, mono, mono_bstride,
+                                        mono_lens, lens_bstride, dp0, end, spend, B, W, M, L,
+                                        ins, dele, mismatch, match, none, stream);
 }
 
 }  // namespace

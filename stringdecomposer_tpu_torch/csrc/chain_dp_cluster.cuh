@@ -59,10 +59,14 @@
 // Arithmetic is int32 in registers; T is used only where values are stored
 // (the shared-memory rows, end and spend), as in the lanes body, so the int16
 // state needs no range check of its own.
+// With kGrid the same kernel is the grid route's at L <= 512 (its design in
+// chain_dp_grid.cuh): a window's rows over K clusters, the parity buffers
+// holding the cluster's rows only, the chain max exchanged between the K
+// clusters through global memory after the cluster's own.
 
 #pragma once
 
-#include "chain_dp_lanes.cuh"
+#include "chain_dp_grid.cuh"
 
 namespace {
 
@@ -123,7 +127,16 @@ inline long long cluster_smem_bytes(int M, int L, int R, int state_bytes) {
   return 2LL * M * 4 + (R > 32 ? (long long)R * L * (2 * state_bytes + 1) : 0);
 }
 
-template <typename T, int C, int kPath>
+// The grid route's (kGrid): the parity buffers of the cluster's Me = cs * R
+// rows and the two ints of the exchange (chain_dp_grid.cuh), plus the rows.
+inline long long grid_smem_bytes(int Me, int L, int R, int state_bytes) {
+  return 2LL * Me * 4 + 8 + (R > 32 ? (long long)R * L * (2 * state_bytes + 1) : 0);
+}
+
+// kGrid = false: the cluster body, a window on one cluster (gx, K unused).
+// kGrid = true: the grid route (chain_dp_grid.cuh), a window's rows over K
+// clusters; block r of cluster kc owns rows (kc * cs + r) * R .. + R - 1.
+template <typename T, int C, int kPath, bool kGrid>
 __global__ void __launch_bounds__(lanes_max_threads<C, kPath>(), 1)
 chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
                         int W,
@@ -134,26 +147,34 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
                         const T* __restrict__ dp0,  // [B, M, L] column i = 0
                         T* __restrict__ end,        // [B, W, M]
                         T* __restrict__ spend,      // [B, W, M]
-                        int M, int L, int R, int ins, int dele, int mismatch, int match) {
+                        int M, int L, int R, int ins, int dele, int mismatch, int match,
+                        GridExchange gx_args) {
   constexpr int kNeg = StateNeg<T>::value;
   constexpr int kWords = (C + 3) / 4;
   constexpr bool kRegs = kPath == kRegRows;
   constexpr int kP = kRegs ? lanes_reg_rows<C>() : 1;  // rows a warp holds in registers
   extern __shared__ int smem[];
-  int* ends = smem;  // [2][M] every row's end score, by position parity
+  const int cs = cluster_blocks();
+  const int rank = cluster_rank();
+  const int cl = blockIdx.x / cs;  // the cluster's index in the launch
+  const int b = kGrid ? cl / gx_args.K : cl;
+  const int kc = kGrid ? cl - b * gx_args.K : 0;  // the cluster's index in its window
+  const int Me = kGrid ? cs * R : M;  // rows in the parity buffers
+  const int g0 = kc * Me;             // the cluster's first row
+  int* ends = smem;  // [2][Me] the cluster's rows' end scores, by position parity
+  int* gx = ends + 2 * Me;  // [2] the window's chain max (kGrid)
   // several rows a warp: this block's [R][L] folded scores, pointers and
   // codes, cell c of this lane at x0 + c * dx in its row
-  T* qs = reinterpret_cast<T*>(ends + 2 * M);
+  T* qs = reinterpret_cast<T*>(gx + (kGrid ? 2 : 0));
   T* ss = qs + R * L;
   int8_t* mcs = reinterpret_cast<int8_t*>(ss + R * L);
 
-  const int cs = cluster_blocks();
-  const int m0 = cluster_rank() * R;  // this block's first row
+  const int lm0 = rank * R;  // this block's first row in the cluster
+  const int m0 = g0 + lm0;   // and in the window
   const int rows = min(R, M - m0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int b = blockIdx.x / cs;
   const int k0 = lane * C;
   const int F = L / C;
   const int x0 = kPath == kRowsDense ? lane : (lane < F ? lane : F * C);
@@ -167,10 +188,11 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
   T* end_i = end + (long long)b * W * M + m0;  // advanced by M a position
   T* spend_i = spend + (long long)b * W * M + m0;
 
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int n = min(max(lens_w[m], 0), L);
-    ends[m] = n > 0 ? (int)dp0_w[(long long)m * L + n - 1] : kNeg;
-    ends[M + m] = kNeg;  // rows of length 0 keep kNeg in both buffers
+  for (int m = threadIdx.x; m < Me; m += blockDim.x) {
+    const int gm = g0 + m;
+    const int n = gm < M ? min(max(lens_w[gm], 0), L) : 0;
+    ends[m] = n > 0 ? (int)dp0_w[(long long)gm * L + n - 1] : kNeg;
+    ends[Me + m] = kNeg;  // rows of length 0 keep kNeg in both buffers
   }
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     const int n = min(max(lens_b[r], 0), L);
@@ -185,7 +207,7 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
   unsigned codes[kP][kWords];
   int n_reg[kP];
   int n_own = 0;  // the shared-memory forms: the length of row warp + lane * nwarps
-  const int chain_reads = lane < M ? (M - 1 - lane) / 32 + 1 : 0;  // ends this lane reads
+  const int chain_reads = lane < Me ? (Me - 1 - lane) / 32 + 1 : 0;  // ends this lane reads
   if constexpr (kRegs) {
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
@@ -222,21 +244,26 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
       }
     }
   }
-  const unsigned ends_addr = (unsigned)__cvta_generic_to_shared(ends) + 4u * m0;
+  const unsigned ends_addr = (unsigned)__cvta_generic_to_shared(ends) + 4u * lm0;
   cluster_sync();  // every block started and filled before the first remote store
 
   int rc_next = W > 1 ? win[1] : 0;
   for (int i = 1; i < W; ++i) {
     const int rc = rc_next;
     if (i + 1 < W) rc_next = win[i + 1];
-    const int* prev = ends + ((i - 1) & 1) * M;
-    const unsigned cur = ends_addr + 4u * (i & 1) * M;  // ends[i & 1][m0]
+    const int* prev = ends + ((i - 1) & 1) * Me;
+    const unsigned cur = ends_addr + 4u * (i & 1) * Me;  // ends[i & 1][lm0]
     end_i += M;
     spend_i += M;
     int chain = kNeg;
 #pragma unroll 1
     for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
     chain = warp_max(chain);
+    if constexpr (kGrid) {
+      if (gx_args.K > 1)
+        chain = grid_chain(gx_args, chain, i, b, gridDim.x / (cs * gx_args.K), kc,
+                           rank == 0 && threadIdx.x == 0, gx);
+    }
     if constexpr (kRegs) {
       const unsigned rc4 = (unsigned)(rc & 0xff) * 0x01010101u;  // the read's code, 4 times
 #pragma unroll
@@ -295,15 +322,17 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
   }
 }
 
-// The launch of one instance, or with `max_clusters` given, only
-// cudaOccupancyMaxActiveClusters for it (nothing is launched).
-template <typename T, int C, int kPath>
+// The launch of one instance (kGrid: B windows of gx.K clusters each), or
+// with `max_clusters` given, only cudaOccupancyMaxActiveClusters for it
+// (nothing is launched).
+template <typename T, int C, int kPath, bool kGrid>
 int launch_cluster_k(int* max_clusters, int cs, int R, const void* windows, const void* mono,
                      long long mono_bstride, const void* mono_lens, long long lens_bstride,
                      const void* dp0, void* end, void* spend, int B, int W, int M, int L,
-                     int ins, int dele, int mismatch, int match, void* stream) {
-  auto kernel = chain_dp_cluster_kernel<T, C, kPath>;
-  const long long smem = cluster_smem_bytes(M, L, R, sizeof(T));
+                     int ins, int dele, int mismatch, int match, GridExchange gx, void* stream) {
+  auto kernel = chain_dp_cluster_kernel<T, C, kPath, kGrid>;
+  const long long smem = kGrid ? grid_smem_bytes(cs * R, L, R, sizeof(T))
+                               : cluster_smem_bytes(M, L, R, sizeof(T));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -317,7 +346,7 @@ int launch_cluster_k(int* max_clusters, int cs, int R, const void* windows, cons
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B > 0 ? B : 1) * cs);
+  cfg.gridDim = dim3((unsigned)(B > 0 ? B : 1) * (kGrid ? gx.K : 1) * cs);
   constexpr int kP = lanes_reg_rows<C>();
   cfg.blockDim =
       dim3(kPath == kRegRows ? 32 * ((R + kP - 1) / kP) : lanes_max_threads<C, kPath>());
@@ -329,33 +358,35 @@ int launch_cluster_k(int* max_clusters, int cs, int R, const void* windows, cons
     return (int)cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel, &cfg);
   err = cudaLaunchKernelEx(&cfg, kernel, (const int8_t*)windows, W, (const int8_t*)mono,
                            mono_bstride, (const int*)mono_lens, lens_bstride, (const T*)dp0,
-                           (T*)end, (T*)spend, M, L, R, ins, dele, mismatch, match);
+                           (T*)end, (T*)spend, M, L, R, ins, dele, mismatch, match, gx);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T, int C>
+template <typename T, int C, bool kGrid>
 int launch_cluster_c(int* max_clusters, int cs, int R, const void* windows, const void* mono,
                      long long mono_bstride, const void* mono_lens, long long lens_bstride,
                      const void* dp0, void* end, void* spend, int B, int W, int M, int L,
-                     int ins, int dele, int mismatch, int match, void* stream) {
-  auto launch = R <= 32 ? launch_cluster_k<T, C, kRegRows>
-                        : (L == 32 * C ? launch_cluster_k<T, C, kRowsDense>
-                                       : launch_cluster_k<T, C, kRows>);
+                     int ins, int dele, int mismatch, int match, GridExchange gx, void* stream) {
+  auto launch = R <= 32 ? launch_cluster_k<T, C, kRegRows, kGrid>
+                        : (L == 32 * C ? launch_cluster_k<T, C, kRowsDense, kGrid>
+                                       : launch_cluster_k<T, C, kRows, kGrid>);
   return launch(max_clusters, cs, R, windows, mono, mono_bstride, mono_lens, lens_bstride, dp0,
-                end, spend, B, W, M, L, ins, dele, mismatch, match, stream);
+                end, spend, B, W, M, L, ins, dele, mismatch, match, gx, stream);
 }
 
-template <typename T>
+// kGrid = false: the cluster body (chain_dp_cluster.cu); true: the grid
+// route (chain_dp_grid.cu), each source instantiating its own.
+template <typename T, bool kGrid>
 int launch_cluster(int* max_clusters, int cs, int R, const void* windows, const void* mono,
                    long long mono_bstride, const void* mono_lens, long long lens_bstride,
                    const void* dp0, void* end, void* spend, int B, int W, int M, int L, int ins,
-                   int dele, int mismatch, int match, void* stream) {
+                   int dele, int mismatch, int match, GridExchange gx, void* stream) {
 #define SD_CLUSTER_CASE(CC)                                                                  \
   case CC:                                                                                   \
-    return launch_cluster_c<T, CC>(max_clusters, cs, R, windows, mono, mono_bstride,         \
-                                   mono_lens, lens_bstride, dp0, end, spend, B, W, M, L, ins, \
-                                   dele, mismatch, match, stream);
+    return launch_cluster_c<T, CC, kGrid>(max_clusters, cs, R, windows, mono, mono_bstride,  \
+                                          mono_lens, lens_bstride, dp0, end, spend, B, W, M, \
+                                          L, ins, dele, mismatch, match, gx, stream);
   switch ((L + 31) / 32) {
     SD_CLUSTER_CASE(1)
     SD_CLUSTER_CASE(2)

@@ -293,10 +293,15 @@ class _TiledRows:
     lane's new carry, its warp's earlier lanes' prefix where strictly
     greater than the warp's carry, else that. A warp whose segment starts at
     or past its row's end (every warp of a row of length 0) skips the
-    position and keeps its cells and carries. Arithmetic is int32."""
+    position and keeps its cells and carries. With `blocks` > 1 the row's
+    warps span that many blocks (the grid route's split form, G / blocks
+    warps each), and a warp's carry is read as that kernel reads the totals
+    the row's warps push to the later blocks: the earliest argmax of the
+    earlier warps', 32 at a time, an earlier group winning ties. Arithmetic
+    is int32."""
 
     def __init__(self, windows, mono_b, lens_b, dp0, ins, dele, mismatch, match,
-                 cells_per_lane, warps_per_row, tile):
+                 cells_per_lane, warps_per_row, tile, blocks=1):
         B = windows.shape[0]
         M, L = mono_b.shape[1], mono_b.shape[2]
         C, G = cells_per_lane, warps_per_row
@@ -307,7 +312,10 @@ class _TiledRows:
         dev = windows.device
         i32 = torch.int32
         self.neg = state_neg(dp0.dtype)
-        self.shape, self.C, self.G, self.tile = (B, M, P), C, G, tile
+        if blocks < 1 or G % blocks or (blocks - 1) * P // blocks >= max(L, 1):
+            raise ValueError(f"{G} warps a row do not split into {blocks} blocks with cells "
+                             f"below L={L}")
+        self.shape, self.C, self.G, self.tile, self.blocks = (B, M, P), C, G, tile, blocks
         self.dele = dele
         k = torch.arange(P, dtype=i32, device=dev)
         self.n = lens_b.to(i32).clamp(0, L)[:, :, None]  # [B, M, 1]
@@ -390,12 +398,37 @@ class _TiledRows:
         et = torch.cat([torch.full_like(tot_t[..., :1], INT32_MIN), tot_t[..., :-1]], dim=-1)
         ec = torch.cat([torch.zeros_like(tot_c[..., :1]), tot_c[..., :-1]], dim=-1)
         # each warp's carry: the earliest argmax of the earlier warps' totals
-        wt, (wc,) = pair_scan(tot_t[..., -1], [tot_c[..., -1]], torch.gt)  # [B, M, G]
-        wt = torch.cat([torch.full_like(wt[..., :1], INT32_MIN), wt[..., :-1]], dim=-1)[..., None]
-        wc = torch.cat([torch.zeros_like(wc[..., :1]), wc[..., :-1]], dim=-1)[..., None]
+        if self.blocks == 1:
+            wt, (wc,) = pair_scan(tot_t[..., -1], [tot_c[..., -1]], torch.gt)  # [B, M, G]
+            wt = torch.cat([torch.full_like(wt[..., :1], INT32_MIN), wt[..., :-1]], dim=-1)
+            wc = torch.cat([torch.zeros_like(wc[..., :1]), wc[..., :-1]], dim=-1)
+        else:
+            wt, wc = self.split_carry(tot_t[..., -1], tot_c[..., -1])
+        wt, wc = wt[..., None], wc[..., None]
         later = et > wt  # the earlier warps win ties
         self.ct = torch.where(self.live, torch.where(later, et, wt).reshape(B, M, 32 * G), self.ct)
         self.cc = torch.where(self.live, torch.where(later, ec, wc).reshape(B, M, 32 * G), self.cc)
+
+    @staticmethod
+    def split_carry(tt, tc):
+        """The split form's warp carries from the warp totals (tt, tc) [B,
+        M, G]: for warp w, the earliest argmax of warps 0 .. w-1's, taken
+        over groups of 32 warps in turn, a later group replacing the carry
+        only where its max is strictly greater; (INT32_MIN, 0) for warp 0."""
+        G = tt.shape[-1]
+        w = torch.arange(G, device=tt.device)
+        wt = torch.full_like(tt, INT32_MIN)
+        wc = torch.zeros_like(tc)
+        for j0 in range(0, G, 32):
+            j = torch.arange(j0, min(G, j0 + 32), device=tt.device)
+            read = j[None, :] < w[:, None]  # [G warps, the group's totals]
+            vals = torch.where(read, tt[..., None, j0:j0 + len(j)], INT32_MIN)  # [B, M, G, n]
+            mx, idx = vals.max(dim=-1)  # the first of the maxima
+            mc = tc[..., j0:j0 + len(j)].gather(-1, idx)
+            take = mx > wt
+            wt = torch.where(take, mx, wt)
+            wc = torch.where(take, mc, wc)
+        return wt, wc
 
 
 def _rows_sweep(rows, windows, dtype):
@@ -438,48 +471,76 @@ def sweep_cluster(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, clus
                   cells_per_lane, warps_per_row=None, tile=8):
     """`sweep` computed as K1's cluster body (csrc/chain_dp_cluster.cuh)
     splits it, or with `warps_per_row` as the tiled cluster body
-    (csrc/chain_dp_tiled.cu) does; test-only, nothing on the main path calls
-    it. The M rows go to cs = `cluster_size` slices of R = ceil(M / cs)
-    rows, each with at least one (else ValueError); each slice steps its
-    rows as the lanes body does (`_LanesRows`, C = `cells_per_lane`), or the
-    tiled body (`_TiledRows`, G = `warps_per_row`, tiles of `tile`), and
-    keeps its own copy of the
-    [2, M] parity buffers of every row's end score. At position i each slice
-    takes its chain score from its own buffer (i - 1) & 1, then writes its
-    rows' end scores into buffer i & 1 of every slice; rows of length 0 are
-    never written and keep the sentinel in both. End and spend come out in
-    dp0's type. Same outputs as `sweep`."""
+    (csrc/chain_dp_tiled.cu) does: `sweep_grid` on one group of cs =
+    `cluster_size` slices, whose parity buffers hold every row's end score;
+    test-only, nothing on the main path calls it. Same outputs as
+    `sweep`."""
+    return sweep_grid(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, 1, cluster_size,
+                      cells_per_lane, warps_per_row, tile)
+
+
+def sweep_grid(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, clusters, cluster_size,
+               cells_per_lane, warps_per_row=None, tile=8, blocks_per_row=1):
+    """`sweep` computed as K1's grid route (csrc/chain_dp_grid.cuh) splits
+    it; test-only, nothing on the main path calls it. The window's rows go
+    to K = `clusters` groups of cs = `cluster_size` slices (the blocks of a
+    thread block cluster). S = `blocks_per_row` = 1: group k's slice r holds
+    rows (k cs + r) R .. + R - 1, R = ceil(M / (K cs)), every slice at least
+    one (else ValueError), stepped as the lanes body steps them
+    (`_LanesRows`, C = `cells_per_lane`) or the tiled body (`_TiledRows`, G
+    = `warps_per_row`, tiles of `tile`). S > 1 (the split form): a group
+    holds cs / S whole rows, K cs / S = M, each row a `_TiledRows` over S
+    blocks of G warps. Each group keeps the [2, Me] parity buffers of its
+    own rows only (Me = cs R, or cs / S). At position i each group takes its
+    max from its buffer (i - 1) & 1, the chain score is the max of the K
+    group maxima (the kernel's exchange through global memory), and each
+    group writes its rows' end scores into its buffer i & 1; rows of length
+    0 are never written and keep the sentinel in both. End and spend come
+    out in dp0's type. Same outputs as `sweep`."""
     B, W = windows.shape
     M = mono_b.shape[1]
-    cs = cluster_size
-    R = -(-M // cs) if cs >= 1 else 0
-    if cs < 1 or (cs - 1) * R >= M:
-        raise ValueError(f"{cs} slices of {R} rows leave a slice of M={M} rows empty")
+    K, cs, S = clusters, cluster_size, blocks_per_row
+    if S == 1:
+        blocks = K * cs
+        R = -(-M // blocks) if blocks >= 1 else 0
+        if K < 1 or cs < 1 or (blocks - 1) * R >= M:
+            raise ValueError(f"{K} x {cs} slices of {R} rows leave a slice of M={M} rows empty")
+        cuts, Me = [(j * R, min(M, (j + 1) * R)) for j in range(blocks)], cs * R
+    else:
+        if warps_per_row is None or cs < S or cs % S or K * (cs // S) != M:
+            raise ValueError(f"{K} groups of {cs} blocks at {S} blocks a row do not hold "
+                             f"M={M} rows (one each), or no warps_per_row")
+        cuts, Me = [(m, m + 1) for m in range(M)], cs // S
     dev, neg = windows.device, state_neg(dp0.dtype)
-    cuts = [(r * R, min(M, (r + 1) * R)) for r in range(cs)]
+
     def slice_rows(a, z):
         args = (windows, mono_b[:, a:z], lens_b[:, a:z], dp0[:, a:z], ins, dele, mismatch, match,
                 cells_per_lane)
         if warps_per_row is None:
             return _LanesRows(*args)
-        return _TiledRows(*args, warps_per_row, tile)
+        return _TiledRows(*args, warps_per_row * S, tile, S)
 
     slices = [slice_rows(a, z) for a, z in cuts]
     real = lens_b.to(torch.int32) > 0  # [B, M]: the rows that store an end score
+    groups = [(k * Me, min(M, (k + 1) * Me)) for k in range(K)]
     ends0 = torch.cat([rows.emit()[0] for rows in slices], dim=1)
-    bufs = [torch.stack([ends0, torch.full_like(ends0, neg)], dim=1) for _ in cuts]  # [B, 2, M]
+    bufs = []  # [B, 2, Me] each: the group's own rows, the sentinel past M
+    for a, z in groups:
+        buf = torch.full((B, 2, Me), neg, dtype=torch.int32, device=dev)
+        buf[:, 0, : z - a] = ends0[:, a:z]
+        bufs.append(buf)
     chains = [torch.full((B,), INF, dtype=torch.int32, device=dev)]
     out = [[rows.emit() for rows in slices]]
     for i in range(1, W):
         prev, cur = (i - 1) & 1, i & 1
-        chain = [buf[:, prev].amax(dim=1) for buf in bufs]
-        for rows, ch in zip(slices, chain):
-            rows.step(i, ch)
+        chain = torch.stack([buf[:, prev].amax(dim=1) for buf in bufs]).amax(dim=0)
+        for rows in slices:
+            rows.step(i, chain)
         out.append([rows.emit() for rows in slices])
         ends = torch.cat([e for e, _ in out[-1]], dim=1)
-        for buf in bufs:  # every slice's rows into every slice's copy
-            buf[:, cur] = torch.where(real, ends, buf[:, cur])
-        chains.append(chain[0])
+        for (a, z), buf in zip(groups, bufs):  # each group's rows into its own buffers
+            buf[:, cur, : z - a] = torch.where(real[:, a:z], ends[:, a:z], buf[:, cur, : z - a])
+        chains.append(chain)
     end = torch.stack([torch.cat([e for e, _ in o], dim=1) for o in out], dim=1)
     spend = torch.stack([torch.cat([s for _, s in o], dim=1) for o in out], dim=1)
     return torch.stack(chains, dim=1), end.to(dp0.dtype), spend.to(dp0.dtype)

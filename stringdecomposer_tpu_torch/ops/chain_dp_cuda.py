@@ -21,17 +21,21 @@ rows (csrc/chain_dp_cluster.cuh, `cluster_plan`: a window's rows spread
 over a thread block cluster, the lanes body's row step in each block, the
 end scores exchanged through distributed shared memory) and the tiled
 cluster body above it (the tiled body's rows in each block of a cluster,
-`cluster_plan` with the tiled form's shared memory). The chunked body
-(csrc/chain_dp.cuh) keeps what neither takes: a row too long for one
-block's shared memory in the tiled form (on the shared route, or with its
-column in a device-memory scratch on the large route), a set past 16
-blocks' shared memory, and the ablation's base. A shared-route set whose
+`cluster_plan` with the tiled form's shared memory). Past one cluster of
+16 blocks the grid routes (csrc/chain_dp_grid.cuh, `grid_plan`) run the
+same bodies over K clusters a window, exchanging the chain max between
+them through global memory each position ("grid" at L <= 512,
+"grid_tiled" above), or split a row too long for one block's shared
+memory over S blocks of a cluster ("split"). The chunked body
+(csrc/chain_dp.cuh) keeps what none takes: a set past the whole card's
+shared memory (with its column in a device-memory scratch, on the large
+route), `force_body=`, and the ablation's base. A shared-route set whose
 tiled form does not fit one block (the padding of its rows) runs the tiled
 cluster body. A C outside 1..16 is refused by the lanes and cluster
 entries, a shape past one block by the tiled entries, never run on another
 body; `force_body=` on the wrappers names a body for the checks and the
 A/B, and raises where that body cannot take the set. Each body and route counts its
-own launches, int32 and int16 state apart, and the lanes and cluster
+own launches, int32 and int16 state apart, and the lanes, cluster and grid
 bodies' rows past LANES_LONG_L (C = 9..16, two rows a warp in registers)
 apart from the shorter ones.
 
@@ -46,6 +50,7 @@ once per device, has agreed with its plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -77,8 +82,15 @@ TILED_WARPS = 32
 # schedulers
 TILED_CELL_OPS, TILED_SEGMENT_OPS, TILED_SPLIT_OPS = 22, 250, 60
 # the H100 SXM's SMs, over which a wave of the tiled cluster body's blocks
-# spreads (`cluster_plan`)
+# spreads (`cluster_plan`), and the most blocks a window of the grid routes
+# may take (`grid_plan`)
 SM_COUNT = 132
+# `grid_plan`'s model of what a position adds on the grid routes: the
+# exchange of the chain max between a window's clusters through global
+# memory (~1.5 us, an L2 round trip: one row step of the cluster body, ~3,000
+# instructions of a scheduler), and the split form's second cluster barrier
+# (~0.8 us)
+GRID_EXCHANGE_ROWS, GRID_EXCHANGE_OPS, SPLIT_BARRIER_OPS = 1, 3000, 1600
 # ablation variant -> csrc/chain_dp.cuh Variant (base is the chunked body's launch)
 _VARIANT_CODES = {v: i for i, v in enumerate(plain.VARIANTS)}
 
@@ -109,6 +121,7 @@ def reg_rows(L: int) -> int:
     return 1 if L <= LANES_LONG_L else 2
 
 
+@functools.lru_cache(maxsize=4096)
 def tiled_layout(R: int, L: int) -> tuple[int, int, int]:
     """(G, C, threads) of the tiled bodies for R rows a block padded to L:
     G warps a row, C = ceil(L / (32 G)) cells a lane, G then cut to the
@@ -184,14 +197,21 @@ def cluster_shape(M: int, L: int, state_bytes: int, cs: int):
     R = -(-M // cs)
     if (cs - 1) * R >= M:
         return None
-    C = -(-L // 32)
-    if R <= 32:
-        form, threads = "regs", 32 * -(-R // reg_rows(L))
-    else:
-        form = "rows_dense" if L == 32 * C else "rows"
-        threads = 1024 if C <= 5 or (C == 6 and form == "rows_dense") else 512
+    form, threads = lanes_form(R, L)
     smem = 8 * M + (R * L * (2 * state_bytes + 1) if R > 32 else 0)
     return (R, form, threads, smem) if smem <= SMEM_LIMIT else None
+
+
+def lanes_form(R: int, L: int) -> tuple[str, int]:
+    """(form, threads) of a block of R rows padded to L <= LANES_MAX_L in
+    the cluster bodies: "regs" up to 32 rows, a warp for every
+    `reg_rows(L)`; else "rows_dense" where L is 32 lanes x C cells, or
+    "rows", on 1,024 threads at C <= 5 (and C = 6 dense), else 512."""
+    C = -(-L // 32)
+    if R <= 32:
+        return "regs", 32 * -(-R // reg_rows(L))
+    form = "rows_dense" if L == 32 * C else "rows"
+    return form, 1024 if C <= 5 or (C == 6 and form == "rows_dense") else 512
 
 
 def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = None,
@@ -241,36 +261,180 @@ def cluster_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = Non
     return min(shapes, key=cost) if shapes else None
 
 
+def grid_smem_bytes(Me: int, L: int, R: int, state_bytes: int) -> int:
+    """Shared memory of one block of the grid route at L <= LANES_MAX_L
+    (csrc/chain_dp_cluster.cuh grid_smem_bytes): the parity buffers of the
+    cluster's Me rows, two ints of the exchange, and the R rows where they
+    live in shared memory (R > 32)."""
+    return 8 * Me + 8 + (R * L * (2 * state_bytes + 1) if R > 32 else 0)
+
+
+def grid_tiled_smem_bytes(Me: int, R: int, G: int, C: int, S: int, state_bytes: int) -> int:
+    """Shared memory of one block of the grid route past LANES_MAX_L
+    (csrc/chain_dp_tiled.cu grid_tiled_smem_bytes): the parity buffers of the
+    cluster's Me rows and the exchange's two ints; a carry a lane for each of
+    the R * G segments, and two boundary cells a segment where a row spans
+    warps; the warp totals (S * G of the row where it spans S > 1 blocks,
+    else R * G where G > 1); the split form's two incoming boundary cells;
+    the rows as in `tiled_smem_bytes`."""
+    P, Sg = 32 * G * C, R * G
+    NT = S * G if S > 1 else (Sg if G > 1 else 0)
+    return (8 * Me + 8 + 256 * Sg + 8 * NT + (16 * Sg if G > 1 or S > 1 else 0)
+            + (16 if S > 1 else 0) + R * (2 * state_bytes * P + 128 * G * -(-C // 4)))
+
+
+def split_layout(L: int, S: int) -> tuple[int, int, int]:
+    """(G, C, threads) of a block of the split form, a row over S blocks:
+    `tiled_layout` of one row of ceil(L / S) cells."""
+    return tiled_layout(1, -(-L // S))
+
+
+def grid_shape(M: int, L: int, state_bytes: int, K: int, cs: int, S: int = 1):
+    """The grid route's launch for M rows padded to L over K clusters of cs
+    blocks a window: (R, form, threads, smem), or None where it does not
+    fit. S = 1: block j of the window's K * cs owns rows j*R .. min(M, (j+1)
+    *R) - 1, R = ceil(M / (K cs)), at least one; at L <= LANES_MAX_L in the
+    cluster body's forms (`cluster_shape`'s rule, `grid_smem_bytes`), above
+    in the tiled form ("tiled", `tiled_layout(R, L)`,
+    `grid_tiled_smem_bytes`). S > 1 ("split", past LANES_MAX_L): a row
+    over S blocks of `split_layout(L, S)`, cs / S rows a cluster, every
+    block with a row (K cs / S = M) and a first cell below L. Shared
+    memory within SMEM_LIMIT."""
+    if not (K >= 1 and 1 <= cs <= CLUSTER_MAX and M >= 1 and L >= 1 and S >= 1):
+        return None
+    if S > 1:
+        if L <= LANES_MAX_L or cs % S or K * (cs // S) != M:
+            return None
+        G, C, threads = split_layout(L, S)
+        if (S - 1) * 32 * G * C >= L:
+            return None
+        R, form, smem = 1, "split", grid_tiled_smem_bytes(cs // S, 1, G, C, S, state_bytes)
+    else:
+        R = -(-M // (K * cs))
+        if (K * cs - 1) * R >= M:
+            return None
+        if L > LANES_MAX_L:
+            G, C, threads = tiled_layout(R, L)
+            form, smem = "tiled", grid_tiled_smem_bytes(cs * R, R, G, C, 1, state_bytes)
+        else:
+            form, threads = lanes_form(R, L)
+            smem = grid_smem_bytes(cs * R, L, R, state_bytes)
+    return (R, form, threads, smem) if smem <= SMEM_LIMIT else None
+
+
+@functools.lru_cache(maxsize=256)
+def _grid_shapes(M: int, L: int, state_bytes: int) -> tuple:
+    """Every admissible (K, cs, S, R, form, threads, smem) of the grid
+    routes with K cs <= SM_COUNT: S = 1 at K >= 2 (one cluster is the
+    cluster bodies'); S > 1 only where one row does not fit a block in the
+    tiled form."""
+    out = []
+    for cs in range(1, CLUSTER_MAX + 1):
+        for K in range(2, SM_COUNT // cs + 1):
+            if (shape := grid_shape(M, L, state_bytes, K, cs)) is not None:
+                out.append((K, cs, 1, *shape))
+    if L > LANES_MAX_L and tiled_shape(1, L, state_bytes, 1) is None:
+        for S in range(2, CLUSTER_MAX + 1):
+            for cs in range(S, CLUSTER_MAX + 1, S):
+                K = M // (cs // S)
+                if K * cs <= SM_COUNT and (shape := grid_shape(M, L, state_bytes, K, cs, S)):
+                    out.append((K, cs, S, *shape))
+    return tuple(out)
+
+
+def grid_plan(M: int, L: int, state_bytes: int = 4, windows: int | None = None, active=None):
+    """(K, cs, S, R, form, threads, smem) of the grid routes' launch for a
+    set no cluster of 16 blocks holds, or None where none fits the card (K
+    cs <= SM_COUNT blocks a window): `grid_shape`'s, K clusters of cs blocks
+    a window. A pure function of its arguments. `active(plan)` gives how
+    many clusters of the plan's shape the card runs at once (the wrapper
+    passes cudaOccupancyMaxActiveClusters); a window's K clusters must all
+    run at once, so plans it says fewer than K for are left out (where none
+    is left, the cheapest is returned, and its launch raises), and a launch
+    of `windows` windows runs in ceil(windows / floor(active / K)) waves.
+    The cost, as `cluster_plan`'s: the waves x the blocks a wave puts on one
+    of SM_COUNT SMs x a block's work a position (the cluster body's 1 +
+    rows a warp steps, plus GRID_EXCHANGE_ROWS where K > 1; the tiled form's
+    `tiled_issue`, plus GRID_EXCHANGE_OPS where K > 1 and SPLIT_BARRIER_OPS
+    where S > 1); ties to the fewest blocks, then the fewest clusters."""
+    shapes = list(_grid_shapes(M, L, state_bytes))
+    runs = None
+    if windows is not None and active is not None:
+        runs = {plan: active(plan) for plan in shapes}
+        shapes = [plan for plan in shapes if runs[plan] >= plan[0]] or shapes
+    return min(shapes, key=lambda plan: grid_cost(plan, L, windows, runs and runs[plan])) \
+        if shapes else None
+
+
+def grid_cost(plan, L: int, windows: int | None = None, active: int | None = None):
+    """`grid_plan`'s cost of one plan (K, cs, S, R, form, threads, smem) for
+    `windows` windows where the card runs `active` of its clusters at once
+    (without them, one window in one wave): (the model's time, blocks,
+    clusters), compared in that order."""
+    K, cs, S, R, form, threads, _ = plan
+    waves, at_once = 1, 1
+    if windows and active and active >= K:
+        per = active // K
+        waves, at_once = -(-windows // per), min(windows, per)
+    if form in ("tiled", "split"):
+        G, C, _ = tiled_layout(R, L) if S == 1 else split_layout(L, S)
+        work = tiled_issue(R, G, C) + (GRID_EXCHANGE_OPS if K > 1 else 0) + (
+            SPLIT_BARRIER_OPS if S > 1 else 0)
+    else:
+        work = 1 + -(-R // (threads // 32)) + GRID_EXCHANGE_ROWS
+    return waves * -(-at_once * K * cs // SM_COUNT) * work, K * cs, K
+
+
+# the grid routes' bodies by their form
+GRID_BODY = {"tiled": "grid_tiled", "split": "split"}
+
+
+def grid_body(form: str) -> str:
+    """The body name of a grid plan's form: "grid" (the cluster body's
+    forms, L <= LANES_MAX_L), "grid_tiled" or "split"."""
+    return GRID_BODY.get(form, "grid")
+
+
 def body(M: int, L: int, state_bytes: int = 4) -> str:
     """The K1 kernel body a monomer set runs. At L <= LANES_MAX_L: on the
     shared route "lanes"; on the large route "cluster" where `cluster_plan`
-    finds a cluster of at most 16 blocks, else "large" (the chunked body
-    with its device-memory scratch). Above: on the shared route "tiled"
+    finds a cluster of at most 16 blocks. Above: on the shared route "tiled"
     where the tiled form fits one block; else "cluster_tiled" where
     `cluster_plan` finds a cluster of the tiled form (the large route, and
-    the shared-route sets whose padded rows do not fit one block); else the
-    chunked body, "chunked" on the shared route and "large" on the large
-    one (a row past one block's shared memory, a set past 16 blocks')."""
+    the shared-route sets whose padded rows do not fit one block). Past one
+    cluster, the grid routes where `grid_plan` finds a plan on the card:
+    "grid" (L <= LANES_MAX_L) and "grid_tiled", a window's rows over K
+    clusters, or "split", a row too long for one block over the blocks of
+    a cluster. The chunked body keeps the rest, "chunked" on the shared
+    route and "large" on the large one (a set past the card's shared
+    memory)."""
     shared = route(M, L, state_bytes) == "shared"
-    if L <= LANES_MAX_L:
-        if shared:
-            return "lanes"
-        return "cluster" if cluster_plan(M, L, state_bytes) is not None else "large"
-    if shared and tiled_shape(M, L, state_bytes, 1) is not None:
+    if L <= LANES_MAX_L and shared:
+        return "lanes"
+    if L > LANES_MAX_L and shared and tiled_shape(M, L, state_bytes, 1) is not None:
         return "tiled"
+    return _large_kind(M, L, state_bytes, "chunked" if shared else "large")
+
+
+def _large_kind(M: int, L: int, state_bytes: int, none: str = "large") -> str:
+    """The body of a set past the shared route's: the cluster bodies', else
+    the grid routes', else `none`."""
     if cluster_plan(M, L, state_bytes) is not None:
-        return "cluster_tiled"
-    return "chunked" if shared else "large"
+        return "cluster" if L <= LANES_MAX_L else "cluster_tiled"
+    plan = grid_plan(M, L, state_bytes)
+    return none if plan is None else grid_body(plan[4])
 
 
 # the bodies of each route, as `body` and the wrappers' `force_body=` name them
 SHARED_BODIES = ("lanes", "tiled", "chunked")
-LARGE_BODIES = ("cluster", "cluster_tiled", "large")
+GRID_BODIES = ("grid", "grid_tiled", "split")
+LARGE_BODIES = ("cluster", "cluster_tiled") + GRID_BODIES + ("large",)
 
 
 def check_monomer_set(M: int, L: int) -> None:
-    """Raise for the one bound left: the large route's end scores and
-    lengths of all M rows must fit one block's shared memory."""
+    """Raise for the chunked body's one bound: on the large route the end
+    scores and lengths of all M rows must fit one block's shared memory (the
+    other bodies keep only a cluster's rows' end scores a block)."""
     if large_smem_bytes(M) > SMEM_LIMIT:
         raise ValueError(
             f"monomer set too large for the chain-DP kernel: M={M} monomers need "
@@ -363,7 +527,6 @@ def _prologue(windows, window_lens, mono, mono_lens, dele, mismatch, match, dt):
              "mono must be [M, L] or [B, M, L] with lens [M] or [B, M]")
     _require(mono.dim() == 2 or mono.shape[0] == B, "per-window mono needs B rows")
     _require(M >= 1 and L >= 1 and W >= 1, "empty monomer set or window")
-    check_monomer_set(M, L)
     windows = windows.contiguous()
     mono = mono.contiguous()
     mono_lens = mono_lens.contiguous()
@@ -384,11 +547,12 @@ def _epilogue(end, spend, window_lens, max_blocks, return_debug):
 
 
 def _launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, scratch,
-            ins, dele, mismatch, match):
+            ins, dele, mismatch, match, tail=()):
     """One launch of a K1 entry point (`fn`, whose first int arguments are
     `lead`) over windows [b0, b1); `scratch` holds the pointer arguments
     that follow dp0 (sd_chain_dp: the large route's pointer scratch or None;
-    sd_chain_dp_lanes: none)."""
+    sd_chain_dp_lanes: none), `tail` those before the stream (the grid
+    routes' slots and fault word)."""
     M, L = mono.shape[-2], mono.shape[-1]
     per_window = mono.dim() == 3
     m_w, l_w = (mono[b0:b1], mono_lens[b0:b1]) if per_window else (mono, mono_lens)
@@ -396,15 +560,16 @@ def _launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, scratch
         *lead, windows[b0:b1].data_ptr(), m_w.data_ptr(), M * L if per_window else 0,
         l_w.data_ptr(), M if per_window else 0, dp0[b0:b1].data_ptr(), *scratch,
         end[b0:b1].data_ptr(), spend[b0:b1].data_ptr(), b1 - b0, windows.shape[1], M, L,
-        ins, dele, mismatch, match, stream_of(windows),
+        ins, dele, mismatch, match, *tail, stream_of(windows),
     )
 
 
 def _counter(dt: torch.dtype, kind: str = "", L: int = 0) -> str:
     """The launch counter of a K1 body (`kind`: "" for the chunked body,
-    "lanes", "cluster", "tiled" or "cluster_tiled"), the lanes and cluster
-    bodies' rows past LANES_LONG_L and int16 state apart."""
-    long = "_long" if kind in ("lanes", "cluster") and L > LANES_LONG_L else ""
+    "lanes", "cluster", "tiled", "cluster_tiled", "grid", "grid_tiled" or
+    "split"), the lanes, cluster and grid bodies' rows past LANES_LONG_L
+    and int16 state apart."""
+    long = "_long" if kind in ("lanes", "cluster", "grid") and L > LANES_LONG_L else ""
     return f"launches{'_' + kind if kind else ''}{long}{'_int16' if dt == torch.int16 else ''}"
 
 
@@ -427,8 +592,8 @@ def chain_dp_forward_cuda(
     names (for the checks and the A/B: "lanes" at L <= LANES_MAX_L, "tiled"
     where its form fits one block, "chunked" where the column does; a
     large-route body goes to chain_dp_large_cuda); a body that cannot take
-    the set raises, on any device. The large route's bodies run in
-    chain_dp_large_cuda."""
+    the set raises, on any device. The large route's bodies, the grid
+    routes' among them, run in chain_dp_large_cuda."""
     kw = dict(ins=ins, dele=dele, mismatch=mismatch, match=match, max_blocks=max_blocks,
               return_debug=return_debug, state_dtype=state_dtype)
     dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
@@ -498,7 +663,7 @@ def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None
     """The large route's cluster launch (cs, R, form, threads, smem): the
     plan's for `windows` clusters on the current device (or, without them,
     the plan's default), or `cluster_size`'s where given, which must fit;
-    None: the chunked body."""
+    None: none fits."""
     if cluster_size is None:
         active = None
         if windows:
@@ -511,6 +676,53 @@ def _cluster_launch(M: int, L: int, state_bytes: int, cluster_size, windows=None
              f"{state_bytes}: it needs 1 <= cluster_size <= {CLUSTER_MAX}, at least one row a "
              f"block and the shared memory within {SMEM_LIMIT} bytes")
     return (cluster_size, *shape)
+
+
+_GRID_ACTIVE: dict = {}  # (device, M, L, state bytes, cs, S, R) -> clusters at once
+
+
+def grid_occupancy(M: int, L: int, state_bytes: int, plan) -> int:
+    """cudaOccupancyMaxActiveClusters for the grid launch `plan` (K, cs, S,
+    R, form, ...) at (M, L) on the current device: how many of its clusters
+    the card runs at once (0: none). It does not depend on K; cached."""
+    K, cs, S, R, form = plan[:5]
+    key = (torch.cuda.current_device(), M, L, state_bytes, cs, S, R)
+    if key not in _GRID_ACTIVE:
+        n = ctypes.c_int(0)
+        lib = library()
+        if form in ("tiled", "split"):
+            G, C, _ = tiled_layout(R, L) if S == 1 else split_layout(L, S)
+            code = lib.sd_chain_dp_grid_tiled_occupancy(state_bytes, K, cs, R, G, C, S, 1, M, L,
+                                                        ctypes.byref(n))
+        else:
+            code = lib.sd_chain_dp_grid_occupancy(state_bytes, K, cs, R, 1, M, L,
+                                                  ctypes.byref(n))
+        check(code, "chain_dp grid occupancy")
+        _GRID_ACTIVE[key] = n.value
+    return _GRID_ACTIVE[key]
+
+
+def _grid_launch(M: int, L: int, state_bytes: int, kind: str, grid, windows=None):
+    """The grid launch (K, cs, S, R, form, threads, smem) a grid body runs:
+    `grid` = (K, cs, S) where given, which must fit; else `grid_plan`'s,
+    for `windows` windows with the card's occupancy where given (a CUDA
+    device), among the plans of `kind`. Raises where none fits."""
+    if grid is not None:
+        K, cs, S = grid
+        shape = grid_shape(M, L, state_bytes, K, cs, S)
+        _require(shape is not None and K * cs <= SM_COUNT and grid_body(shape[1]) == kind,
+                 f"grid={tuple(grid)} is not admitted for the {kind} body at M={M}, L={L}, "
+                 f"state bytes {state_bytes}: it needs K x cs <= {SM_COUNT} blocks, cs <= "
+                 f"{CLUSTER_MAX}, every block with a row and the shared memory within "
+                 f"{SMEM_LIMIT} bytes")
+        return (K, cs, S, *shape)
+    plan = grid_plan(M, L, state_bytes)
+    _require(plan is not None and grid_body(plan[4]) == kind,
+             f"the {kind} body cannot take M={M}, L={L} at {state_bytes} state bytes")
+    if windows:
+        plan = grid_plan(M, L, state_bytes, windows,
+                         lambda p: grid_occupancy(M, L, state_bytes, p))
+    return plan
 
 
 def chain_dp_large_cuda(
@@ -527,6 +739,7 @@ def chain_dp_large_cuda(
     state_dtype: str = "auto",
     cluster_size: int | None = None,
     force_body: str | None = None,
+    grid: tuple[int, int, int] | None = None,
 ):
     """K1's large route, for any monomer-set size (chain_dp_forward_cuda
     takes it when the shared route does not fit; it is called directly to
@@ -534,27 +747,48 @@ def chain_dp_large_cuda(
     contract and outputs. It runs the cluster body at L <= LANES_MAX_L and
     the tiled cluster body above, over clusters of `cluster_plan`'s size, or
     of `cluster_size` where given (checked against what shared memory
-    admits, on any device); where no cluster fits, the chunked body with its
-    device-memory scratch. `force_body` names one for the checks and the
-    A/B: "cluster" (L <= LANES_MAX_L), "cluster_tiled" (L > LANES_MAX_L) or
+    admits, on any device); past one cluster the grid routes, over
+    `grid_plan`'s K clusters of cs blocks (S blocks a row in the split
+    form), or `grid` = (K, cs, S)'s where given; where none fits the card,
+    the chunked body with its device-memory scratch. `force_body` names one
+    for the checks and the A/B: "cluster" (L <= LANES_MAX_L),
+    "cluster_tiled" (L > LANES_MAX_L), "grid", "grid_tiled", "split" or
     "large" (the chunked body); one that cannot take the set raises. A
-    cluster the card cannot schedule raises; it never falls back."""
+    cluster the card cannot schedule, or a grid plan whose K clusters the
+    card cannot run at once, raises; it never falls back. The grid routes
+    wait for their launches and raise where a read of another cluster's
+    chain max ran out of time (csrc/chain_dp_grid.cuh)."""
     dt = _state_dtype(state_dtype, windows, mono, ins, dele, mismatch, match)
     B, W = windows.shape
     M, L = mono.shape[-2], mono.shape[-1]
+    sb = dt.itemsize
     _require(force_body in (None,) + LARGE_BODIES,
              f"the large route runs {', '.join(LARGE_BODIES)}, not {force_body!r}")
-    _require(force_body != "cluster" or L <= LANES_MAX_L,
-             f"the cluster body takes L <= {LANES_MAX_L}, not {L}")
-    _require(force_body != "cluster_tiled" or L > LANES_MAX_L,
-             f"the tiled cluster body takes L > {LANES_MAX_L}, not {L}")
+    short = force_body in ("cluster", "grid")  # the lanes row step's bodies
+    _require(force_body in (None, "large") or (L <= LANES_MAX_L) == short,
+             f"the {force_body} body takes L {'<=' if short else '>'} {LANES_MAX_L}, not {L}")
     _require(force_body != "large" or cluster_size is None,
              "the chunked body takes no cluster_size")
+    _require(cluster_size is None or grid is None, "cluster_size and grid exclude each other")
+    kind = force_body
+    if kind is None:
+        if grid is not None:
+            shape = grid_shape(M, L, sb, *grid)
+            kind = grid_body(shape[1]) if shape else "grid"  # `_grid_launch` refuses None
+        elif cluster_size is not None:
+            kind = "cluster" if L <= LANES_MAX_L else "cluster_tiled"
+        else:
+            kind = _large_kind(M, L, sb)
+    _require(grid is None or kind in GRID_BODIES, f"the {kind} body takes no grid")
+    _require(cluster_size is None or kind in ("cluster", "cluster_tiled"),
+             f"the {kind} body takes no cluster_size")
     plan = None
-    if force_body != "large":
-        plan = _cluster_launch(M, L, dt.itemsize, cluster_size, B if windows.is_cuda else None)
-        _require(plan is not None or force_body is None,
-                 f"the {force_body} body cannot take M={M}, L={L} at {dt.itemsize} state bytes")
+    if kind in ("cluster", "cluster_tiled"):
+        plan = _cluster_launch(M, L, sb, cluster_size, B if windows.is_cuda else None)
+        _require(plan is not None,
+                 f"the {kind} body cannot take M={M}, L={L} at {sb} state bytes")
+    elif kind in GRID_BODIES:
+        plan = _grid_launch(M, L, sb, kind, grid, B if windows.is_cuda else None)
     if not windows.is_cuda:
         return plain.chain_dp_forward(
             windows, window_lens, mono, mono_lens, ins=ins, dele=dele, mismatch=mismatch,
@@ -563,27 +797,31 @@ def chain_dp_large_cuda(
     windows, mono, mono_lens, dp0, end, spend = _prologue(
         windows, window_lens, mono, mono_lens, dele, mismatch, match, dt)
     lib = library()
-    if plan is not None:
+    if kind in ("cluster", "cluster_tiled"):
         cs, R, form, threads, smem = plan
-        tiled = form == "tiled"
-        kind = "cluster_tiled" if tiled else "cluster"
         if B > 0:
-            if cluster_occupancy(M, L, dt.itemsize, cs, B) == 0:
+            if cluster_occupancy(M, L, sb, cs, B) == 0:
                 raise RuntimeError(
                     f"chain_dp {kind} body cannot be scheduled: cudaOccupancyMaxActiveClusters "
                     f"is 0 for M={M}, L={L}, cluster_size={cs} ({R} rows, {threads} threads "
                     f"and {smem} bytes of shared memory a block)")
             fn, lead = ((lib.sd_chain_dp_cluster_tiled,
-                         (dt.itemsize, cs, R, *tiled_layout(R, L)[:2])) if tiled else
-                        (lib.sd_chain_dp_cluster, (dt.itemsize, cs, R)))
+                         (sb, cs, R, *tiled_layout(R, L)[:2])) if form == "tiled" else
+                        (lib.sd_chain_dp_cluster, (sb, cs, R)))
             check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, 0, B, (), ins,
                           dele, mismatch, match), f"chain_dp {kind} kernel")
             count_launch(chain_dp_large_cuda, _counter(dt, kind, L))
         return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
+    if kind in GRID_BODIES:
+        if B > 0:
+            _grid_run(lib, kind, plan, dt, windows, mono, mono_lens, dp0, end, spend, ins, dele,
+                      mismatch, match)
+        return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
+    check_monomer_set(M, L)
     group = _groups(B, M, L, dt)
     sp = torch.empty((group, M, L), dtype=dt, device=windows.device)
     for b0 in range(0, B, group):  # one launch per group; sp is reused in stream order
-        check(_launch(lib.sd_chain_dp, (1, dt.itemsize), windows, mono, mono_lens, dp0, end,
+        check(_launch(lib.sd_chain_dp, (1, sb), windows, mono, mono_lens, dp0, end,
                       spend, b0, min(B, b0 + group), (sp.data_ptr(),), ins, dele, mismatch,
                       match),
               "chain_dp large-route kernel")
@@ -591,7 +829,45 @@ def chain_dp_large_cuda(
     return _epilogue(end, spend, window_lens, max_blocks or W, return_debug)
 
 
-chain_dp_large_cuda.launches = 0  # the chunked body (no cluster fits)
+def _grid_run(lib, kind, plan, dt, windows, mono, mono_lens, dp0, end, spend, ins, dele,
+              mismatch, match):
+    """The grid routes' launches: at most floor(active / K) windows a
+    launch, so that every cluster of a launch runs at once on an idle card
+    (raises where even one window's K clusters cannot), one launch after
+    another in stream order; then a wait for the fault word."""
+    B = windows.shape[0]
+    M, L = mono.shape[-2], mono.shape[-1]
+    sb = dt.itemsize
+    K, cs, S, R, form, threads, smem = plan
+    active = grid_occupancy(M, L, sb, plan)
+    if active < K:
+        raise RuntimeError(
+            f"chain_dp {kind} body cannot run: its {K} clusters of {cs} blocks a window cannot "
+            f"all be resident at once (cudaOccupancyMaxActiveClusters is {active} for M={M}, "
+            f"L={L}, {R} rows, {threads} threads and {smem} bytes of shared memory a block)")
+    per = active // K
+    if form in ("tiled", "split"):
+        fn = lib.sd_chain_dp_grid_tiled
+        lead = (sb, K, cs, R, *(tiled_layout(R, L) if S == 1 else split_layout(L, S))[:2], S)
+    else:
+        fn, lead = lib.sd_chain_dp_grid, (sb, K, cs, R)
+    groups = -(-B // per)
+    slots = torch.zeros((groups, 2 * min(B, per) * K), dtype=torch.int64, device=windows.device)
+    fault = torch.zeros((1,), dtype=torch.int32, device=windows.device)
+    for g in range(groups):
+        b0, b1 = g * per, min(B, (g + 1) * per)
+        check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1, (), ins,
+                      dele, mismatch, match, (slots[g].data_ptr(), fault.data_ptr())),
+              f"chain_dp {kind} kernel")
+        count_launch(chain_dp_large_cuda, _counter(dt, kind, L))
+    if int(fault.item()):
+        raise RuntimeError(
+            f"chain_dp {kind} body: a read of another cluster's chain max ran out of time "
+            f"(K={K} clusters of {cs} blocks a window, {per} windows a launch): the clusters "
+            "of a window did not all run at once; the results are void")
+
+
+chain_dp_large_cuda.launches = 0  # the chunked body (past the card's shared memory)
 chain_dp_large_cuda.launches_int16 = 0
 chain_dp_large_cuda.launches_cluster = 0  # the cluster body (L <= 256)
 chain_dp_large_cuda.launches_cluster_int16 = 0
@@ -599,6 +875,14 @@ chain_dp_large_cuda.launches_cluster_long = 0  # the cluster body at 256 < L <= 
 chain_dp_large_cuda.launches_cluster_long_int16 = 0
 chain_dp_large_cuda.launches_cluster_tiled = 0  # the tiled cluster body (L > 512)
 chain_dp_large_cuda.launches_cluster_tiled_int16 = 0
+chain_dp_large_cuda.launches_grid = 0  # the grid route, rows over K clusters (L <= 256)
+chain_dp_large_cuda.launches_grid_int16 = 0
+chain_dp_large_cuda.launches_grid_long = 0  # the grid route at 256 < L <= 512
+chain_dp_large_cuda.launches_grid_long_int16 = 0
+chain_dp_large_cuda.launches_grid_tiled = 0  # the grid route past 512, rows over K clusters
+chain_dp_large_cuda.launches_grid_tiled_int16 = 0
+chain_dp_large_cuda.launches_split = 0  # the grid route's split form, a row over S blocks
+chain_dp_large_cuda.launches_split_int16 = 0
 
 
 def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: bool,

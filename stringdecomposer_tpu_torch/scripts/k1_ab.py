@@ -52,7 +52,23 @@ C = ceil(L / 32 G)), each with its digest against the rule's, then the
 golden windows x the DXZ1 trimers and their 150 variants on the tiled
 cluster body at every cluster size the shared memory admits
 (`force_body="cluster_tiled"`), with its cudaOccupancyMaxActiveClusters, against
-the rule's body. With `--e2e`, the script instead runs the
+the rule's body. With `--grid` (a checkout that has the grid routes), the
+sets past one cluster of 16 blocks at full width, each on the route the
+rule gives it and on the chunked body (`force_body="large"`), in turns,
+with min, median and max and the digests held equal, beside chip_smoke's
+bound and one call of the plain twin: the golden windows x
+2,400 DXZ1 monomer variants (workloads.joined_variants, k = 1, seed 0; L =
+192, the grid route), x 1,400 trimer variants in int16 (k = 3; L = 528)
+and x 256 DXZ1 HOR-unit variants (k = 12; L = 2,056; the grid route past
+512), and the windows of a read of two copies of a unit of 200 DXZ1
+monomers x the unit (~34 kbp, the split form); then the grid route at
+every K of cs = 1, 2, 4, 8 and 16 on the 2,400 variants and at a few on
+the HOR-unit variants (`grid=`), each with its occupancy and
+`grid_plan`'s cost, so that the plan's model is held to the card; then the
+exchange between clusters alone: the golden windows x the 264-monomer
+library on the cluster body at cs = 8 and on the grid route at K x cs = 1
+x 8, 2 x 4, 4 x 2 and 8 x 1 (33 rows a block each), whose differences
+over the 5,500 positions are what the exchange costs. With `--e2e`, the script instead runs the
 port end to end on the golden read against DXZ1 (`pipeline.run`,
 `--second-best`, on the card), plain and with `ed_thr=10` (run (i)), the
 golden read against the DXZ1 trimers and against the DXZ1 HOR unit, and the
@@ -78,6 +94,7 @@ from ab_common import DATA, checkout, e2e, ms
 REPS = 10
 LARGE_REPS = 5
 SWEEP_REPS = 3
+GRID_REPS = 3
 E2E_REPS = 5
 E2E_REPS_III = 3
 
@@ -313,6 +330,116 @@ def tiled_sweep(torch, k1, fasta, oracle, chain_dp, workloads, dev, cap):
     return out
 
 
+def _once(torch, fn) -> float:
+    """One call of fn timed with CUDA events (ms), no warm-up."""
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def k1_bound_ms(a, state_bytes, max_blocks) -> float:
+    """chip_smoke.py's K1 bound at these inputs (windows, mono, lens and
+    column 0 read once, end, spend and the walk's records written once; 15
+    int32 operations a cell a position, 16.73 T/s; 3.35 TB/s)."""
+    win, _, mono, lens = a
+    B, W = win.shape
+    M, L = mono.shape[-2:]
+    cells = int(lens.clamp(0, L).sum()) * (B if lens.dim() == 1 else 1)
+    nbytes = (B * W + mono.numel() + 4 * lens.numel() + B * M * L * state_bytes
+              + 2 * B * W * M * state_bytes + B * (16 * max_blocks + 4))
+    return 1e3 * max(nbytes / 3.35e12, (W - 1) * cells * 15 / (64 * 132 * 1.98e9))
+
+
+def grid_shapes(fasta, oracle, chain_dp, workloads):
+    """(name, windows, window lens, mono, mono lens, state) of `--grid`."""
+    import numpy as np
+
+    dxz1 = fasta.load_fasta(str(DATA / "DXZ1_star_monomers.fa"))
+    codes = fasta.encode(fasta.load_fasta(str(DATA / "read.fa"))[0].seq)
+    wins = [codes[o : o + n] for o, n in oracle.make_windows(len(codes), 5000, 500)]
+    wb, wl = chain_dp.build_window_batch(wins, 5500)
+    out = []
+    for k, n, dt in ((1, 2400, "int32"), (3, 1400, "int16"), (12, 256, "int32")):
+        monos = fasta.add_reverse_complement(
+            workloads.joined_variants(dxz1, k, n, np.random.default_rng(0)))
+        mono, lens = fasta.pad_monomers(monos, pad_to=(max(len(m.seq) for m in monos) + 7) // 8 * 8)
+        out.append((f"golden x {n} k={k} variants M={n} L={mono.shape[1]} {dt}", wb, wl, mono,
+                    lens, dt))
+    unit = workloads.joined_set(dxz1, 200)[0]
+    r = np.random.default_rng(0)
+    seq = np.array(list(unit.seq * 2))
+    hit = r.choice(len(seq), len(seq) // 100, replace=False)
+    seq[hit] = [("ACGT".replace(c, ""))[int(r.integers(3))] for c in seq[hit]]
+    codes = fasta.encode("".join(seq))
+    wins = [codes[o : o + n] for o, n in oracle.make_windows(len(codes), 5000, 500)]
+    wb2, wl2 = chain_dp.build_window_batch(wins, 5500)
+    mono, lens = fasta.pad_monomers(fasta.add_reverse_complement([unit]),
+                                    pad_to=(len(unit.seq) + 7) // 8 * 8)
+    out.append((f"34 kbp unit x its {len(wb2)} windows M=2 L={mono.shape[1]} int32", wb2, wl2,
+                mono, lens, "int32"))
+    return out
+
+
+def grid_sweep(torch, k1, fasta, oracle, chain_dp, workloads, dev, cap):
+    """`--grid`: each set past one cluster on its route and on the chunked
+    body in turns; the grid route at every K of a few cluster sizes; the
+    exchange alone on the library."""
+    out = {"routes": {}, "k_sweep": {}, "exchange": {}}
+    sets = grid_shapes(fasta, oracle, chain_dp, workloads)
+    for name, *arrays, dt in sets:
+        a = [torch.from_numpy(x).to(dev) for x in arrays]
+        B, (M, L) = a[0].shape[0], a[2].shape
+        sb = 2 if dt == "int16" else 4
+        kw = dict(max_blocks=cap, state_dtype=dt)
+        plan = k1.grid_plan(M, L, sb, B, lambda p: k1.grid_occupancy(M, L, sb, p))
+        row = {"body": k1.body(M, L, sb), "plan": plan[:3], "route_ms": [], "chunked_ms": [],
+               "bound_ms": k1_bound_ms(a, sb, cap)}
+        want = digest(*k1.chain_dp_forward_cuda(*a, **kw))
+        row["plain_ms"] = _once(torch, lambda: chain_dp.chain_dp_forward(*a, **kw))
+        row["digest_equal"] = digest(*k1.chain_dp_large_cuda(*a, force_body="large", **kw)) == want
+        for _ in range(2):  # route, chunked, route, chunked
+            row["route_ms"] += ms(torch, lambda: k1.chain_dp_forward_cuda(*a, **kw), GRID_REPS)
+            row["chunked_ms"] += ms(torch, lambda: k1.chain_dp_large_cuda(
+                *a, force_body="large", **kw), 1)
+        out["routes"][name] = row
+        if not name.startswith(("golden x 2400", "golden x 256")):
+            continue
+        rows = {}
+        sizes = (1, 2, 4, 8, 16) if L <= k1.LANES_MAX_L else (1, 4, 16)
+        for cs in sizes:
+            Ks = [K for K in range(2, k1.SM_COUNT // cs + 1)
+                  if k1.grid_shape(M, L, sb, K, cs) is not None]
+            if L > k1.LANES_MAX_L:
+                Ks = Ks[:: max(1, len(Ks) // 4)]
+            for K in Ks:
+                p = (K, cs, 1, *k1.grid_shape(M, L, sb, K, cs))
+                occ = k1.grid_occupancy(M, L, sb, p)
+                r = {"R": p[3], "form": p[4], "threads": p[5], "smem": p[6], "occupancy": occ,
+                     "cost": k1.grid_cost(p, L, B, occ)[0]}
+                if occ >= K:
+                    r["digest_equal"] = digest(*k1.chain_dp_large_cuda(
+                        *a, grid=p[:3], **kw)) == want
+                    r["ms"] = ms(torch, lambda: k1.chain_dp_large_cuda(*a, grid=p[:3], **kw), 2)
+                rows[f"K={K} cs={cs}"] = r
+        out["k_sweep"][name] = rows
+    lib = large_shapes(fasta, oracle, chain_dp, workloads)[0]
+    a = [torch.from_numpy(x).to(dev) for x in lib[1:]]
+    want = digest(*k1.chain_dp_large_cuda(*a, max_blocks=cap))
+    row = {"cluster cs=8": ms(torch, lambda: k1.chain_dp_large_cuda(
+        *a, cluster_size=8, max_blocks=cap), GRID_REPS)}
+    for K, cs in ((1, 8), (2, 4), (4, 2), (8, 1)):
+        row[f"grid K={K} cs={cs} digest_equal"] = digest(*k1.chain_dp_large_cuda(
+            *a, grid=(K, cs, 1), max_blocks=cap)) == want
+        row[f"grid K={K} cs={cs}"] = ms(torch, lambda: k1.chain_dp_large_cuda(
+            *a, grid=(K, cs, 1), max_blocks=cap), GRID_REPS)
+    out["exchange"][lib[0]] = row
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", help="directory holding the checkout's stringdecomposer_tpu_torch")
@@ -327,6 +454,8 @@ def main() -> int:
                       help="time the large route's shapes and L = 360 at every cluster size")
     what.add_argument("--tiled", action="store_true",
                       help="time the tiled bodies at every warps a row and the trimers on clusters")
+    what.add_argument("--grid", action="store_true",
+                      help="time the grid routes against the chunked body, and at every K")
     what.add_argument("--e2e", action="store_true",
                       help="time the golden run, run (i) and run (iii) end to end instead")
     args = ap.parse_args()
@@ -358,6 +487,10 @@ def main() -> int:
         return 0
     if args.tiled:
         res["tiled"] = tiled_sweep(torch, k1, fasta, oracle, chain_dp, workloads, dev, cap)
+        print(json.dumps(res))
+        return 0
+    if args.grid:
+        res["grid"] = grid_sweep(torch, k1, fasta, oracle, chain_dp, workloads, dev, cap)
         print(json.dumps(res))
         return 0
     res["shapes"] = {}

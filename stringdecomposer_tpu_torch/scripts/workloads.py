@@ -64,7 +64,11 @@ def joined_variants(records, k: int, n: int, rng):
     rows. For n = 150 a set too large for K1's shared route in int32 and
     int16: at k = 2 (L = 360) the large route's cluster body, at k = 3 (L =
     528) its tiled cluster body. k = 2 with numpy.random.default_rng(0) draws the
-    dimer variants chip_smoke has driven since its dimer cases began."""
+    dimer variants chip_smoke has driven since its dimer cases began. Past
+    one cluster of 16 blocks, K1's grid route: k = 1, n = 2,400 (monomer
+    variants, L = 192; the cluster body at int16) and k = 12, n = 256 (HOR-
+    unit variants, L = 2,056: its tiled form), chip_smoke's full-width runs
+    and `k1_ab.py --grid`'s, with k = 3, n = 1,400 in int16 (L = 528)."""
     units = joined_set(records, k)
     out = []
     for j in range(n // 2):

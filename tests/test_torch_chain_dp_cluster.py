@@ -168,7 +168,9 @@ def test_cluster_plan_invariants(sb):
     one row, at most 1,024 threads in whole warps (512 past L = 256, where a
     warp holds two rows in registers), shared memory within 232,448 bytes,
     at most 16 blocks; pure; `body` says "cluster" exactly where the shared
-    route does not fit and a plan exists."""
+    route does not fit and a plan exists, and past 16 blocks "grid" where
+    `grid_plan` finds K clusters on the card (M = 2,001-4,000 at L = 192 and
+    (5,000, 192)), else "large"."""
     assert chain_dp_cuda.SMEM_LIMIT == 232_448 and chain_dp_cuda.CLUSTER_MAX == 16
     for L in (8, 40, 191, 192, 256, 257, 300, 360, 480, 512):
         for M in list(range(1, 300, 7)) + [1000, 1999, 2000, 2001, 2100, 2905, 2906, 4000]:
@@ -190,11 +192,17 @@ def test_cluster_plan_invariants(sb):
             if plan is not None:
                 assert plan[1:] == chain_dp_cuda.cluster_shape(M, L, sb, plan[0])
             large = chain_dp_cuda.route(M, L, sb) == "large"
-            assert (chain_dp_cuda.body(M, L, sb) == "cluster") == (large and plan is not None)
+            body = chain_dp_cuda.body(M, L, sb)
+            assert (body == "cluster") == (large and plan is not None)
+            if large and plan is None:
+                grid = chain_dp_cuda.grid_plan(M, L, sb) is not None
+                assert body == ("grid" if grid else "large")
     for M, L in ((264, 513), (24, 528), (5000, 192), (1400, 512)):
         plan = chain_dp_cuda.cluster_plan(M, L, sb)
         assert (plan is None) == (L <= 512)  # past 512: the tiled cluster body's plan
         assert plan is None or plan[2] == "tiled"
+        if plan is None:
+            assert chain_dp_cuda.body(M, L, sb) == "grid"
 
 
 def test_constants_match_the_kernel_source():

@@ -131,9 +131,10 @@ def test_sweep_lanes_matches_jax_on_fixtures(random_cases, idx):
 def test_kernel_body_rule():
     """The shared route runs the lanes body at L <= 512 and the tiled body
     above; the large route runs the cluster body at L <= 512 where a cluster
-    of up to 16 blocks holds the rows, the tiled cluster body above, else the
-    chunked body ("large"); int16's wider shared route takes the lanes body
-    too. A pure function of (M, L, state bytes)."""
+    of up to 16 blocks holds the rows, the tiled cluster body above, past 16
+    blocks the grid route ("grid": 1,400 int16 rows of 512 bp, 2,100 int32
+    rows of 192 bp); int16's wider shared route takes the lanes body too. A
+    pure function of (M, L, state bytes)."""
     body = chain_dp_cuda.body
     assert chain_dp_cuda.LANES_MAX_L == 512
     for M, L, sb, want in ((24, 192, 4, "lanes"), (1, 1, 4, "lanes"), (32, 256, 4, "lanes"),
@@ -146,10 +147,10 @@ def test_kernel_body_rule():
                            (90, 320, 4, "cluster"), (264, 360, 4, "cluster"),
                            (150, 360, 4, "cluster"), (150, 360, 2, "cluster"),
                            (51, 512, 4, "cluster"), (150, 528, 4, "cluster_tiled"),
-                           (1400, 512, 2, "large"), (2000, 192, 4, "cluster"),
-                           (2100, 192, 4, "large")):
+                           (1400, 512, 2, "grid"), (2000, 192, 4, "cluster"),
+                           (2100, 192, 4, "grid")):
         assert body(M, L, sb) == want, (M, L, sb)
-        assert (want in ("cluster", "cluster_tiled", "large")) == \
+        assert (want in ("cluster", "cluster_tiled", "grid")) == \
             (chain_dp_cuda.route(M, L, sb) == "large")
         assert body(M, L, sb) == body(M, L, sb)
 

@@ -241,13 +241,14 @@ def test_cluster_plan_waves_at_the_dimer_variants():
 
 def test_cluster_size_past_512_is_refused(dimer_case):
     """Past L = 512 a set takes the tiled bodies (24 rows of 520 bp the tiled
-    body, 150 the tiled cluster body); a cluster size the shared memory does
-    not admit there (24 rows of 26,000 bp in 2 blocks) is refused on any
-    device, never run on another body."""
+    body, 150 the tiled cluster body; 24 rows of 26,000 bp, past one block
+    each, the grid route's split form); a cluster size the shared memory
+    does not admit there (24 rows of 26,000 bp in 2 blocks) is refused on
+    any device, never run on another body."""
     args, kw, _ = dimer_case
     assert chain_dp_cuda.body(24, 520) == "tiled" and chain_dp_cuda.body(150, 520) == "cluster_tiled"
     mono = torch.nn.functional.pad(args[2], (0, 26000 - 360), value=5)  # L = 26,000
-    assert chain_dp_cuda.body(24, 26000) == "large"
+    assert chain_dp_cuda.body(24, 26000) == "split"
     with pytest.raises(ValueError, match="not admitted"):
         chain_dp_cuda.chain_dp_large_cuda(args[0], args[1], mono, args[3], cluster_size=2, **kw)
 

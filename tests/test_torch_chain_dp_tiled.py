@@ -209,10 +209,10 @@ def _counters():
 
 
 @pytest.mark.parametrize("body, M, L", [("tiled", 24, 528), ("tiled", 2, 2056),
-                                        ("cluster_tiled", 25, 1000), ("chunked", 1, 25800)])
+                                        ("cluster_tiled", 25, 1000), ("split", 1, 25800)])
 def test_cpu_dispatch_of_long_rows_matches_jax(body, M, L):
     """The port's CPU dispatch of sets the rule sends to each body past 512
-    (the chunked body keeps a row the tiled form cannot hold in one block;
+    (the split form takes a row the tiled form cannot hold in one block;
     a shared-route set whose padded rows do not fit one block takes the
     tiled cluster body) equals the JAX package, in int32 and int16 where
     admitted, launching nothing; `force_body=` names the same body."""
@@ -268,23 +268,26 @@ def test_body_argument_is_checked():
     (2, 2056, 2, True, "tiled"), (150, 528, 4, False, "cluster_tiled"),
     (150, 528, 2, False, "cluster_tiled"), (2, 17136, 4, False, "cluster_tiled"),
     (2, 17136, 2, True, "tiled"), (25, 1000, 4, True, "cluster_tiled"),
-    (1, 25000, 4, True, "tiled"), (1, 25800, 4, True, "chunked"), (2, 26000, 4, False, "large"),
-    (800, 528, 4, False, "large"), (1400, 528, 2, False, "large"),
+    (1, 25000, 4, True, "tiled"), (1, 25800, 4, True, "split"), (2, 26000, 4, False, "split"),
+    (800, 528, 4, False, "grid_tiled"), (1400, 528, 2, False, "grid_tiled"),
     (688, 528, 4, False, "cluster_tiled"), (1100, 528, 2, False, "cluster_tiled"),
 ])
 def test_body_rule_past_512(M, L, sb, shared, want):
     """Past L = 512 the shared route runs the tiled body where its form fits
     one block; else the tiled cluster body where a cluster of up to 16
     blocks holds the rows (the large route, and shared-route sets whose
-    padded rows do not fit one block, M = 25 at L = 1,000); the chunked body
-    keeps the rest: a row the tiled form cannot hold in one block (M = 1, L
-    = 25,800 on the shared route; 26,000 on the large one), more rows than
-    16 blocks hold (rows of 528 bp: 688 int32 rows fit, 800 do not; 1,100
-    int16 rows fit, 1,400 do not)."""
+    padded rows do not fit one block, M = 25 at L = 1,000); past that the
+    grid routes: a row the tiled form cannot hold in one block goes to the
+    split form (M = 1, L = 25,800 on the shared route; 26,000 on the large
+    one), more rows than 16 blocks hold to the grid route's tiled form (rows
+    of 528 bp: 688 int32 rows fit a cluster, 800 do not; 1,100 int16 rows
+    fit, 1,400 do not)."""
     assert chain_dp_cuda.body(M, L, sb) == want
     assert (chain_dp_cuda.route(M, L, sb) == "shared") == shared
     plan = chain_dp_cuda.cluster_plan(M, L, sb)
-    assert (plan is None) == (want in ("chunked", "large"))
+    assert (plan is None) == (want in ("grid_tiled", "split", "chunked", "large"))
+    if want in ("grid_tiled", "split"):
+        assert chain_dp_cuda.grid_body(chain_dp_cuda.grid_plan(M, L, sb)[4]) == want
     if plan is not None:
         assert plan[2] == "tiled" and plan[1:] == chain_dp_cuda.cluster_shape(M, L, sb, plan[0])
 
