@@ -31,8 +31,10 @@ HW in segments; their wide routes on a 40 kbp NW distance (K4's in mask
 mode) and a 17 kbp HW query in 20 kbp and in 1 Mbp (K6's in segments),
 each checked against the other route at its shapes), checks P (the int16 probe) and K1's
 int16 state on both routes against the int16 twin and the int32 kernel and
-drives that path, checks K1's ablation kernels (A) against their plain
-versions and runs the ablation bench (at an eighth of its positions), then
+drives that path, times P's kernel alone against the PyTorch call of the
+same function, checks the ablation kernels of K1's lanes and cluster
+bodies (A) against their plain versions, runs the ablation bench (at an
+eighth of its positions) and holds its base to K1's production kernel, then
 times each kernel beside its plain version at the main path's shapes and
 prints each one's bound. Phase `modes` drives the CLI's one-GPU run modes
 on the golden read (--stream-reads, --resume, --serve with --precompile as
@@ -306,6 +308,7 @@ def main(only: list[str]) -> int:
     kind = torch.cuda.get_device_name(0)
     timing: dict[str, tuple[float, float]] = {}
     bounds: dict[str, tuple[float, str]] = {}
+    library_ms: dict[str, float] = {}  # kernel -> ms of one PyTorch call of the same function
     launches: dict[str, int] = {}
     # kernel -> (wrapper, counter attribute)
     counters = {"chain_dp": (chain_dp_forward_cuda, "launches"),
@@ -1074,7 +1077,7 @@ def main(only: list[str]) -> int:
         `chain_dp_grid_long`, 2,500 int16 `chain_dp_grid_long_int16`); the
         split form in int16 at grid=(1, 4, 4) (the int16 range check admits
         no row past one block, so no set is routed there); and the chunked
-        body itself under force_body (A's base) at the first three shapes
+        body itself under force_body at the first three shapes
         and at 20 int16 rows of 544 bp (`chain_dp`, `chain_dp_large`,
         `chain_dp_large_int16`, `chain_dp_int16`). Then other grid plans
         (K, cs, S) and per-window rows (of length 0, and ending before a
@@ -1971,10 +1974,50 @@ def main(only: list[str]) -> int:
         k, got = timed(lambda: int16_probe_cuda(edge), 20)
         p, want = timed(lambda: int16_probe_plain(edge), 20)
         smoke.same("int16_probe", "P timed", got, want)
-        timing["int16_probe"] = (statistics.median(k), statistics.median(p))
+        # the device's time alone: the kernels' own times in a profiler trace
+        # (CUPTI) over back-to-back calls, P's one kernel against its plain
+        # version's (int16_probe_plain: roll and maximum) and against the same
+        # PyTorch expression called directly (the library column); and CUDA
+        # events around the same loop, where the host's launch rate can hold
+        # the device back. The kernels line gives P's row these device times
+        # (ms, plain_ms, library_ms); the call times above are printed only.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        n = 200
+
+        def device_ms(fn) -> tuple[float, list, float]:
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA and e.count]
+            # each kernel's mean over the launches the trace kept (it may drop
+            # some), summed over the call's kernels (each launches once a call)
+            per = [(getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0)) / e.count / 1e3 for e in rows]
+            loop, _ = timed(lambda: [fn() for _ in range(n)], 3)
+            return (sum(per), [(e.key[:40], e.count, ms) for e, ms in zip(rows, per)],
+                    statistics.median(loop) / n)
+
+        kd, krows, kloop = device_ms(lambda: int16_probe_cuda(edge))
+        pd, prows, ploop = device_ms(lambda: int16_probe_plain(edge))
+        ld, lrows, lloop = device_ms(lambda: torch.maximum(torch.roll(edge, 1, 1), edge))
+        if min(kd, pd, ld) <= 0:
+            raise AssertionError(f"P: the profiler shows no device time ({kd}, {pd}, {ld} ms)")
+        timing["int16_probe"] = (kd, pd)
+        library_ms["int16_probe"] = ld
         bounds["int16_probe"] = bound(2 * edge.numel() * 2, OPS_PER_CELL["scan"] * edge.numel())
-        print(f"P [8, 256] int16: kernel {spread(k)}; plain {spread(p)}; "
-              "int16_state_supported('cuda') is True")
+        print(f"P [8, 256] int16, a call (CUDA events around one call): kernel {spread(k)}; "
+              f"plain {spread(p)}; int16_state_supported('cuda') is True")
+        print(f"P device time a call (profiler kernel time, {n} back-to-back calls): kernel "
+              f"{kd:.5f} ms {krows}; plain (int16_probe_plain) {pd:.5f} ms {prows}; "
+              f"torch.maximum(torch.roll(v, 1, 1), v) {ld:.5f} ms {lrows}; events around the "
+              f"{n}-call loop, a call: kernel {kloop:.5f} ms, plain {ploop:.5f} ms, PyTorch "
+              f"{lloop:.5f} ms; P is {'no slower' if kd <= ld else 'SLOWER'} than the PyTorch call")
 
     def int16_shapes():
         """The timed shapes: the golden windows x DXZ1 (M = 24), x the
@@ -2065,15 +2108,38 @@ def main(only: list[str]) -> int:
             print(line)
 
     def ablate_run():
+        """A on the lanes and cluster bodies: every variant bit-equal to its
+        plain version at the bodies' bench forms on the bench's 168 windows x
+        64 positions (the plain version timed once, the kernel 5 times: each
+        `ablate_*` row's ms, plain_ms and bound_ms on the kernels line are at
+        this shape), the bench at an eighth of its positions through drive(),
+        and at that shape base bit-equal to K1's production output of the same
+        body, from K1's own column 0 (the plain versions are not run there,
+        for the time limit)."""
         from stringdecomposer_tpu_torch.scripts import ablate_chain as ab
 
-        err = ab.check(list(VARIANTS), "cuda")
-        for v, e in err.items():
-            for large in (False, True):
+        Bc, Wc = ab.B_BENCH, 64
+        for shape, M, large in ab.BODIES:
+            inputs = ab.make_inputs(Bc, Wc, M, 1, dev)
+            cs = ab.cluster_size(M, Bc, dev) if large else None
+            for v in VARIANTS:
                 name = f"ablate_{'large_' if large else ''}{v}"
-                smoke.max_err[name] = max(smoke.max_err[name], e)
-        print(f"ablation: every variant bit-equal to its plain version on both routes at "
-              f"B=5 x W=300, M=40 (max abs errors {err})")
+                p, want = timed(lambda: k1_plain.chain_dp_ablate(*inputs, v, **ab.SCORING,
+                                                                 cluster_size=cs), 0)
+                out = tuple(torch.zeros((Bc, Wc, M), dtype=torch.int32, device=dev)
+                            for _ in range(2))
+                k, got = timed(lambda: chain_dp_ablate_cuda(*inputs, v, large, **ab.SCORING,
+                                                            out=out, cluster_size=cs), 5)
+                smoke.same(name, f"ablation {v}, {shape} ({Bc} x {Wc}): end vs its plain version",
+                           got[0], want[0])
+                smoke.same(name, f"ablation {v}, {shape} ({Bc} x {Wc}): spend vs its plain "
+                           "version", got[1], want[1])
+                timing[name] = (statistics.median(k), p[0])
+                bounds[name] = k1_bound(inputs[0], inputs[1], inputs[2], 4, variant=v)
+                print(f"ablation {v}, {shape} ({Bc} x {Wc}{f', cs = {cs}' if large else ''}): "
+                      f"bit-equal to its plain version; kernel {spread(k)}, plain {p[0]:.3f} ms "
+                      f"(1 run), bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+                del want, got, out
         res = {}
         # the bench's shapes at an eighth of their positions, for the time
         # limit; the bench alone runs them whole
@@ -2085,19 +2151,31 @@ def main(only: list[str]) -> int:
             raise AssertionError(f"ablation bench: kernels not launched: {bad}")
         launches.update({k: got[k] for k in ABLATE})
         for shape, B, W, M, large in shapes:
-            inputs = ab.make_inputs(B, W, M, 0, dev)
+            windows, mono, lens, _ = ab.make_inputs(B, W, M, 0, dev)
+            wl = torch.full((B,), W, dtype=torch.int32, device=dev)
+            dp0 = k1_plain.init_column(windows, *k1_plain.broadcast_monomers(mono, lens, B),
+                                       -1, -1, 1)
+            cs = ab.cluster_size(M, B, dev) if large else None
+            base = chain_dp_ablate_cuda(windows, mono, lens, dp0, "base", large, cluster_size=cs)
+            if large:
+                k1_out = chain_dp_large_cuda(windows, wl, mono, lens, max_blocks=1,
+                                             return_debug=True, force_body="cluster",
+                                             cluster_size=cs)[2]
+            else:
+                k1_out = chain_dp_forward_cuda(windows, wl, mono, lens, max_blocks=1,
+                                               return_debug=True, force_body="lanes")[2]
+            name = f"ablate_{'large_' if large else ''}base"
+            smoke.same(name, f"ablation base, {shape}: end vs K1's production kernel", base[0],
+                       k1_out[1])
+            smoke.same(name, f"ablation base, {shape}: spend vs K1's production kernel", base[1],
+                       k1_out[2])
+            del base, k1_out
+            print(f"ablation base, {shape} ({B} x {W}): bit-equal to K1's {shape} from its own "
+                  "column 0")
             for v in VARIANTS:
-                name = f"ablate_{'large_' if large else ''}{v}"
-                p, want = timed(lambda: k1_plain.chain_dp_ablate(*inputs, v), 0)
-                out = chain_dp_ablate_cuda(*inputs[:3], inputs[3].clone(), v, large)
-                smoke.same(name, f"ablation {v}, {shape} end", out[0], want[0])
-                smoke.same(name, f"ablation {v}, {shape} spend", out[1], want[1])
-                del out, want
-                timing[name] = (statistics.median(res[(shape, v)]), p[0])
-                bounds[name] = k1_bound(inputs[0], inputs[1], inputs[2], 4, variant=v)
-                print(f"ablation {v}, {shape}: kernel {spread(res[(shape, v)])}, plain "
-                      f"{p[0]:.3f} ms (1 run), bound {bounds[name][0]:.3f} ms ({bounds[name][1]}); "
-                      "outputs bit-equal")
+                bd = k1_bound(windows, mono, lens, 4, variant=v)
+                print(f"ablation {v}, {shape} ({B} x {W}): kernel {spread(res[(shape, v)])}, "
+                      f"bound {bd[0]:.3f} ms ({bd[1]})")
 
     def kernel_times():
         reads = load_fasta(os.path.join(DATA, "read.fa"))
@@ -3100,12 +3178,13 @@ def main(only: list[str]) -> int:
     meta += [(n, src + "chain_dp_tiled.cu", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")
              for n in ("chain_dp_grid_tiled", "chain_dp_grid_tiled_int16", "chain_dp_split",
                        "chain_dp_split_int16")]
-    meta += [(n, src + ("chain_dp.cuh" if n.endswith("_base") else "chain_dp_ablate.cu"),
+    meta += [(n, src + ("chain_dp_ablate.cu" if not n.endswith("_base") else
+                        "chain_dp_cluster.cuh" if "_large_" in n else "chain_dp_lanes.cuh"),
               "scripts/ablate_chain.py:31") for n in ABLATE]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": launches[n],
          "max_abs_err": smoke.max_err[n], "ms": timing[n][0], "plain_ms": timing[n][1],
-         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": None}
+         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": library_ms.get(n)}
         for n, s, r in meta]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -3,7 +3,7 @@
 //
 // K1 replaces stringdecomposer_tpu/ops/chain_dp_pallas.py::_dp_kernel; the
 // walk replaces the on-device stringdecomposer_tpu/ops/chain_dp.py::
-// block_walk. This file instantiates the production kernel (kBase) for both
+// block_walk. This file instantiates the chunked kernel body for both
 // routes and both state types: int32 (the default) and int16 (the explicit
 // state_dtype="int16", which halves the emitted bytes and the shared
 // route's column).
@@ -17,8 +17,8 @@
 //
 // The shared route at L <= 512 runs the lanes body (chain_dp_lanes.cu), the
 // large route there the cluster body (chain_dp_cluster.cu); sd_chain_dp
-// keeps the chunked body for both routes at L > 512, the large route past
-// 16 blocks' shared memory and the ablation's base.
+// keeps the chunked body for the sets no other body takes (the large route
+// past the whole card's shared memory) and for force_body.
 
 #include "chain_dp.cuh"
 
@@ -88,14 +88,13 @@ int launch_state(int state_bytes, const void* windows, const void* mono,
                  void* dp0, void* sp_scratch, void* end, void* spend, int B, int W, int M,
                  int L, int ins, int dele, int mismatch, int match, void* stream) {
   if (state_bytes == 4)
-    return launch_chain_dp<kLarge, int, kBase>(windows, mono, mono_bstride, mono_lens,
-                                               lens_bstride, dp0, sp_scratch, end, spend, B,
-                                               W, M, L, ins, dele, mismatch, match, stream);
+    return launch_chain_dp<kLarge, int>(windows, mono, mono_bstride, mono_lens, lens_bstride,
+                                        dp0, sp_scratch, end, spend, B, W, M, L, ins, dele,
+                                        mismatch, match, stream);
   if (state_bytes == 2)
-    return launch_chain_dp<kLarge, int16_t, kBase>(windows, mono, mono_bstride, mono_lens,
-                                                   lens_bstride, dp0, sp_scratch, end, spend,
-                                                   B, W, M, L, ins, dele, mismatch, match,
-                                                   stream);
+    return launch_chain_dp<kLarge, int16_t>(windows, mono, mono_bstride, mono_lens, lens_bstride,
+                                            dp0, sp_scratch, end, spend, B, W, M, L, ins, dele,
+                                            mismatch, match, stream);
   return (int)cudaErrorInvalidValue;
 }
 

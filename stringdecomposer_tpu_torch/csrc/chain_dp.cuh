@@ -42,11 +42,6 @@
 // and a start pointer (a read position < W) stays exact, and unless
 // (W + L) * max|score| < 2^13 - max|score|, so no real score reaches the
 // sentinel (at k == 0 a lower enter score would be stored as -2^13).
-//
-// kVariant selects a compile-time ablation of one cost centre
-// (csrc/chain_dp_ablate.cu, scripts/ablate_chain.py); production is kBase,
-// and every other variant's branch is `if constexpr`, so the production
-// instantiation carries none of them.
 
 #pragma once
 
@@ -56,15 +51,6 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-
-enum Variant : int {
-  kBase = 0,     // K1 itself
-  kNoChain = 1,  // chain = the row's own end cell at i-1: no cross-row max, no barriers
-  kLadder4 = 2,  // both warp scans stop after 4 doubling steps, no carry across chunks
-  kLadder2 = 3,  // ... after 2 doubling steps
-  kNoEmit = 4,   // only the last position's end / spend are written
-  kNoShift = 5,  // diag reads the cell's own previous value and pointer
-};
 
 template <typename T>
 struct StateNeg;
@@ -94,7 +80,7 @@ inline long long chain_dp_large_smem_bytes(int M) { return 2LL * M * 4; }
 // kLarge = false: the shared route, the column in shared memory (dp0 is
 // only read). kLarge = true: the large route, the scores updated in place in
 // dp0 and the pointers in sp_scratch (both [B, M, L] in device memory).
-template <bool kLarge, typename T, int kVariant>
+template <bool kLarge, typename T>
 __global__ void __launch_bounds__(1024)
 chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
                 int W,
@@ -108,11 +94,6 @@ chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
                 T* __restrict__ spend,  // [B, W, M]
                 int M, int L, int ins, int dele, int mismatch, int match) {
   constexpr int kNeg = StateNeg<T>::value;
-  constexpr bool kChain = kVariant != kNoChain;
-  constexpr bool kCarry = kVariant != kLadder4 && kVariant != kLadder2;
-  constexpr int kScan = kVariant == kLadder4 ? 16 : (kVariant == kLadder2 ? 4 : 32);
-  constexpr bool kEmitAll = kVariant != kNoEmit;
-  constexpr bool kShift = kVariant != kNoShift;
   extern __shared__ int smem[];
   const int ML = M * L;
   const int b = blockIdx.x;
@@ -156,22 +137,17 @@ chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
     lens[m] = n;
     const int e = n > 0 ? (int)dp0_b[m * L + n - 1] : kNeg;  // read before any update
     ends[m] = e;
-    if (kEmitAll || W == 1) {
-      end_b[m] = (T)e;
-      spend_b[m] = 0;
-    }
+    end_b[m] = (T)e;
+    spend_b[m] = 0;
   }
   __syncthreads();
 
   for (int i = 1; i < W; ++i) {
     const int rc = win[i];
     int chain = kNeg;
-    if constexpr (kChain) {
-      for (int m = lane; m < M; m += 32) chain = max(chain, ends[m]);
-      chain = warp_max(chain);
-      __syncthreads();  // every warp has read ends[] of column i-1
-    }
-    const bool emit = kEmitAll || i == W - 1;
+    for (int m = lane; m < M; m += 32) chain = max(chain, ends[m]);
+    chain = warp_max(chain);
+    __syncthreads();  // every warp has read ends[] of column i-1
     T* end_i = end_b + (long long)i * M;
     T* spend_i = spend_b + (long long)i * M;
     for (int m = warp; m < M; m += nwarps) {
@@ -179,14 +155,11 @@ chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
       if (n == 0) {
         if (lane == 0) {
           ends[m] = kNeg;
-          if (emit) {
-            end_i[m] = (T)kNeg;
-            spend_i[m] = 0;
-          }
+          end_i[m] = (T)kNeg;
+          spend_i[m] = 0;
         }
         continue;
       }
-      if constexpr (!kChain) chain = ends[m];  // only this warp writes ends[m]
       T* dpr = dp + m * L;
       T* spr = sp + m * L;
       const int8_t* mr = mc + m * L;
@@ -197,17 +170,14 @@ chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
         const bool valid = k < n;
         const int p = valid ? (int)dpr[k] : kNeg;
         const int ps = valid ? (int)spr[k] : 0;
-        int up_p = p, up_ps = ps;
-        if constexpr (kShift) {
-          up_p = __shfl_up_sync(kFull, p, 1);
-          up_ps = __shfl_up_sync(kFull, ps, 1);
-          if (lane == 0) {
-            up_p = old_dp;
-            up_ps = old_sp;
-          }
-          old_dp = __shfl_sync(kFull, p, 31);
-          old_sp = __shfl_sync(kFull, ps, 31);
+        int up_p = __shfl_up_sync(kFull, p, 1);
+        int up_ps = __shfl_up_sync(kFull, ps, 1);
+        if (lane == 0) {
+          up_p = old_dp;
+          up_ps = old_sp;
         }
+        old_dp = __shfl_sync(kFull, p, 31);
+        old_sp = __shfl_sync(kFull, ps, 31);
         const int mmv = (valid && mr[k] == rc) ? match : mismatch;
         const int kdel = k * dele;
         const int enter = chain + mmv + kdel;
@@ -216,17 +186,17 @@ chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
         const int t = max(enter, max(diag, insr)) - kdel;
         // prefix max of t along k: the folded deletion chain
         int tv = t;
-        for (int o = 1; o < kScan; o <<= 1) {
+        for (int o = 1; o < 32; o <<= 1) {
           const int u = __shfl_up_sync(kFull, tv, o);
           if (lane >= o) tv = max(tv, u);
         }
-        if (kCarry && c0 > 0) tv = max(tv, run_t);
+        if (c0 > 0) tv = max(tv, run_t);
         const int dpn = tv + kdel;
         // payload as if this cell explains dpn: ins (unguarded), diag, enter
         const int cs = dpn == p + ins ? ps : (dpn == diag ? up_ps : i);
         // pair prefix max: the later element wins only when strictly greater
         int pt = t, pc = cs;
-        for (int o = 1; o < kScan; o <<= 1) {
+        for (int o = 1; o < 32; o <<= 1) {
           const int ut = __shfl_up_sync(kFull, pt, o);
           const int uc = __shfl_up_sync(kFull, pc, o);
           if (lane >= o && !(pt > ut)) {
@@ -234,44 +204,40 @@ chain_dp_kernel(const int8_t* __restrict__ windows,  // [B, W]
             pc = uc;
           }
         }
-        if constexpr (kCarry) {
-          if (c0 > 0 && !(pt > run_t)) {
-            pt = run_t;
-            pc = run_sp;
-          }
-          run_t = __shfl_sync(kFull, pt, 31);
-          run_sp = __shfl_sync(kFull, pc, 31);
+        if (c0 > 0 && !(pt > run_t)) {
+          pt = run_t;
+          pc = run_sp;
         }
+        run_t = __shfl_sync(kFull, pt, 31);
+        run_sp = __shfl_sync(kFull, pc, 31);
         if (valid) {
           dpr[k] = (T)dpn;
           spr[k] = (T)pc;
         }
         if (k == n - 1) {
           ends[m] = dpn;
-          if (emit) {
-            end_i[m] = (T)dpn;
-            spend_i[m] = (T)pc;
-          }
+          end_i[m] = (T)dpn;
+          spend_i[m] = (T)pc;
         }
       }
     }
-    if constexpr (kChain) __syncthreads();  // column i complete before the next chain max
+    __syncthreads();  // column i complete before the next chain max
   }
 }
 
-template <bool kLarge, typename T, int kVariant>
+template <bool kLarge, typename T>
 int launch_chain_dp(const void* windows, const void* mono, long long mono_bstride,
                     const void* mono_lens, long long lens_bstride, void* dp0,
                     void* sp_scratch, void* end, void* spend, int B, int W, int M,
                     int L, int ins, int dele, int mismatch, int match, void* stream) {
   const long long smem =
       kLarge ? chain_dp_large_smem_bytes(M) : chain_dp_smem_bytes(M, L, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(chain_dp_kernel<kLarge, T, kVariant>,
+  cudaError_t err = cudaFuncSetAttribute(chain_dp_kernel<kLarge, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = 32 * (M < 32 ? M : 32);
-  chain_dp_kernel<kLarge, T, kVariant><<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
+  chain_dp_kernel<kLarge, T><<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
       (const int8_t*)windows, W, (const int8_t*)mono, mono_bstride, (const int*)mono_lens,
       lens_bstride, (T*)dp0, (T*)sp_scratch, (T*)end, (T*)spend, M, L, ins, dele, mismatch,
       match);

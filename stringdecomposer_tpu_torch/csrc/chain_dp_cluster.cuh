@@ -63,6 +63,12 @@
 // chain_dp_grid.cuh): a window's rows over K clusters, the parity buffers
 // holding the cluster's rows only, the chain max exchanged between the K
 // clusters through global memory after the cluster's own.
+// kVariant is one of A's ablations (chain_dp_variant.cuh; instantiated only
+// in chain_dp_ablate.cu, at <int, 6, kRowsDense, false>): nochain takes a
+// row's chain score from its own end cell (lanes_row) and drops the chain
+// max, the remote stores of the end scores and the per-position cluster
+// barrier (the start barrier stays); ladder4, ladder2, noemit and noshift
+// are the lanes body's, through lanes_row and the emit.
 
 #pragma once
 
@@ -106,18 +112,23 @@ __device__ __forceinline__ void cluster_sync() {
 
 // The cluster body's emit: the end score into ends[i & 1][m] of every block
 // of the cluster (`cur` is this block's shared address of it), the outputs
-// of the block's row r.
-template <typename T>
+// of the block's row r (nochain: no stores into the blocks; noemit: the
+// outputs only where `out`, at the last position).
+template <typename T, int kVariant = kBase>
 struct ClusterEmit {
   unsigned cur;
   int cs;
   T* end_i;
   T* spend_i;
   int r;
+  bool out = true;
   __device__ __forceinline__ void operator()(int e, int se) const {
-    for (int k = 0; k < cs; ++k) cluster_store(cluster_addr(cur, k), e);
-    end_i[r] = (T)e;
-    spend_i[r] = (T)se;
+    if constexpr (kVariant != kNoChain)
+      for (int k = 0; k < cs; ++k) cluster_store(cluster_addr(cur, k), e);
+    if (kVariant != kNoEmit || out) {
+      end_i[r] = (T)e;
+      spend_i[r] = (T)se;
+    }
   }
 };
 
@@ -136,7 +147,7 @@ inline long long grid_smem_bytes(int Me, int L, int R, int state_bytes) {
 // kGrid = false: the cluster body, a window on one cluster (gx, K unused).
 // kGrid = true: the grid route (chain_dp_grid.cuh), a window's rows over K
 // clusters; block r of cluster kc owns rows (kc * cs + r) * R .. + R - 1.
-template <typename T, int C, int kPath, bool kGrid>
+template <typename T, int C, int kPath, bool kGrid, int kVariant = kBase>
 __global__ void __launch_bounds__(lanes_max_threads<C, kPath>(), 1)
 chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
                         int W,
@@ -194,7 +205,7 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
     ends[m] = n > 0 ? (int)dp0_w[(long long)gm * L + n - 1] : kNeg;
     ends[Me + m] = kNeg;  // rows of length 0 keep kNeg in both buffers
   }
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+  for (int r = threadIdx.x; r < rows && (kVariant != kNoEmit || W == 1); r += blockDim.x) {
     const int n = min(max(lens_b[r], 0), L);
     end_i[r] = n > 0 ? dp0_b[(long long)r * L + n - 1] : (T)kNeg;
     spend_i[r] = 0;
@@ -255,10 +266,13 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
     const unsigned cur = ends_addr + 4u * (i & 1) * Me;  // ends[i & 1][lm0]
     end_i += M;
     spend_i += M;
+    const bool out = kVariant != kNoEmit || i == W - 1;  // end / spend written at i
     int chain = kNeg;
+    if constexpr (kVariant != kNoChain) {
 #pragma unroll 1
-    for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
-    chain = warp_max(chain);
+      for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
+      chain = warp_max(chain);
+    }
     if constexpr (kGrid) {
       if (gx_args.K > 1)
         chain = grid_chain(gx_args, chain, i, b, gridDim.x / (cs * gx_args.K), kc,
@@ -271,17 +285,19 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
         const int r = warp + p * nwarps;
         if (r >= rows) continue;
         if (n_reg[p] == 0) {
-          if (lane == 0) {
+          if (lane == 0 && out) {
             end_i[r] = (T)kNeg;
             spend_i[r] = 0;
           }
           continue;
         }
-        lanes_row<T, C>(q[p], s[p], [&](int c) {
-                          return ((codes[p][c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
-                        },
-                        lane, n_reg[p], i, chain, ins, dele, mismatch, match,
-                        ClusterEmit<T>{cur + 4u * r, cs, end_i, spend_i, r});
+        lanes_row<T, C, kVariant>(q[p], s[p], [&](int c) {
+                                    return ((codes[p][c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) ==
+                                           0;
+                                  },
+                                  lane, n_reg[p], i, chain, ins, dele, mismatch, match,
+                                  ClusterEmit<T, kVariant>{cur + 4u * r, cs, end_i, spend_i, r,
+                                                           out});
       }
     } else {
       int j = 0;
@@ -289,7 +305,7 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
         const int n = j < 32 ? __shfl_sync(kFull, n_own, j & 31)
                              : min(max(lens_b[r], 0), L);
         if (n == 0) {
-          if (lane == 0) {
+          if (lane == 0 && out) {
             end_i[r] = (T)kNeg;
             spend_i[r] = 0;
           }
@@ -306,9 +322,10 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
           s[0][c] = valid ? (int)sr[c * dx] : 0;
           if (valid && cr[c * dx] == rc) eq |= 1u << c;
         }
-        lanes_row<T, C>(q[0], s[0], [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain,
-                        ins, dele, mismatch, match,
-                        ClusterEmit<T>{cur + 4u * r, cs, end_i, spend_i, r});
+        lanes_row<T, C, kVariant>(q[0], s[0], [&](int c) { return (eq >> c) & 1u; }, lane, n, i,
+                                  chain, ins, dele, mismatch, match,
+                                  ClusterEmit<T, kVariant>{cur + 4u * r, cs, end_i, spend_i, r,
+                                                           out});
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if (k0 + c < n) {
@@ -318,19 +335,20 @@ chain_dp_cluster_kernel(const int8_t* __restrict__ windows,  // [B, W]
         }
       }
     }
-    cluster_sync();  // ends[i & 1] complete in every block before the next chain max
+    // ends[i & 1] complete in every block before the next chain max
+    if constexpr (kVariant != kNoChain) cluster_sync();
   }
 }
 
 // The launch of one instance (kGrid: B windows of gx.K clusters each), or
 // with `max_clusters` given, only cudaOccupancyMaxActiveClusters for it
 // (nothing is launched).
-template <typename T, int C, int kPath, bool kGrid>
+template <typename T, int C, int kPath, bool kGrid, int kVariant = kBase>
 int launch_cluster_k(int* max_clusters, int cs, int R, const void* windows, const void* mono,
                      long long mono_bstride, const void* mono_lens, long long lens_bstride,
                      const void* dp0, void* end, void* spend, int B, int W, int M, int L,
                      int ins, int dele, int mismatch, int match, GridExchange gx, void* stream) {
-  auto kernel = chain_dp_cluster_kernel<T, C, kPath, kGrid>;
+  auto kernel = chain_dp_cluster_kernel<T, C, kPath, kGrid, kVariant>;
   const long long smem = kGrid ? grid_smem_bytes(cs * R, L, R, sizeof(T))
                                : cluster_smem_bytes(M, L, R, sizeof(T));
   cudaError_t err =

@@ -59,12 +59,22 @@
 // multi-row column, end and spend), as in the chunked body. The folded
 // scores fit T: the int16 range checks bound (W + L) * max|score| below
 // 2^13, so |q| < 2^14.
+// kVariant (chain_dp_variant.cuh) is one of A's ablations, each removing one
+// cost centre of this body (instantiated only in chain_dp_ablate.cu, at
+// <int, 6, kRegRows>): nochain takes a row's chain score from its own end
+// cell at i-1 (one shuffle from the lane that owns it) and drops the chain
+// max, the parity buffer's writes and the per-position barrier; ladder4 and
+// ladder2 stop the pair scan over the 32 lane totals after 4 or 2 doubling
+// steps; noemit writes end and spend only at the last position; noshift
+// takes diag from the cell's own value and pointer at i-1 (q[c] + mm in the
+// folded form) and drops the two shuffles of the upper-left neighbour.
 
 #pragma once
 
 #include <limits.h>
 
 #include "chain_dp.cuh"
+#include "chain_dp_variant.cuh"
 
 namespace {
 
@@ -76,21 +86,39 @@ constexpr int kLanesMaxC = 16;  // 32 lanes x 16 cells: L <= 512
 // The lane that owns the end cell n-1 calls emit(e, se) with the row's end
 // score and pointer; the caller's emit stores them (this body: ends_i[m],
 // end_i[m], spend_i[m]; the cluster body, chain_dp_cluster.cuh, also into
-// every block of the cluster).
-template <typename T, int C, class Match, class Emit>
+// every block of the cluster). kVariant: see the top of this file (the
+// nochain variant ignores `chain`).
+template <typename T, int C, int kVariant = kBase, class Match, class Emit>
 __device__ __forceinline__ void lanes_row(int (&q)[C], int (&s)[C], Match is_match, int lane,
                                           int n, int i, int chain, int ins, int dele,
                                           int mismatch, int match, Emit emit) {
   constexpr int kNeg = StateNeg<T>::value;
+  constexpr bool kShift = kVariant != kNoShift;
+  if constexpr (kVariant == kNoChain) {  // the row's own end score at i-1, from its lane
+    const int le = (n - 1) / C, ce = n - 1 - le * C;
+    int qe = q[0];
+#pragma unroll
+    for (int c = 1; c < C; ++c)
+      if (c == ce) qe = q[c];
+    chain = __shfl_sync(kFull, qe, le) + (n - 1) * dele;
+  }
   const int enter_y = chain + match, enter_n = chain + mismatch;  // enter - k*del
-  const int diag_y = match - dele, diag_n = mismatch - dele;      // diag - k*del - q[k-1]
+  // diag - k*del - q[k-1] (noshift: - q[k])
+  const int diag_y = kShift ? match - dele : match, diag_n = kShift ? mismatch - dele : mismatch;
   // the diag neighbour of the lane's first cell: lane l-1's last cell at i-1
-  int up_q = __shfl_up_sync(kFull, q[C - 1], 1);
-  int up_s = __shfl_up_sync(kFull, s[C - 1], 1);
-  if (lane == 0) up_s = 0;  // k == 0: diag is kNeg, its pointer 0
+  int up_q = 0, up_s = 0;
+  if constexpr (kShift) {
+    up_q = __shfl_up_sync(kFull, q[C - 1], 1);
+    up_s = __shfl_up_sync(kFull, s[C - 1], 1);
+    if (lane == 0) up_s = 0;  // k == 0: diag is kNeg, its pointer 0
+  }
   int run_t = 0, run_c = 0;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
+    if constexpr (!kShift) {  // noshift: the cell's own value and pointer at i-1
+      up_q = q[c];
+      up_s = s[c];
+    }
     const bool first = c == 0 && lane == 0;  // k == 0
     const bool y = is_match(c);
     const int enter = y ? enter_y : enter_n;
@@ -107,10 +135,11 @@ __device__ __forceinline__ void lanes_row(int (&q)[C], int (&s)[C], Match is_mat
     q[c] = run_t;
     s[c] = run_c;
   }
-  // inclusive pair scan over the 32 lane totals, then shifted to exclusive
+  // inclusive pair scan over the 32 lane totals (ladder4 / ladder2: cut after
+  // 4 / 2 steps), then shifted to exclusive
   int tt = run_t, tc = run_c;
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
+  for (int o = 1; o < variant_scan_end<kVariant>(); o <<= 1) {
     const int ut = __shfl_up_sync(kFull, tt, o);
     const int uc = __shfl_up_sync(kFull, tc, o);
     if (lane >= o && !(tt > ut)) {
@@ -138,17 +167,21 @@ __device__ __forceinline__ void lanes_row(int (&q)[C], int (&s)[C], Match is_mat
 }
 
 // The lanes body's emit: the end score into this block's parity buffer and
-// the outputs, row m.
-template <typename T>
+// the outputs, row m (nochain: no parity buffer; noemit: the outputs only
+// where `out`, at the last position).
+template <typename T, int kVariant = kBase>
 struct LanesEmit {
   int* ends_i;
   T* end_i;
   T* spend_i;
   int m;
+  bool out = true;
   __device__ __forceinline__ void operator()(int e, int se) const {
-    ends_i[m] = e;
-    end_i[m] = (T)e;
-    spend_i[m] = (T)se;
+    if constexpr (kVariant != kNoChain) ends_i[m] = e;
+    if (kVariant != kNoEmit || out) {
+      end_i[m] = (T)e;
+      spend_i[m] = (T)se;
+    }
   }
 };
 
@@ -174,7 +207,7 @@ constexpr int lanes_max_threads() {
                            : (C <= 5 || (C == 6 && kPath == kRowsDense) ? 1024 : 512);
 }
 
-template <typename T, int C, int kPath>
+template <typename T, int C, int kPath, int kVariant = kBase>
 __global__ void __launch_bounds__(lanes_max_threads<C, kPath>(), 1)
 chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
                       int W,
@@ -218,8 +251,10 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
     const int e = n > 0 ? (int)dp0_b[(long long)m * L + n - 1] : kNeg;
     ends[m] = e;
     ends[M + m] = kNeg;  // rows of length 0 keep kNeg in both buffers
-    end_i[m] = (T)e;
-    spend_i[m] = 0;
+    if (kVariant != kNoEmit || W == 1) {
+      end_i[m] = (T)e;
+      spend_i[m] = 0;
+    }
   }
   // kRegs: row p of this warp is m = warp + p * nwarps, its cells in q[p],
   // s[p] and codes[p] (cell c in byte c % 4 of word c / 4), its length in
@@ -275,32 +310,36 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
     int* cur = ends + (i & 1) * M;
     end_i += M;
     spend_i += M;
+    const bool out = kVariant != kNoEmit || i == W - 1;  // end / spend written at i
     int chain = kNeg;
-    if constexpr (kRegs) {
-      if (lane < M) chain = prev[lane];
-    } else {
+    if constexpr (kVariant != kNoChain) {
+      if constexpr (kRegs) {
+        if (lane < M) chain = prev[lane];
+      } else {
 #pragma unroll 1
-      for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
+        for (int r = 0; r < chain_reads; ++r) chain = max(chain, prev[lane + 32 * r]);
+      }
+      chain = warp_max(chain);
     }
-    chain = warp_max(chain);
     if constexpr (kRegs) {
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
         const int m = warp + p * nwarps;
         if (kP > 1 && m >= M) continue;
         if (n_reg[p] == 0) {
-          if (lane == 0) {
+          if (lane == 0 && out) {
             end_i[m] = (T)kNeg;
             spend_i[m] = 0;
           }
           continue;
         }
         const unsigned rc4 = (unsigned)(rc & 0xff) * 0x01010101u;  // the read's code, 4 times
-        lanes_row<T, C>(q[p], s[p], [&](int c) {
-                          return ((codes[p][c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) == 0;
-                        },
-                        lane, n_reg[p], i, chain, ins, dele, mismatch, match,
-                        LanesEmit<T>{cur, end_i, spend_i, m});
+        lanes_row<T, C, kVariant>(q[p], s[p], [&](int c) {
+                                    return ((codes[p][c / 4] ^ rc4) & (0xffu << (8 * (c % 4)))) ==
+                                           0;
+                                  },
+                                  lane, n_reg[p], i, chain, ins, dele, mismatch, match,
+                                  LanesEmit<T, kVariant>{cur, end_i, spend_i, m, out});
       }
     } else {
       int j = 0;
@@ -308,7 +347,7 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
         const int n = j < 32 ? __shfl_sync(kFull, n_own, j & 31)
                              : min(max(lens_b[m], 0), L);
         if (n == 0) {
-          if (lane == 0) {
+          if (lane == 0 && out) {
             end_i[m] = (T)kNeg;
             spend_i[m] = 0;
           }
@@ -325,8 +364,9 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
           s[0][c] = valid ? (int)sr[c * dx] : 0;
           if (valid && cr[c * dx] == rc) eq |= 1u << c;
         }
-        lanes_row<T, C>(q[0], s[0], [&](int c) { return (eq >> c) & 1u; }, lane, n, i, chain,
-                        ins, dele, mismatch, match, LanesEmit<T>{cur, end_i, spend_i, m});
+        lanes_row<T, C, kVariant>(q[0], s[0], [&](int c) { return (eq >> c) & 1u; }, lane, n, i,
+                                  chain, ins, dele, mismatch, match,
+                                  LanesEmit<T, kVariant>{cur, end_i, spend_i, m, out});
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if (k0 + c < n) {
@@ -336,8 +376,30 @@ chain_dp_lanes_kernel(const int8_t* __restrict__ windows,  // [B, W]
         }
       }
     }
-    __syncthreads();  // ends[i & 1] complete before the next chain max and overwrite
+    // ends[i & 1] complete before the next chain max and overwrite
+    if constexpr (kVariant != kNoChain) __syncthreads();
   }
+}
+
+// The launch of one instance: a block a window, M <= 32 rows in registers
+// (kRegRows) or the rows in shared memory.
+template <typename T, int C, int kPath, int kVariant = kBase>
+int launch_lanes_k(const void* windows, const void* mono, long long mono_bstride,
+                   const void* mono_lens, long long lens_bstride, const void* dp0, void* end,
+                   void* spend, int B, int W, int M, int L, int ins, int dele, int mismatch,
+                   int match, void* stream) {
+  auto kernel = chain_dp_lanes_kernel<T, C, kPath, kVariant>;
+  const long long smem = kPath == kRegRows ? 2LL * M * 4 : chain_dp_smem_bytes(M, L, sizeof(T));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kP = lanes_reg_rows<C>();
+  const int threads =
+      kPath == kRegRows ? 32 * ((M + kP - 1) / kP) : lanes_max_threads<C, kPath>();
+  kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
+      (const int8_t*)windows, W, (const int8_t*)mono, mono_bstride, (const int*)mono_lens,
+      lens_bstride, (const T*)dp0, (T*)end, (T*)spend, M, L, ins, dele, mismatch, match);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int C>
@@ -345,23 +407,11 @@ int launch_lanes_c(const void* windows, const void* mono, long long mono_bstride
                    const void* mono_lens, long long lens_bstride, const void* dp0, void* end,
                    void* spend, int B, int W, int M, int L, int ins, int dele, int mismatch,
                    int match, void* stream) {
-  const bool regs = M <= 32;
-  const long long smem = regs ? 2LL * M * 4 : chain_dp_smem_bytes(M, L, sizeof(T));
-  const bool dense = L == 32 * C;
-  auto kernel = regs ? chain_dp_lanes_kernel<T, C, kRegRows>
-                     : (dense ? chain_dp_lanes_kernel<T, C, kRowsDense>
-                              : chain_dp_lanes_kernel<T, C, kRows>);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  constexpr int kP = lanes_reg_rows<C>();
-  const int threads = regs ? 32 * ((M + kP - 1) / kP)
-                           : (dense ? lanes_max_threads<C, kRowsDense>()
-                                    : lanes_max_threads<C, kRows>());
-  kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const int8_t*)windows, W, (const int8_t*)mono, mono_bstride, (const int*)mono_lens,
-      lens_bstride, (const T*)dp0, (T*)end, (T*)spend, M, L, ins, dele, mismatch, match);
-  return (int)cudaGetLastError();
+  auto launch = M <= 32 ? launch_lanes_k<T, C, kRegRows>
+                        : (L == 32 * C ? launch_lanes_k<T, C, kRowsDense>
+                                       : launch_lanes_k<T, C, kRows>);
+  return launch(windows, mono, mono_bstride, mono_lens, lens_bstride, dp0, end, spend, B, W, M,
+                L, ins, dele, mismatch, match, stream);
 }
 
 template <typename T>

@@ -21,7 +21,8 @@ NEG = -(1 << 30)
 NEG16 = -(1 << 13)  # the int16 state's sentinel (chain_dp_pallas.py _neg)
 INT32_MIN = -(1 << 31)  # the tiled bodies' empty carry: below every score
 READ_PAD = 6  # never equals any monomer code (monomer pad is 5)
-# the ablation variants of K1 (csrc/chain_dp_ablate.cu); "base" is K1
+# A's variants of K1's lanes and cluster bodies (csrc/chain_dp_variant.cuh,
+# csrc/chain_dp_ablate.cu); "base" is K1
 VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")
 
 
@@ -76,22 +77,18 @@ def resolve_state_dtype(state_dtype: str, W: int, L: int, ins, dele, mismatch,
 
 
 def pair_scan(t: torch.Tensor, payloads: list[torch.Tensor], later_wins,
-              steps: int | None = None, chunk: int | None = None) -> tuple:
+              steps: int | None = None) -> tuple:
     """Inclusive scan along the last axis of (t, *payloads) where a later
     element replaces the running one only if `later_wins(t_later, t_run)`
     (a strict comparison, so ties keep the EARLIEST payload). Log-step
     (Hillis-Steele) form: torch.cummax/cummin keep the LAST index on ties,
     so their indices cannot carry the payload. `steps` stops after that
-    many doubling steps and `chunk` keeps each step inside aligned segments
-    of that many elements (the ladder ablations' cut warp scans)."""
+    many doubling steps (the ladder ablations' cut scan over lane totals)."""
     n = t.shape[-1]
-    pos = torch.arange(n, device=t.device)
     s, done = 1, 0
     while s < n and (steps is None or done < steps):
         ta, tb = t[..., :-s], t[..., s:]
         take_b = later_wins(tb, ta)
-        if chunk is not None:
-            take_b = take_b | (pos[s:] % chunk < s)
         t = torch.cat([t[..., :s], torch.where(take_b, tb, ta)], dim=-1)
         payloads = [
             torch.cat([p[..., :s], torch.where(take_b, p[..., s:], p[..., :-s])], dim=-1)
@@ -122,12 +119,10 @@ def broadcast_monomers(mono, mono_lens, B):
     return mono, mono_lens
 
 
-def sweep(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, variant="base"):
+def sweep(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match):
     """The read-position loop from column 0 (`dp0`, [B, M, L] in the state
     type, start pointers 0): (chain [B, W] int32, end and spend [B, W, M] in
-    the state type). `variant` applies one ablation's single change (see
-    VARIANTS and csrc/chain_dp_ablate.cu); its outputs are then knowingly not
-    K1's, and noemit leaves 0 at every position but the last."""
+    the state type)."""
     B, W = windows.shape
     dev, dt = windows.device, dp0.dtype
     L = mono_b.shape[2]
@@ -137,7 +132,6 @@ def sweep(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, variant="bas
     mono_i32 = mono_b.to(torch.int32)
     win_i32 = windows.to(torch.int32)
     neg = torch.tensor(state_neg(dt), dtype=dt, device=dev)
-    scan = {"ladder4": dict(steps=4, chunk=32), "ladder2": dict(steps=2, chunk=32)}.get(variant)
 
     def masked_ends(dp):
         return torch.where(end_mask, dp, neg).amax(dim=2)
@@ -154,15 +148,9 @@ def sweep(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, variant="bas
     zero_col = torch.zeros_like(sp[:, :, :1])
     for i in range(1, W):
         mm = torch.where(mono_i32 == win_i32[:, i, None, None], match, mismatch).to(dt)
-        if variant == "nochain":  # each row's own end cell at i-1
-            chain_i = ends[-1]  # [B, M]
-        else:
-            chain_i = ends[-1].amax(dim=1)[:, None]  # [B, 1]
-        if variant == "noshift":
-            prev_shift, sp_shift = dp, sp
-        else:
-            prev_shift = torch.cat([neg_col, dp[:, :, :-1]], dim=2)
-            sp_shift = torch.cat([zero_col, sp[:, :, :-1]], dim=2)
+        chain_i = ends[-1].amax(dim=1)[:, None]  # [B, 1]
+        prev_shift = torch.cat([neg_col, dp[:, :, :-1]], dim=2)
+        sp_shift = torch.cat([zero_col, sp[:, :, :-1]], dim=2)
         enter = chain_i[:, :, None] + mm + k_del
         diag = prev_shift + mm
         diag[:, :, 0] = state_neg(dt)
@@ -170,26 +158,18 @@ def sweep(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, variant="bas
         insr_c = insr.clone()
         insr_c[:, :, 0] = state_neg(dt)
         t = torch.maximum(enter, torch.maximum(diag, insr_c)) - k_del
-        if scan is None:
-            dp_new = torch.cummax(t, dim=2).values + k_del
-        else:
-            dp_new = pair_scan(t, [], torch.gt, **scan)[0] + k_del
+        dp_new = torch.cummax(t, dim=2).values + k_del
         # payload as if this cell explains the score: ins (unguarded at
         # k == 0, like src/main.cpp:245), then diag, then enter
         candstart = torch.where(
             dp_new == insr, sp, torch.where(dp_new == diag, sp_shift, i)
         ).to(dt)
-        _, (sp,) = pair_scan(t, [candstart], torch.gt, **(scan or {}))
+        _, (sp,) = pair_scan(t, [candstart], torch.gt)
         dp = dp_new
         chains.append(chain_i.amax(dim=1).to(torch.int32))
         ends.append(masked_ends(dp))
         spends.append(gather_ends(sp))
-    end = torch.stack(ends, dim=1)  # [B, W, M]
-    spend = torch.stack(spends, dim=1)
-    if variant == "noemit":
-        end[:, :-1] = 0
-        spend[:, :-1] = 0
-    return torch.stack(chains, dim=1), end, spend
+    return torch.stack(chains, dim=1), torch.stack(ends, dim=1), torch.stack(spends, dim=1)
 
 
 class _LanesRows:
@@ -203,10 +183,16 @@ class _LanesRows:
     gives each lane what the earlier lanes hold, and a cell keeps its
     in-lane prefix only where it is strictly greater. Cells at or past a
     row's length are read as the sentinel with a mismatch, as in the kernel.
-    Arithmetic is int32."""
+    Arithmetic is int32. `variant` is one of A's (VARIANTS; the kernels'
+    kVariant, csrc/chain_dp_variant.cuh) for the changes made in a row's
+    step: nochain takes each row's chain score from its own end cell at
+    i - 1 (the `chain` given to `step` is not read), ladder4 / ladder2 stop
+    the scan over the lane totals after 4 / 2 doubling steps, noshift takes
+    diag from the cell's own value and pointer at i - 1. noemit changes no
+    step (the caller drops the outputs)."""
 
     def __init__(self, windows, mono_b, lens_b, dp0, ins, dele, mismatch, match,
-                 cells_per_lane):
+                 cells_per_lane, variant="base"):
         B = windows.shape[0]
         M, L = mono_b.shape[1], mono_b.shape[2]
         C = cells_per_lane
@@ -231,6 +217,7 @@ class _LanesRows:
         self.end_idx = (self.n - 1).clamp(min=0).long()
         self.windows = windows
         self.scores = (ins, mismatch, match)
+        self.variant = variant
 
     def emit(self):
         """(end, spend) [B, M] int32 of each row's end cell; rows of length
@@ -242,6 +229,11 @@ class _LanesRows:
     def step(self, i: int, chain: torch.Tensor) -> None:
         """Read position i, from the chain score [B] int32 (the max of every
         row's end score at i - 1)."""
+        self.fold(*self.candidates(i, chain))
+
+    def candidates(self, i: int, chain: torch.Tensor) -> tuple:
+        """Each cell's folded candidate t = cand - k*del and its payload at
+        read position i, [B, M, 32 lanes, C] int32 each."""
         B, M, P = self.shape
         ins, mismatch, match = self.scores
         neg, k, kdel = self.neg, self.k, self.kdel
@@ -249,15 +241,27 @@ class _LanesRows:
         ps = torch.where(self.valid, self.sp, 0)
         rc = self.windows[:, i].to(torch.int32)[:, None, None]
         mm = torch.where(self.codes == rc, match, mismatch).to(torch.int32)
-        up_p = torch.cat([torch.full_like(p[:, :, :1], neg), p[:, :, :-1]], dim=2)
-        up_ps = torch.cat([torch.zeros_like(ps[:, :, :1]), ps[:, :, :-1]], dim=2)
-        enter = chain[:, None, None] + mm + kdel
+        if self.variant == "noshift":  # the cell's own value and pointer at i - 1
+            up_p, up_ps = p, ps
+        else:
+            up_p = torch.cat([torch.full_like(p[:, :, :1], neg), p[:, :, :-1]], dim=2)
+            up_ps = torch.cat([torch.zeros_like(ps[:, :, :1]), ps[:, :, :-1]], dim=2)
+        # nochain: each row's own end score at i - 1 [B, M]; else the max [B]
+        chain = self.emit()[0] if self.variant == "nochain" else chain[:, None]
+        enter = chain[:, :, None] + mm + kdel
         diag = torch.where(k == 0, neg, up_p + mm)
         ins_u = p + ins  # unguarded: the payload's ins check at k == 0
         cand = torch.maximum(enter, torch.maximum(diag, torch.where(k == 0, neg, ins_u)))
         cs = torch.where(cand == ins_u, ps, torch.where(cand == diag, up_ps, i))
-        t = (cand - kdel).view(B, M, 32, self.C)
-        cs = cs.view(B, M, 32, self.C)
+        return (cand - kdel).view(B, M, 32, self.C), cs.view(B, M, 32, self.C)
+
+    def fold(self, t: torch.Tensor, cs: torch.Tensor) -> None:
+        """The row's new cells from the candidates: the in-lane pair prefix,
+        the pair scan over the 32 lane totals (cut by the ladder variants),
+        shifted to exclusive, and a cell's own prefix where strictly
+        greater."""
+        B, M, P = self.shape
+        neg, kdel = self.neg, self.kdel
         run_t, run_c = t[..., 0], cs[..., 0]
         in_t, in_c = [run_t], [run_c]
         for c in range(1, self.C):  # later cell wins only when strictly greater
@@ -267,7 +271,8 @@ class _LanesRows:
             in_t.append(run_t)
             in_c.append(run_c)
         in_t, in_c = torch.stack(in_t, dim=-1), torch.stack(in_c, dim=-1)
-        tot_t, (tot_c,) = pair_scan(run_t, [run_c], torch.gt)  # inclusive, over lanes
+        steps = {"ladder4": 4, "ladder2": 2}.get(self.variant)
+        tot_t, (tot_c,) = pair_scan(run_t, [run_c], torch.gt, steps)  # inclusive, over lanes
         ex_t = torch.cat([torch.full_like(tot_t[..., :1], neg), tot_t[..., :-1]], dim=-1)[..., None]
         ex_c = torch.cat([torch.zeros_like(tot_c[..., :1]), tot_c[..., :-1]], dim=-1)[..., None]
         own = (self.lane == 0) | (in_t > ex_t)  # ties keep the earlier lanes
@@ -480,7 +485,7 @@ def sweep_cluster(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, clus
 
 
 def sweep_grid(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, clusters, cluster_size,
-               cells_per_lane, warps_per_row=None, tile=8, blocks_per_row=1):
+               cells_per_lane, warps_per_row=None, tile=8, blocks_per_row=1, variant="base"):
     """`sweep` computed as K1's grid route (csrc/chain_dp_grid.cuh) splits
     it; test-only, nothing on the main path calls it. The window's rows go
     to K = `clusters` groups of cs = `cluster_size` slices (the blocks of a
@@ -496,7 +501,8 @@ def sweep_grid(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cluster
     group maxima (the kernel's exchange through global memory), and each
     group writes its rows' end scores into its buffer i & 1; rows of length
     0 are never written and keep the sentinel in both. End and spend come
-    out in dp0's type. Same outputs as `sweep`."""
+    out in dp0's type. Same outputs as `sweep`; `variant` (the lanes form
+    only) runs A's variant of each slice's step (`_LanesRows`)."""
     B, W = windows.shape
     M = mono_b.shape[1]
     K, cs, S = clusters, cluster_size, blocks_per_row
@@ -517,7 +523,7 @@ def sweep_grid(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, cluster
         args = (windows, mono_b[:, a:z], lens_b[:, a:z], dp0[:, a:z], ins, dele, mismatch, match,
                 cells_per_lane)
         if warps_per_row is None:
-            return _LanesRows(*args)
+            return _LanesRows(*args, variant)
         return _TiledRows(*args, warps_per_row * S, tile, S)
 
     slices = [slice_rows(a, z) for a, z in cuts]
@@ -579,14 +585,25 @@ def chain_dp_forward(
 
 
 def chain_dp_ablate(windows, mono, mono_lens, dp0, variant: str, ins=-1, dele=-1,
-                    mismatch=-1, match=1):
-    """Plain version of the ablation kernels (ops/chain_dp_cuda.
-    chain_dp_ablate_cuda): K1's sweep from the given int32 column 0 with
-    `variant`'s single change. Returns (end, spend) [B, W, M] int32."""
+                    mismatch=-1, match=1, cluster_size: int | None = None):
+    """Plain version of A, the ablation kernels (ops/chain_dp_cuda.
+    chain_dp_ablate_cuda): K1's lanes body (`_LanesRows`, C = ceil(L / 32)),
+    or with `cluster_size` its cluster body over that many slices
+    (`sweep_grid`), from the given int32 column 0 with `variant`'s single
+    change; noemit leaves 0 at every position but the last. Returns (end,
+    spend) [B, W, M] int32; base is K1's, the others are knowingly not."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown ablation variant {variant!r}; known: {', '.join(VARIANTS)}")
     mono_b, lens_b = broadcast_monomers(mono, mono_lens, windows.shape[0])
-    _, end, spend = sweep(windows, mono_b, lens_b, dp0, ins, dele, mismatch, match, variant)
+    args = (windows, mono_b, lens_b, dp0, ins, dele, mismatch, match)
+    C = -(-mono.shape[-1] // 32)
+    if cluster_size is None:
+        _, end, spend = _rows_sweep(_LanesRows(*args, C, variant), windows, dp0.dtype)
+    else:
+        _, end, spend = sweep_grid(*args, 1, cluster_size, C, variant=variant)
+    if variant == "noemit":
+        end[:, :-1] = 0
+        spend[:, :-1] = 0
     return end, spend
 
 

@@ -1,5 +1,6 @@
 """K1 on the card: chain DP (csrc/chain_dp.cu), the block-walk kernel, P
-(the int16 probe) and A (K1's ablation kernels, csrc/chain_dp_ablate.cu).
+(the int16 probe) and A (the ablation kernels of K1's lanes and cluster
+bodies, csrc/chain_dp_ablate.cu).
 
 `chain_dp_forward_cuda` has the contract of ops/chain_dp.chain_dp_forward.
 It dispatches on the device of `windows`: a CPU tensor runs the plain
@@ -29,7 +30,7 @@ them through global memory each position ("grid" at L <= 512,
 memory over S blocks of a cluster ("split"). The chunked body
 (csrc/chain_dp.cuh) keeps what none takes: a set past the whole card's
 shared memory (with its column in a device-memory scratch, on the large
-route), `force_body=`, and the ablation's base. A shared-route set whose
+route) and `force_body=`. A shared-route set whose
 tiled form does not fit one block (the padding of its rows) runs the tiled
 cluster body. A C outside 1..16 is refused by the lanes and cluster
 entries, a shape past one block by the tiled entries, never run on another
@@ -91,8 +92,11 @@ SM_COUNT = 132
 # instructions of a scheduler), and the split form's second cluster barrier
 # (~0.8 us)
 GRID_EXCHANGE_ROWS, GRID_EXCHANGE_OPS, SPLIT_BARRIER_OPS = 1, 3000, 1600
-# ablation variant -> csrc/chain_dp.cuh Variant (base is the chunked body's launch)
+# ablation variant -> csrc/chain_dp_variant.cuh Variant (base is K1's own launch)
 _VARIANT_CODES = {v: i for i, v in enumerate(plain.VARIANTS)}
+# the cells a lane of A's instances (csrc/chain_dp_ablate.cu kAblateC): the
+# bench's 180 bp monomers padded to L = 192
+ABLATE_C = 6
 
 
 def smem_bytes(M: int, L: int, state_bytes: int = 4) -> int:
@@ -886,17 +890,21 @@ chain_dp_large_cuda.launches_split_int16 = 0
 
 
 def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: bool,
-                         ins=-1, dele=-1, mismatch=-1, match=1, out=None):
-    """A: K1's chunked body with one cost centre removed (ops/chain_dp.
-    VARIANTS; "base" is the chunked body's own launch, sd_chain_dp, whatever
-    L is), on the shared or the large route, from the
-    given int32 column 0 `dp0` [B, M, L], which the large route overwrites.
-    Returns (end, spend) [B, W, M] int32, knowingly not K1's for any variant
-    but base; `out` may pass them in, zero-filled, to keep allocation out of
-    a timed call. A CPU tensor runs ops/chain_dp.chain_dp_ablate."""
-    if not windows.is_cuda:
-        return plain.chain_dp_ablate(windows, mono, mono_lens, dp0, variant, ins, dele,
-                                     mismatch, match)
+                         ins=-1, dele=-1, mismatch=-1, match=1, out=None,
+                         cluster_size: int | None = None):
+    """A: one of K1's two main-path bodies with one cost centre removed
+    (ops/chain_dp.VARIANTS; csrc/chain_dp_ablate.cu), from the given int32
+    column 0 `dp0` [B, M, L]. large=False: the lanes body at its form with
+    the rows in registers and 6 cells a lane (M <= 32, 160 < L <= 192);
+    large=True: the cluster body at its form with the rows in shared memory
+    (L = 192, more than 32 rows a block) over clusters of `cluster_plan`'s
+    size for B windows, or of `cluster_size`. "base" is K1's own production
+    launch of that body (sd_chain_dp_lanes, sd_chain_dp_cluster). A set
+    outside the instantiated forms raises, on any device. Returns (end,
+    spend) [B, W, M] int32, knowingly not K1's for any variant but base;
+    `out` may pass them in, zero-filled (noemit writes only the last
+    position), to keep allocation out of a timed call. A CPU tensor runs
+    ops/chain_dp.chain_dp_ablate, with `cluster_size` where large."""
     _require(variant in _VARIANT_CODES, f"unknown ablation variant {variant!r}; known: "
              f"{', '.join(plain.VARIANTS)}")
     B, W = windows.shape
@@ -906,29 +914,43 @@ def chain_dp_ablate_cuda(windows, mono, mono_lens, dp0, variant: str, large: boo
              and dp0.shape == (B, M, L) and dp0.is_contiguous(),
              "the ablation takes int8 windows [B, W], shared int8 mono [M, L], int32 lens "
              "and a contiguous int32 dp0 [B, M, L]")
-    _require(large or route(M, L) == "shared", f"M={M}, L={L} does not fit the shared route")
-    check_monomer_set(M, L)
+    _require(-(-L // 32) == ABLATE_C, f"A is built at {ABLATE_C} cells a lane "
+             f"({32 * ABLATE_C - 31} <= L <= {32 * ABLATE_C}), not L={L}")
+    cs = R = 0
+    if large:
+        cs, R, form, _, _ = _cluster_launch(M, L, 4, cluster_size,
+                                            B if windows.is_cuda else None) or (0, 0, None, 0, 0)
+        _require(form == "rows_dense", f"A's cluster body is built with its rows in shared "
+                 f"memory at L = {32 * ABLATE_C} (more than 32 rows a block), not M={M}, L={L} "
+                 f"over {cs} blocks ({form})")
+    else:
+        _require(M <= 32, f"A's lanes body is built with its rows in registers (M <= 32), "
+                 f"not M={M}")
+    if not windows.is_cuda:
+        return plain.chain_dp_ablate(windows, mono, mono_lens, dp0, variant, ins, dele,
+                                     mismatch, match, cs if large else None)
     windows, mono, mono_lens = windows.contiguous(), mono.contiguous(), mono_lens.contiguous()
     if out is None:
         out = (torch.zeros((B, W, M), dtype=torch.int32, device=windows.device),
                torch.zeros((B, W, M), dtype=torch.int32, device=windows.device))
     end, spend = out
-    group = _groups(B, M, L, torch.int32) if large else B
-    sp = torch.empty((group, M, L), dtype=torch.int32, device=windows.device) if large else None
-    lib = library()
-    for b0 in range(0, B, group):
-        b1 = min(B, b0 + group)
-        fn, lead = ((lib.sd_chain_dp, (int(large), 4)) if variant == "base" else
-                    (lib.sd_chain_dp_ablate, (_VARIANT_CODES[variant], int(large))))
-        check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, b0, b1,
-                      (sp.data_ptr() if large else None,), ins, dele, mismatch, match),
-              f"chain_dp ablation kernel {variant}")
+    if B > 0:
+        lib = library()
+        if variant == "base":
+            fn, lead = ((lib.sd_chain_dp_cluster, (4, cs, R)) if large else
+                        (lib.sd_chain_dp_lanes, (4,)))
+        else:
+            fn, lead = lib.sd_chain_dp_ablate, (_VARIANT_CODES[variant], int(large), cs, R)
+        check(_launch(fn, lead, windows, mono, mono_lens, dp0, end, spend, 0, B, (), ins, dele,
+                      mismatch, match),
+              f"chain_dp ablation kernel {variant} ({'cluster' if large else 'lanes'} body)")
         count_launch(chain_dp_ablate_cuda, ablate_counter(variant, large))
     return end, spend
 
 
 def ablate_counter(variant: str, large: bool) -> str:
-    """The launch counter of one ablation kernel on chain_dp_ablate_cuda."""
+    """The launch counter of one ablation kernel on chain_dp_ablate_cuda
+    (`large`: the cluster body's)."""
     return f"launches_{'large_' if large else ''}{variant}"
 
 

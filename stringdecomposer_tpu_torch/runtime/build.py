@@ -52,7 +52,7 @@ _SIGNATURES = {
                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "sd_chain_dp_grid_tiled_occupancy": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                               ctypes.POINTER(_I)]),
-    "sd_chain_dp_ablate": (_I, [_I, _I, _P, _P, _LL, _P, _LL, _P, _P, _P, _P,
+    "sd_chain_dp_ablate": (_I, [_I, _I, _I, _I, _P, _P, _LL, _P, _LL, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sd_block_walk": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sd_int16_probe": (_I, [_P, _P, _I, _I, _P]),

@@ -1,22 +1,22 @@
-"""A, K1's ablation kernels, in the PyTorch port: the plain versions.
+"""A, the ablation kernels of K1's lanes and cluster bodies, in the
+PyTorch port: the plain versions.
 
-The plain base, nochain and noshift (ops/chain_dp.chain_dp_ablate) against
-the JAX bench's make_kernel(variant) (scripts/ablate_chain.py) run through
-pl.pallas_call(interpret=True) at tiny shapes, on the same seeded inputs:
-end and spend at every position and row must be equal (integers,
-tolerance 0). The JAX kernel keeps monomers right-aligned in the lane axis
-and takes the read chars per row; the inputs are converted here.
+The plain base, nochain and noshift (ops/chain_dp.chain_dp_ablate: the
+lanes body's step, `_LanesRows`, and the cluster body's, `sweep_grid` over
+slices of rows) against the JAX bench's make_kernel(variant)
+(scripts/ablate_chain.py) run through pl.pallas_call(interpret=True) at
+tiny shapes, on the same seeded inputs: end and spend at every position
+and row must be equal (integers, tolerance 0). The JAX kernel keeps
+monomers right-aligned in the lane axis and takes the read chars per row;
+the inputs are converted here.
 
-The ladder variants are held only against the port's own plain version of
-the cut scan: the CUDA K1 derives a cell's start-pointer payload AFTER the
-deletion fold (csrc/chain_dp.cuh, from the folded score), while the JAX
-kernel derives it BEFORE the fold (from the candidate). The two agree only
-because a full prefix max makes the folded score equal the candidate at
-every cell that wins the fold; a cut fold breaks that identity, so JAX's
-ladder outputs are not the port's ladder outputs, by design of the
-variants and not by a fault. noemit is held only against the port's plain
-version too: the JAX variant emits nothing at all, the port's keeps the
-last position live."""
+The ladder variants are held only against the port's own plain version:
+the JAX kernel cuts its one doubling scan over the whole row, while the
+lanes and cluster bodies keep each lane's sequential prefix over its own
+cells whole and cut only the scan over the 32 lane totals, so the two cut
+different scans by design of the variants and not by a fault. noemit is
+held only against the port's plain version too: the JAX variant emits
+nothing at all, the port's keeps the last position live."""
 
 import importlib.util
 import pathlib
@@ -89,55 +89,87 @@ def _jax_run(variant, windows, mono, lens, dp0, BT, pos_tile):
     return tuple(np.asarray(x).reshape(B, M, steps).transpose(0, 2, 1) for x in (e, sp))
 
 
+BODIES = {"lanes": None, "cluster": 3}  # body -> cluster_size of the plain version
+
+
+@pytest.mark.parametrize("body", list(BODIES))
 @pytest.mark.parametrize("variant", ["base", "nochain", "noshift"])
 @pytest.mark.parametrize("seed,B,BT,L,pos_tile", [(0, 2, 1, 16, 8), (1, 2, 2, 32, 16),
-                                                  (2, 4, 2, 24, 8)])
-def test_plain_matches_jax_make_kernel_interpreted(variant, seed, B, BT, L, pos_tile):
+                                                  (2, 4, 2, 24, 8), (3, 2, 1, 72, 8)])
+def test_plain_matches_jax_make_kernel_interpreted(body, variant, seed, B, BT, L, pos_tile):
     M, steps = 8, 2 * pos_tile
     windows, mono, lens, dp0 = _problem(seed, B, M, L, steps, lens_lo=L // 2)
     je, js = _jax_run(variant, windows, mono, lens, dp0, BT, pos_tile)
-    te, ts = plain.chain_dp_ablate(*map(torch.from_numpy, (windows, mono, lens, dp0)), variant)
+    te, ts = plain.chain_dp_ablate(*map(torch.from_numpy, (windows, mono, lens, dp0)), variant,
+                                   cluster_size=BODIES[body])
     np.testing.assert_array_equal(te[:, 1:].numpy(), je)
     np.testing.assert_array_equal(ts[:, 1:].numpy(), js)
 
 
-def test_variants_change_what_they_should():
+def _peaked(seed, B, M, L, steps):
+    """`_problem` with column 0 peaked at k = 0 and 1 (400) in the first
+    half of the rows, so that the deletion chain from there wins every cell
+    of such a row (a cut fold shows) and their end scores lead the others'
+    (a chain max taken from a row's own end shows)."""
+    windows, mono, lens, dp0 = _problem(seed, B, M, L, steps, lens_lo=L - 10)
+    dp0[:, : M // 2, :2] = 400
+    return tuple(map(torch.from_numpy, (windows, mono, lens, dp0)))
+
+
+@pytest.mark.parametrize("body", list(BODIES))
+def test_variants_change_what_they_should(body):
     """Each variant differs from base somewhere (it removes a real cost
     centre), and noemit keeps only the last position: the rest is 0."""
-    windows, mono, lens, dp0 = map(torch.from_numpy, _problem(5, 2, 8, 80, 120, lens_lo=70))
-    base = plain.chain_dp_ablate(windows, mono, lens, dp0, "base")
+    windows, mono, lens, dp0 = _peaked(5, 2, 8, 192, 60)
+    cs = BODIES[body]
+    base = plain.chain_dp_ablate(windows, mono, lens, dp0, "base", cluster_size=cs)
     for v in plain.VARIANTS[1:]:
-        e, s = plain.chain_dp_ablate(windows, mono, lens, dp0, v)
+        e, s = plain.chain_dp_ablate(windows, mono, lens, dp0, v, cluster_size=cs)
         assert not (torch.equal(e, base[0]) and torch.equal(s, base[1])), v
-    e, s = plain.chain_dp_ablate(windows, mono, lens, dp0, "noemit")
+    e, s = plain.chain_dp_ablate(windows, mono, lens, dp0, "noemit", cluster_size=cs)
     assert not e[:, :-1].any() and not s[:, :-1].any()
     assert torch.equal(e[:, -1], base[0][:, -1]) and torch.equal(s[:, -1], base[1][:, -1])
 
 
 @pytest.mark.parametrize("variant", ["ladder4", "ladder2"])
 def test_ladder_plain_cuts_the_scan_inside_32_cell_chunks(variant):
-    """The ladder's plain version keeps each doubling step inside aligned
-    32-cell chunks with no carry across them, as the warp scans of the
-    CUDA variant do: on a column of one chunk it equals a plain cut
-    Hillis-Steele max, and across chunks the first cell of each chunk
-    sees nothing to its left."""
-    steps = 4 if variant == "ladder4" else 2
-    rng = np.random.default_rng(3)
-    t = torch.from_numpy(rng.integers(-50, 50, (3, 96)).astype(np.int32))
-    got, _ = plain.pair_scan(t, [], torch.gt, steps=steps, chunk=32)
-    want = t.clone()
-    for k in range(96):
-        lo = max(k - (1 << steps) + 1, k - k % 32)
-        want[:, k] = t[:, lo : k + 1].amax(dim=1)
-    assert torch.equal(got, want)
+    """The ladders cut the scan over the 32 lane totals after 4 or 2
+    doubling steps, as the lanes body's shuffle scan is cut (csrc/
+    chain_dp_lanes.cuh lanes_row): from one position's candidates, a cell of
+    lane l ends as the earliest argmax (value and payload) of the cells of
+    lanes l - 2^steps .. l - 1 (the first lane at least 0) and its own
+    lane's cells up to itself, where base takes every earlier cell."""
+    reach = 1 << (4 if variant == "ladder4" else 2)
+    windows, mono, lens, dp0 = _peaked(3, 1, 2, 192, 4)
+    mono_b, lens_b = plain.broadcast_monomers(mono, lens, 1)
+    C = 6
+    for v, window in ((variant, reach), ("base", 32)):
+        rows = plain._LanesRows(windows, mono_b, lens_b, dp0, -1, -1, -1, 1, C, v)
+        chain = rows.emit()[0].amax(dim=1)
+        t, cs = rows.candidates(1, chain)
+        rows.fold(t, cs)
+        t, cs = t.reshape(1, 2, 32 * C), cs.reshape(1, 2, 32 * C)
+        got_q = rows.dp - rows.kdel
+        for m in range(2):
+            for k in range(32 * C):
+                lo = max(0, k // C - window) * C
+                j = lo + int(torch.argmax(t[0, m, lo : k + 1]))  # the first of the maxima
+                assert int(got_q[0, m, k]) == int(t[0, m, j]), (v, m, k)
+                assert int(rows.sp[0, m, k]) == int(cs[0, m, j]), (v, m, k)
+    cut = plain._LanesRows(windows, mono_b, lens_b, dp0, -1, -1, -1, 1, C, variant)
+    full = plain._LanesRows(windows, mono_b, lens_b, dp0, -1, -1, -1, 1, C)
+    for r in (cut, full):
+        r.step(1, r.emit()[0].amax(dim=1))
+    assert not torch.equal(cut.dp, full.dp)  # the peak's chain reaches past the cut
 
 
-def test_base_is_k1():
-    """The ablation's base is K1's own sweep: from K1's column 0 it gives
-    chain_dp_forward's end and spend."""
+@pytest.mark.parametrize("body", list(BODIES))
+def test_base_is_k1(body):
+    """The ablation's base is K1's own sweep on that body: from K1's column
+    0 it gives chain_dp_forward's end and spend."""
     windows, mono, lens, _ = map(torch.from_numpy, _problem(7, 3, 6, 40, 90, lens_lo=20))
     dp0 = plain.init_column(windows, *plain.broadcast_monomers(mono, lens, 3), -1, -1, 1)
-    e, s = plain.chain_dp_ablate(windows, mono, lens, dp0, "base")
+    e, s = plain.chain_dp_ablate(windows, mono, lens, dp0, "base", cluster_size=BODIES[body])
     _, _, (_, end, spend) = plain.chain_dp_forward(windows, torch.full((3,), 91, dtype=torch.int32),
                                                     mono, lens, return_debug=True)
     assert torch.equal(e, end) and torch.equal(s, spend)
@@ -145,10 +177,14 @@ def test_base_is_k1():
 
 def test_bench_check_and_refusals_on_cpu():
     """The bench's check runs every variant through the wrapper's CPU
-    dispatch (the plain version) on both routes; the JAX bench's TPU-only
-    variants and unknown names are refused with the reason."""
-    err = bench.check(list(plain.VARIANTS), "cpu", B=2, W=40, M=6)
-    assert err == {v: 0 for v in plain.VARIANTS}
+    dispatch (the plain version) on both bodies at their bench forms (M =
+    24; M = 264 over the bench batch's cluster size, its rows in shared
+    memory); the JAX bench's TPU-only variants and unknown names are
+    refused with the reason."""
+    err = bench.check(list(plain.VARIANTS), "cpu", B=1, W=12)
+    assert err == {(v, large): 0 for v in plain.VARIANTS for large in (False, True)}
+    cs = bench.cluster_size(264, bench.B_BENCH, "cpu")
+    assert chain_dp_cuda.cluster_shape(264, bench.L, 4, cs)[1] == "rows_dense"
     for v in ("subroll", "unroll8", "hoist"):
         with pytest.raises(ValueError, match="no separate form on the card"):
             bench.parse_variants([v])
@@ -159,3 +195,26 @@ def test_bench_check_and_refusals_on_cpu():
     with pytest.raises(ValueError, match="unknown ablation variant"):
         chain_dp_cuda.chain_dp_ablate_cuda(*map(torch.from_numpy, _problem(0, 1, 2, 8, 4, 4)),
                                            "hoist", False)
+
+
+def test_wrapper_takes_only_the_instantiated_forms():
+    """A is built at the bench's forms only: the lanes body with M <= 32
+    rows in registers at 6 cells a lane, the cluster body with more than
+    32 rows a block in shared memory at L = 192. Other sets raise before
+    anything runs, on the CPU as on the card, and within the forms the CPU
+    runs the plain version."""
+    def args(M, L, B=1, W=4):
+        return map(torch.from_numpy, _problem(0, B, M, L, W - 1, L))
+
+    with pytest.raises(ValueError, match="6 cells a lane"):
+        chain_dp_cuda.chain_dp_ablate_cuda(*args(8, 160), "nochain", False)
+    with pytest.raises(ValueError, match="in registers"):
+        chain_dp_cuda.chain_dp_ablate_cuda(*args(33, 192), "nochain", False)
+    with pytest.raises(ValueError, match="in shared memory"):  # 30 rows a block: registers
+        chain_dp_cuda.chain_dp_ablate_cuda(*args(264, 192), "noshift", True, cluster_size=9)
+    with pytest.raises(ValueError, match="in shared memory"):  # L = 176: not 32 x 6
+        chain_dp_cuda.chain_dp_ablate_cuda(*args(264, 176), "noshift", True, cluster_size=3)
+    windows, mono, lens, dp0 = args(24, 161, W=6)
+    got = chain_dp_cuda.chain_dp_ablate_cuda(windows, mono, lens, dp0, "ladder2", False)
+    want = plain.chain_dp_ablate(windows, mono, lens, dp0, "ladder2")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
