@@ -45,7 +45,11 @@ one call, the alignment API's row split against one device, the CLI with
 --data-parallel (the golden read; 1.6 Mbp with its batches in flight), two
 CLI processes as two hosts (--num-hosts 2) and as a torch.distributed
 group (--coordinator) against one process, and the reliability trainer on
-the card against the CPU. K2 runs through both of its entries: the cross
+the card against the CPU. Phase `stress` runs the port's randomized kernel
+stress at a fixed seed (scripts/stress_kernel.py: a case of every K1 body in
+int32 and int16 against the NumPy oracle; scripts/stress_rescoring.py: K2 at
+every C and in strips, both entries, K3 on every route, against their
+twins). K2 runs through both of its entries: the cross
 entry (`nw_identity_cross`, every block x every monomer) on the
 --second-best path, the pairwise one (`nw_identity`) in light mode; its
 times are of the launches alone, apart from the packed call.
@@ -191,9 +195,11 @@ def cigar_cost(cigar: str, q: str, t: str) -> int:
 class Smoke:
     def __init__(self):
         self.failed: list[str] = []
+        self.current = ""
         self.max_err: dict[str, int] = {k: 0 for k in KERNELS}
 
     def phase(self, name, fn):
+        self.current = name
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -351,10 +357,43 @@ def main(only: list[str]) -> int:
                      for large in (False, True) for v in VARIANTS})
     dxz1 = os.path.join(DATA, "DXZ1_star_monomers.fa")
     read_fa = os.path.join(DATA, "read.fa")
-    plain_route = dict(forward_fn=k1_plain.chain_dp_forward,
+    twin_runs: dict = {}  # a plain twin's call (its inputs' digest) -> ([ms], outputs)
+    twin_from: dict = {}  # the same digest -> the phase that ran it
+    twin_last = [""]  # the phase that ran the twin of `twin`'s last call
+
+    def twin(fn, *args, **kw):
+        """A plain twin's fn(*args, **kw), timed as `timed(.., 0)` times one
+        call: ([ms], outputs). Run once for the same function, inputs and
+        keywords in this process: a later call (another route or plan held
+        to it, or the kernels line's plain time) takes that run's outputs
+        and its time."""
+        h = hashlib.sha256(f"{fn.__module__}.{fn.__name__} {sorted(kw.items())}".encode())
+        for a in args:
+            h.update(repr((tuple(a.shape), a.dtype)).encode() + a.contiguous().cpu().numpy().tobytes())
+        key = h.hexdigest()
+        if key not in twin_runs:
+            twin_runs[key] = timed(lambda: fn(*args, **kw), 0)
+            twin_from[key] = smoke.current
+        twin_last[0] = twin_from[key]
+        return twin_runs[key]
+
+    def from_phase() -> str:
+        """Where `twin`'s last plain time was taken, if in an earlier phase."""
+        return "" if twin_last[0] == smoke.current else f" (its run in phase {twin_last[0]})"
+
+    def k1_twin(*args, **kw):
+        """K1's plain twin through `twin` (the plain routes' forward_fn)."""
+        return twin(k1_plain.chain_dp_forward, *args, **kw)[1]
+
+    def k3_twin(*args):
+        """K3's plain twin through `twin` (the plain routes' hw_fn)."""
+        return twin(k3_plain.hw_distance_batch, *args)[1]
+
+    scoring = dict(ins=-1, dele=-1, mismatch=-1, match=1)  # the pipeline's default, spelt out
+    plain_route = dict(forward_fn=k1_twin,
                        identity_fn=k2_plain.nw_identity_batch,
                        packed_fn=k2_plain.nw_identity_packed_both_plain,
-                       hw_fn=k3_plain.hw_distance_batch)
+                       hw_fn=k3_twin)
     tsvs = ("final_decomposition_raw.tsv", "final_decomposition.tsv",
             "final_decomposition_alt.tsv")
     work = tempfile.TemporaryDirectory()
@@ -484,12 +523,18 @@ def main(only: list[str]) -> int:
 
     def plain_k1(key, args, kw, state_dtype):
         """The plain twin's outputs on these inputs, run once a `key` (the
-        inputs' digest): K1's routes and cluster sizes are held to one run
-        of it. k1_checks empties the memo when it ends."""
+        inputs' digest, max_blocks aside): K1's routes and cluster sizes
+        are held to one run of it. A max_blocks of a later call takes the
+        twin's own walk (ops/chain_dp.block_walk) over that run's end and
+        spend, which is the rest of what chain_dp_forward computes for it.
+        k1_checks empties the memo when it ends."""
         if (key, state_dtype) not in plain_memo:
             plain_memo[key, state_dtype] = k1_plain.chain_dp_forward(
-                *args, state_dtype=state_dtype, **kw)
-        return plain_memo[key, state_dtype]
+                *args, state_dtype=state_dtype, **{**kw, "max_blocks": 0})
+        blocks, counts, debug = plain_memo[key, state_dtype]
+        if kw["max_blocks"]:
+            blocks, counts = k1_plain.block_walk(debug[1], debug[2], args[1], kw["max_blocks"])
+        return blocks, counts, debug
 
     def k1_int16_case(args, kw, lens_np, what, cluster_size, key):
         """K1's int16 state on both routes (the large one at `cluster_size`
@@ -533,7 +578,8 @@ def main(only: list[str]) -> int:
         kernel = kernel or k1_name(k1_body(*mono_np.shape[-2:]), mono_np.shape[-1], 4)
         kw = dict(ins=sc[0], dele=sc[1], mismatch=sc[2], match=sc[3],
                   max_blocks=max_blocks, return_debug=True)
-        key = hashlib.sha256(repr([(a.shape, a.dtype.str) for a in arrays] + sorted(kw.items()))
+        same = sorted((k, v) for k, v in kw.items() if k != "max_blocks")
+        key = hashlib.sha256(repr([(a.shape, a.dtype.str) for a in arrays] + same)
                              .encode() + b"".join(a.tobytes() for a in arrays)).hexdigest()
         if int16:
             return k1_int16_case(args, kw, lens_np, what, cluster_size, key)
@@ -980,7 +1026,7 @@ def main(only: list[str]) -> int:
                 raise AssertionError(f"golden x {what}: launches {got}")
             launches[body] = got[body]
             t0 = time.perf_counter()
-            plain_kw = dict(forward_fn=k1_plain.chain_dp_forward) if what.endswith("variants") \
+            plain_kw = dict(forward_fn=k1_twin) if what.endswith("variants") \
                 else plain_route
             pipeline.run(read_fa, fa, out_dir=plain_dir, second_best=True, device="cuda",
                          **plain_kw)
@@ -1290,13 +1336,13 @@ def main(only: list[str]) -> int:
             if [x - y for x, y in zip(after, before)] != want_launch:
                 raise AssertionError(f"{what}: launches {before} -> {after} on the {took} route")
             name = "hw_filter" + ("" if took == "thread" else "_" + took)
-            smoke.same(name, what, got, k3_plain.hw_distance_batch(*args))
+            smoke.same(name, what, got, k3_twin(*args))  # one twin run for every route
             if seg_cols is None:
                 seg_cols = 0 if took == "wide" else k3.plan(
                     args[0].shape[0], *args[2].shape, args[0].shape[1], 0, took)[2]
                 seg_cols = 0 if seg_cols >= args[0].shape[1] else seg_cols
             smoke.same(name, what + " (mirror)", got,
-                       k3_plain.hw_distance_myers(*args, route=took, seg_cols=seg_cols))
+                       twin(k3_plain.hw_distance_myers, *args, route=took, seg_cols=seg_cols)[1])
             return got
 
         def rand_case(B, W, M, L, alphabet=5):
@@ -1425,6 +1471,27 @@ def main(only: list[str]) -> int:
         print(f"K3: 64 windows x 5500 x the 264-monomer library (plan "
               f"{k3.plan(64, *mono.shape, 5500, 0)}) bit-equal to the plain twin and the mirror")
 
+    def stress_run():
+        """The port's kernel stress (scripts/stress_kernel.py and
+        stress_rescoring.py, their main in this process) at a fixed seed:
+        one case of every K1 stratum (the nine bodies, int32 and int16)
+        against the NumPy oracle, the int16 refusal, and 17 cases of K2
+        (every C from 1 to 16 and the strips, both entries) and K3 (the
+        thread and warp routes in one segment and in several, the wide
+        route) against their twins and the spec. Fails on any failure and
+        where a stratum got no case."""
+        from stringdecomposer_tpu_torch.scripts import stress_kernel, stress_rescoring
+
+        k1_cases, k23_cases = {}, {}
+        rc = (stress_kernel.main([str(len(stress_kernel.STRATA)), "19"], k1_cases),
+              stress_rescoring.main([str(len(stress_rescoring.K2_STRATA)), "19"], k23_cases))
+        empty = [k for d in (k1_cases, k23_cases) for k, n in d.items() if k != "failures" and not n]
+        if any(rc) or empty or len(k1_cases) != len(stress_kernel.STRATA) + 1:
+            raise AssertionError(f"stress: exit codes {rc}, strata without a case {empty}")
+        print(f"stress: {sum(k1_cases.values())} K1 cases over {len(k1_cases) - 1} strata, "
+              f"{k23_cases['k2 batch']} K2 and K3 cases over {len(k23_cases) - 1} strata, "
+              "0 failures")
+
     def ed_thr_run():
         cases = []
         for name in ("ed_thr_cases.json", "ed_thr_cases_b.json"):
@@ -1512,7 +1579,7 @@ def main(only: list[str]) -> int:
             raise AssertionError(f"trimers --ed_thr 10: K3 launches {got}")
         launches["hw_filter_warp"] = got["hw_filter_warp"]
         pipeline.run(read_fa, fa, out_dir=d["plain"], second_best=True, device="cuda", ed_thr=10,
-                     hw_fn=k3_plain.hw_distance_batch)
+                     hw_fn=k3_twin)
         torch.cuda.synchronize()
         same_files(d["kernel"], d["plain"], "trimers --ed_thr 10")
         print(f"golden x DXZ1 trimers --ed_thr 10: K3's warp route, three TSVs equal to the route "
@@ -1529,8 +1596,7 @@ def main(only: list[str]) -> int:
         if got["hw_filter_wide"] <= 0 or got["hw_filter"] or got["hw_filter_warp"]:
             raise AssertionError(f"wide --ed_thr 10: K3 launches {got}")
         launches["hw_filter_wide"] = got["hw_filter_wide"]
-        res["plain"] = pipeline.decompose_reads(reads, monos, cfg, "cuda",
-                                                hw_fn=k3_plain.hw_distance_batch)
+        res["plain"] = pipeline.decompose_reads(reads, monos, cfg, "cuda", hw_fn=k3_twin)
         names = [m.name for m in monos]
         raw = {k: "".join(r + "\n" for rn, b in v for r in format_raw_rows(rn, b, names))
                for k, v in res.items()}
@@ -2187,13 +2253,13 @@ def main(only: list[str]) -> int:
         cap = 5500 // 8
         blocks_out = len(wins) * (cap * 16 + 4)
         k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 10)
-        p, want = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap), 0)
+        p, want = twin(k1_plain.chain_dp_forward, *args, max_blocks=cap, **scoring)
         smoke.same("chain_dp_lanes", "golden shape blocks", got[0], want[0])
         smoke.same("chain_dp_lanes", "golden shape counts", got[1], want[1])
         timing["chain_dp_lanes"] = (statistics.median(k), statistics.median(p))
         bd = bounds["chain_dp_lanes"] = k1_bound(args[0], args[2], args[3], 4, blocks_out=blocks_out)
         print(f"K1 lanes body + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, "
-              f"L={mono.shape[1]}: kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
+              f"L={mono.shape[1]}: kernel {spread(k)}; plain {spread(p)}{from_phase()}; bound {bd[0]:.3f} ms "
               f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
         # several rows a warp: the library's first 64 and 128 rows (L = 192),
         # held to and timed beside the cluster body at its plan's size on
@@ -2212,15 +2278,15 @@ def main(only: list[str]) -> int:
                   f"kernel {spread(k)}; bound {bd[0]:.3f} ms ({bd[1]}), "
                   f"{100 * bd[0] / statistics.median(k):.2f} % of it; the cluster body at cs = "
                   f"{plan_at(M, mlib.shape[1], 4, len(wins))[0]}: {spread(kc)}")
-        plain_runs = {}  # what -> (plain ms, plain outputs): one plain run a shape
-
         def k1_time(name, what, records, fn=chain_dp_forward_cuda, reps=5, plain=True, body=None,
                     windows=None):
             """K1 + walk at the golden windows (or `windows`) x `records` with
             RC, timed, on the body the rule picks or on `body`; with `plain`,
-            held to the plain twin (run once a shape) and kept as `name`'s row
-            of the kernels line, else timed only (and held to the twin where
-            an earlier call ran it on the shape: a comparison line)."""
+            held to the plain twin (`twin`: its run in an earlier phase, the
+            plain routes', where one ran on these inputs) and kept as
+            `name`'s row of the kernels line, else timed only (and held to
+            the twin where an earlier call ran it on the shape: a comparison
+            line)."""
             wb_, wl_ = windows or (wb, wl)
             _, (mono_np, lens_np) = mono_set(records)
             a = [torch.from_numpy(x).to(dev) for x in (wb_, wl_, mono_np, lens_np)]
@@ -2240,21 +2306,21 @@ def main(only: list[str]) -> int:
                 G, C, _ = k1.tiled_layout(M if kind == "tiled" else plan[1], L)
                 line += f" (G = {G} warps a row, C = {C})"
             line += f": kernel {spread(k)}"
-            if plain and what not in plain_runs:
-                plain_runs[what] = timed(lambda: k1_plain.chain_dp_forward(*a, max_blocks=cap), 0)
-            if what in plain_runs:
-                p, want = plain_runs[what]
+            if plain or what in twin_shapes:
+                twin_shapes.add(what)
+                p, want = twin(k1_plain.chain_dp_forward, *a, max_blocks=cap, **scoring)
                 smoke.same(name, f"golden windows x {what} blocks", got[0], want[0])
                 smoke.same(name, f"golden windows x {what} counts", got[1], want[1])
             if plain:
                 timing[name] = (statistics.median(k), statistics.median(p))
                 bounds[name] = bd
-                line += f"; plain {spread(p)}"
+                line += f"; plain {spread(p)}{from_phase()}"
             else:
                 line += " (comparison, not the kernels line's row)"
             print(f"{line}; bound {bd[0]:.3f} ms ({bd[1]}), "
                   f"{100 * bd[0] / statistics.median(k):.2f} % of it")
 
+        twin_shapes = set()  # the shapes whose plain twin ran: one plain run a shape
         # the lanes body's long rows (L = 360 and 512) and the tiled body past
         # them (L = 528, and the HOR unit at 2,056), beside the chunked body
         # on the trimers: the golden windows x the DXZ1 dimers, the trimers
@@ -2304,7 +2370,7 @@ def main(only: list[str]) -> int:
                 _, (mono, lens) = mono_set(records)
             args = [torch.from_numpy(a).to(dev) for a in (wb_, wl_, mono, lens)]
             k, got = timed(lambda: hw_distance_batch_cuda(*args), reps)
-            p, want = timed(lambda: k3_plain.hw_distance_batch(*args), 0)
+            p, want = twin(k3_plain.hw_distance_batch, *args)
             smoke.same(name, what, got, want)
             W, (M, L) = args[0].shape[1], mono.shape
             wl_sum = int(args[1].clamp(0, W).sum())
@@ -2318,7 +2384,7 @@ def main(only: list[str]) -> int:
                 bounds[name] = bd
             print(f"K3 {name}, {what} (B={args[0].shape[0]}, W={W}, M={M}, L={L}; plan "
                   f"{k3.plan(args[0].shape[0], M, L, W, 0)}): kernel {spread(k)}; plain "
-                  f"{spread(p)}; bound {bd[0]:.4f} ms ({bd[1]}, Myers words at "
+                  f"{spread(p)}{from_phase()}; bound {bd[0]:.4f} ms ({bd[1]}, Myers words at "
                   f"{OPS_PER_CELL['k3_word']} ops), {100 * bd[0] / statistics.median(k):.2f} % "
                   f"of it; the cell DP's bound {cell_bd[0]:.4f} ms")
         # K1's cluster body at the golden windows x the library
@@ -2328,7 +2394,7 @@ def main(only: list[str]) -> int:
         if k1_body(*mono.shape) != "cluster":
             raise AssertionError(f"library: body {k1_body(*mono.shape)}")
         k, got = timed(lambda: chain_dp_forward_cuda(*args, max_blocks=cap), 10)
-        p, want = timed(lambda: k1_plain.chain_dp_forward(*args, max_blocks=cap), 0)
+        p, want = twin(k1_plain.chain_dp_forward, *args, max_blocks=cap, **scoring)
         smoke.same("chain_dp_cluster", "golden windows x library blocks", got[0], want[0])
         smoke.same("chain_dp_cluster", "golden windows x library counts", got[1], want[1])
         timing["chain_dp_cluster"] = (statistics.median(k), statistics.median(p))
@@ -2337,7 +2403,7 @@ def main(only: list[str]) -> int:
         print(f"K1 cluster body + walk, {len(wins)} windows x 5500, M={mono.shape[0]}, "
               f"L={mono.shape[1]} (cs = {plan[0]}, R = {plan[1]}, {plan[2]}, {plan[3]} threads, "
               f"{plan[4]} bytes of shared memory; {k1.cluster_occupancy(*mono.shape, 4, plan[0], 19)} "
-              f"clusters at once): kernel {spread(k)}; plain {spread(p)}; bound {bd[0]:.3f} ms "
+              f"clusters at once): kernel {spread(k)}; plain {spread(p)}{from_phase()}; bound {bd[0]:.3f} ms "
               f"({bd[1]}), {100 * bd[0] / statistics.median(k):.2f} % of it")
         # the cluster body's long rows and the tiled cluster body past them,
         # beside the chunked large route: the golden windows x the 150 dimer
@@ -2869,7 +2935,7 @@ def main(only: list[str]) -> int:
 
         for name, what, args, kw, kern, plain in cases:
             k, got = timed(lambda: kern(*args, **kw), 5)
-            p, want = timed(lambda: plain(*args, **{a: v for a, v in kw.items() if a != "route"}), 0)
+            p, want = twin(plain, *args, **{a: v for a, v in kw.items() if a != "route"})
             smoke.same(name, what, got, want)
             timing[name] = (statistics.median(k), statistics.median(p))
             q_len, t_len = int(args[1][0]), int(args[3][0])
@@ -2882,7 +2948,7 @@ def main(only: list[str]) -> int:
                 ops = OPS_PER_CELL["semi_word"] * -(-q_len // 32) * t_len
             bounds[name] = bound(4 * (q_len + t_len + 2) + out_bytes(got), ops)
             print(f"{what}: kernel {spread(k)}, {1e6 * statistics.median(k) / t_len:.1f} ns a "
-                  f"target column; plain {spread(p)}; bound {bounds[name][0]:.4f} ms "
+                  f"target column; plain {spread(p)}{from_phase()}; bound {bounds[name][0]:.4f} ms "
                   f"({bounds[name][1]})")
         # the whole 40 kbp band (align_wide's last k-doubling level, k = 8,192):
         # K4's wide route in mask mode and K5's, kernel only
@@ -3120,7 +3186,7 @@ def main(only: list[str]) -> int:
     phases = [
         ("setup", setup), ("k1", k1_checks), ("k2", k2_checks), ("golden", golden_run),
         ("joined", joined_runs), ("chunked", chunked_run), ("scale", scale_run),
-        ("k3", k3_checks), ("ed_thr", ed_thr_run), ("ed_thr_long", ed_thr_long),
+        ("k3", k3_checks), ("stress", stress_run), ("ed_thr", ed_thr_run), ("ed_thr_long", ed_thr_long),
         ("library", library_run), ("modes", modes_run), ("parallel", parallel_run),
         ("k4", k4_checks), ("k5", k5_checks),
         ("k6", k6_checks), ("align_wide", align_wide), ("align", align_checks),

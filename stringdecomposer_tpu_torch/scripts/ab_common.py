@@ -3,7 +3,8 @@ banded_ab.py) share: the import of the checkout under ROOT with its kernels
 built, the run's header (the card's name and power limit, the checkout's
 ptxas lines), CUDA-event timing and the end-to-end runner with stage spans.
 The scripts run as files, so they import this module, and workloads.py,
-from beside them, whichever checkout they time."""
+from beside them, whichever checkout they time. The benches run as modules
+(ablate_chain.py, stress_m_scale.py) take the card's header from here."""
 
 from __future__ import annotations
 
@@ -46,9 +47,13 @@ def checkout(root: str, kernels: str | tuple[str, ...], who: str):
             entry = m.group(1) + (m.group(2) or "")
         elif any(k in entry for k in kernels) and ("registers" in ln or "spill" in ln):
             ptxas.append(f"{entry}: {ln.strip()}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    return torch, {"root": root, "gpu": smi, "ptxas": ptxas}
+    return torch, {"root": root, "gpu": gpu_header(), "ptxas": ptxas}
+
+
+def gpu_header() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def ms(torch, fn, reps: int) -> list[float]:

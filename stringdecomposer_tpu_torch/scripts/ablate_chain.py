@@ -34,7 +34,6 @@ Variants: base nochain ladder4 ladder2 noemit noshift (default: all)
 from __future__ import annotations
 
 import statistics
-import subprocess
 import sys
 
 import numpy as np
@@ -43,6 +42,7 @@ import torch
 from ..ops import chain_dp as plain
 from ..ops import chain_dp_cuda as k1
 from ..ops.chain_dp_cuda import chain_dp_ablate_cuda
+from .ab_common import gpu_header
 
 # JAX variants that are TPU formulations of base's own function
 TPU_ONLY = {
@@ -140,14 +140,6 @@ def time_variants(variants, inputs, large: bool, reps: int, cs: int | None) -> d
     return ms
 
 
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-
-
 def bench(variants, reps: int = 5, seed: int = 0, out=print, shapes=SHAPES) -> dict:
     """The timing table: {(shape name, variant): [ms, ...]} at `shapes`
     (SHAPES, the JAX bench's, unless a caller cuts them), base first where
@@ -156,7 +148,7 @@ def bench(variants, reps: int = 5, seed: int = 0, out=print, shapes=SHAPES) -> d
     variants = sorted(variants, key=lambda v: v != "base")
     for name, B, W, M, large in shapes:
         cs = cluster_size(M, B, "cuda") if large else None
-        out(card())
+        out(gpu_header())
         out(f"{name}: B = {B} windows x W = {W} positions, M = {M}, L = {L}, monomer length "
             f"{MONO_LEN}{f', clusters of {cs} blocks' if large else ''}, {reps} timed calls "
             "after a warm-up, in rounds over the variants")

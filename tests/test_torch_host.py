@@ -369,6 +369,31 @@ def test_hook_blocks_the_jax_package(tmp_path):
     assert res.returncode != 0 and "blocked import of stringdecomposer_tpu" in res.stderr
 
 
+STRESS = {"stress_kernel": ["3", "5", "--device", "cpu", "--body", "lanes", "split"],
+          "stress_rescoring": ["3", "5", "--device", "cpu"],
+          "stress_m_scale": ["--quick", "--device", "cpu"]}
+
+
+@pytest.mark.parametrize("name", sorted(STRESS))
+def test_stress_scripts_run_with_the_jax_package_blocked(tmp_path, name):
+    """The port's stress scripts import nothing of the JAX package or JAX
+    (in their source, and in a run of their main on the CPU under the CLI
+    test's import hook), unlike the JAX project's scripts of the same name."""
+    path = PORT / "scripts" / f"{name}.py"
+    bad = [(line, mod) for line, mod in _imports(path)
+           if mod.split(".")[0] in ("stringdecomposer_tpu", "jax", "jaxlib")]
+    assert not bad, bad
+    code = HOOK.replace("from stringdecomposer_tpu_torch import cli\n"
+                        "rc = cli.main(sys.argv[1:])\n",
+                        f"from stringdecomposer_tpu_torch.scripts import {name}\n"
+                        f"rc = {name}.main(sys.argv[1:])\n")
+    assert code != HOOK
+    res = subprocess.run([sys.executable, "-c", code, *STRESS[name]], capture_output=True,
+                         text=True, env=ENV, cwd=tmp_path, timeout=600)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "DONE: 0 failures" in res.stdout
+
+
 def test_write_raw_tsv(tmp_path):
     """write_raw_tsv of each package on the same blocks: equal bytes."""
     rng = np.random.default_rng(10)
