@@ -49,7 +49,14 @@ the card against the CPU. Phase `stress` runs the port's randomized kernel
 stress at a fixed seed (scripts/stress_kernel.py: a case of every K1 body in
 int32 and int16 against the NumPy oracle; scripts/stress_rescoring.py: K2 at
 every C and in strips, both entries, K3 on every route, against their
-twins). K2 runs through both of its entries: the cross
+twins). Phase `jax_refs` runs every case of the JAX package's references
+(stringdecomposer_tpu_torch/test_data/jax_refs/, written by
+tests/test_torch_jax_refs.py on the CPU: one case a K1 body of a routed
+path, the golden read or a cut of it, or a unit's two copies, through the
+CLI, pipeline.run or decompose_reads) on the kernel route, or takes an
+earlier phase's run on the same input, and holds every output to the JAX
+package's sha256, with the case's K1 body launched and no other. K2 runs
+through both of its entries: the cross
 entry (`nw_identity_cross`, every block x every monomer) on the
 --second-best path, the pairwise one (`nw_identity`) in light mode; its
 times are of the launches alone, apart from the packed call.
@@ -66,6 +73,7 @@ import hashlib
 import json
 import logging
 import os
+import pathlib
 import re
 import socket
 import statistics
@@ -77,7 +85,8 @@ import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-DATA = os.path.join(HERE, "stringdecomposer_tpu", "test_data")
+DATA = os.path.join(HERE, "stringdecomposer_tpu_torch", "test_data")
+REFS = os.path.join(DATA, "jax_refs")  # the JAX package's outputs (tests/test_torch_jax_refs.py)
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
 VARIANTS = ("base", "nochain", "ladder4", "ladder2", "noemit", "noshift")  # ops/chain_dp.VARIANTS
 ABLATE = tuple(f"ablate_{'large_' if large else ''}{v}" for large in (False, True) for v in VARIANTS)
@@ -298,8 +307,8 @@ def main(only: list[str]) -> int:
     from stringdecomposer_tpu_torch.report import format_raw_rows
     from stringdecomposer_tpu_torch.runtime import build
     from stringdecomposer_tpu_torch.scripts.workloads import (
-        align_pairs, hor_library, hor_unit, joined_set, joined_variants, synth_pair, synthesize,
-        wide_pairs as workload_wide_pairs,
+        align_pairs, hor_library, hor_unit, joined_set, joined_variants, ref_input, synth_pair,
+        synthesize, unit_pair, wide_pairs as workload_wide_pairs,
     )
 
     def k1_name(body: str, L: int, state_bytes: int) -> str:
@@ -414,8 +423,27 @@ def main(only: list[str]) -> int:
     for records, path in joined.values():
         write_fasta(path, records)
     dimers, trimers, hor = joined["dimers"][0], joined["trimers"][0], joined["hor unit"][0]
+    # a unit of 100 DXZ1 monomers (~17 kbp) and of 200 (~34 kbp) against a
+    # read of two copies of it: ([read], unit with RC)
+    units = {n: unit_pair(load_fasta(dxz1), n, np.random.default_rng(0)) for n in (100, 200)}
     variants, trimer_variants = joined["dimers variants"][0], joined["trimers variants"][0]
     cache: dict[str, object] = {}
+    # the kernel route's runs of earlier phases by their input (`run_key`):
+    # phase jax_refs holds those to the JAX package's references, adding no run
+    made: dict[str, dict] = {}
+    default_opts = dict(second_best=True, ed_thr=-1, batch_size=5000, overlap=500)
+
+    def run_key(reads, monos, options: dict, out: str) -> str:
+        """The digest of a run's input: its reads and monomer set (names and
+        sequences, the set as the run takes it), its options and what it
+        writes ("tsvs": pipeline.run's three TSVs, or the CLI's, which runs
+        it; "raw": decompose_reads' raw rows)."""
+        h = hashlib.sha256(json.dumps([options, out], sort_keys=True).encode())
+        for recs in (reads, monos):
+            for r in recs:
+                h.update(f"{r.name}\t{r.seq}\n".encode())
+            h.update(b"|")
+        return h.hexdigest()
 
     class StreamLog(logging.Handler):
         """Keeps the DP stream's closing line of each run ("DP stream: N
@@ -1032,6 +1060,8 @@ def main(only: list[str]) -> int:
                          **plain_kw)
             torch.cuda.synchronize()
             same_files(kernel_dir, plain_dir, f"golden x {what}")
+            made[run_key(load_fasta(read_fa), records, default_opts, "tsvs")] = dict(
+                out=kernel_dir, got=got, secs=secs["kernel"], phase="joined")
             _, (mono, _) = mono_set(records)
             with open(os.path.join(kernel_dir, tsvs[0])) as f:
                 longest = max(int(r.split("\t")[3]) - int(r.split("\t")[2]) + 1 for r in f)
@@ -1042,7 +1072,7 @@ def main(only: list[str]) -> int:
                   f"the other {time.perf_counter() - t0:.3f} s; K2 for the longest block "
                   f"({longest} bp): C = {cells_per_lane(longest)} rows a lane, "
                   f"{'strips' if longest > 32 * C_MAX else 'one strip'} of {32 * C_MAX} rows")
-        reads, monos = wide_case()
+        reads, monos = units[100]
         res = {}
 
         def unit_run():
@@ -1067,6 +1097,8 @@ def main(only: list[str]) -> int:
                for k in ("kernel", "plain")}
         if raw["kernel"] != raw["plain"] or not raw["kernel"]:
             raise AssertionError("17 kbp unit: raw rows differ from the route with K1's plain twin")
+        made[run_key(reads, monos, dict(default_opts, second_best=False), "raw")] = dict(
+            out=raw["kernel"], got=got, secs=res["secs"], phase="joined")
         print(f"{len(reads[0].seq)} bp x {len(monos[0].seq)} bp unit (M={len(monos)}, {body}): "
               f"raw rows equal to the route with K1's plain twin; "
               f"{raw['kernel'].count(chr(10))} rows; kernel route {res['secs']:.3f} s, the "
@@ -1083,7 +1115,7 @@ def main(only: list[str]) -> int:
                     joined_variants(dx, 1, 2400, np.random.default_rng(0))), "chain_dp_grid"),
                ("golden x 256 DXZ1 HOR-unit variants", golden, add_reverse_complement(
                    joined_variants(dx, 12, 256, np.random.default_rng(0))), "chain_dp_grid_tiled"),
-               ("two copies x a 200-monomer unit", *wide_case(200), "chain_dp_split"))
+               ("two copies x a 200-monomer unit", *units[200], "chain_dp_split"))
         for what, reads, monos, body in big:
             res = {}
 
@@ -1107,6 +1139,8 @@ def main(only: list[str]) -> int:
                    for k in ("kernel", "plain")}
             if raw["kernel"] != raw["plain"] or not raw["kernel"]:
                 raise AssertionError(f"{what}: raw rows differ from the route with K1's plain twin")
+            made[run_key(reads, monos, dict(default_opts, second_best=False), "raw")] = dict(
+                out=raw["kernel"], got=got, secs=res["secs"], phase="joined")
             L = (max(len(m.seq) for m in monos) + 7) // 8 * 8
             print(f"{what} (M={len(monos)}, L={L}, {body}): raw rows equal to "
                   f"the route with K1's plain twin; {raw['kernel'].count(chr(10))} rows; kernel "
@@ -1536,29 +1570,25 @@ def main(only: list[str]) -> int:
         for ed in (10, -1):
             for name, kw in (("kernel", {}), ("plain", plain_route)):
                 d = os.path.join(out, f"ii_{ed}_{name}")
-                t0 = time.perf_counter()
-                pipeline.run(read_fa, library_fa, out_dir=d, second_best=True, device="cuda",
-                             ed_thr=ed, **kw)
-                torch.cuda.synchronize()
-                secs[name] = time.perf_counter() - t0
+
+                def run_ii(d=d, ed=ed, kw=kw, name=name):
+                    t0 = time.perf_counter()
+                    pipeline.run(read_fa, library_fa, out_dir=d, second_best=True, device="cuda",
+                                 ed_thr=ed, **kw)
+                    torch.cuda.synchronize()
+                    secs[name] = time.perf_counter() - t0
+
+                if kw:
+                    run_ii()
+                else:
+                    got = drive(f"run (ii) golden x library --ed_thr {ed} (kernel route)", run_ii)
+                    made[run_key(load_fasta(read_fa), library, dict(default_opts, ed_thr=ed),
+                                 "tsvs")] = dict(out=d, got=got, secs=secs[name], phase="ed_thr")
             same_files(os.path.join(out, f"ii_{ed}_kernel"), os.path.join(out, f"ii_{ed}_plain"),
                        f"run (ii) ed_thr {ed}")
             print(f"run (ii) golden x library --ed_thr {ed}: three TSVs equal between routes; "
                   f"{n_rows(os.path.join(out, f'ii_{ed}_kernel'))} assignments; kernel route "
                   f"{secs['kernel']:.3f} s, plain route {secs['plain']:.3f} s")
-
-    def wide_case(n=100):
-        """A macrosatellite-like workload past the K3 warp route's 16,384 bp:
-        one unit of n DXZ1 monomers (100: ~17 kbp; 200: ~34 kbp, a row past
-        one block for K1; `workloads.joined_set`) and a read of two copies of
-        it with 1 % of bases substituted (seed 0)."""
-        unit = joined_set(load_fasta(dxz1), n)[0]
-        r = np.random.default_rng(0)
-        seq = np.array(list(unit.seq * 2))
-        hit = r.choice(len(seq), len(seq) // 100, replace=False)
-        seq[hit] = [("ACGT".replace(c, ""))[int(r.integers(3))] for c in seq[hit]]
-        return [Record("read_x2", "".join(seq))], add_reverse_complement([Record(f"dxz1_x{n}",
-                                                                                 unit.seq)])
 
     def ed_thr_long():
         """--ed_thr past the thread route: the golden read against the DXZ1
@@ -1584,7 +1614,7 @@ def main(only: list[str]) -> int:
         same_files(d["kernel"], d["plain"], "trimers --ed_thr 10")
         print(f"golden x DXZ1 trimers --ed_thr 10: K3's warp route, three TSVs equal to the route "
               f"with K3's plain twin; {n_rows(d['kernel'])} assignments")
-        reads, monos = wide_case()
+        reads, monos = units[100]
         cfg = pipeline.PipelineConfig(ed_thr=10)
         res = {}
 
@@ -1604,6 +1634,105 @@ def main(only: list[str]) -> int:
             raise AssertionError("wide --ed_thr 10: raw rows differ from the route with K3's plain twin")
         print(f"{len(reads[0].seq)} bp x {len(monos[0].seq)} bp unit --ed_thr 10: K3's wide route, "
               f"raw rows equal to the route with K3's plain twin; {raw['kernel'].count(chr(10))} rows")
+
+    def jax_refs_run():
+        """Every case of test_data/jax_refs/index.json (the JAX package's
+        outputs on the CPU, tests/test_torch_jax_refs.py) on the kernel
+        route: the input rebuilt from the entry's fields
+        (`workloads.ref_input`), run through the entry's entry point (the
+        CLI, pipeline.run or decompose_reads), or the run of an earlier phase
+        on the same input (`made`); the entry's K1 body launched and no
+        other; every output's sha256 equal to the JAX package's. A missing or
+        unreadable reference fails the phase."""
+        import gzip
+
+        with open(os.path.join(REFS, "index.json")) as f:
+            index = json.load(f)
+        if not index:
+            raise AssertionError("jax_refs: index.json holds no case")
+        bad = []
+        for name, e in index.items():
+            with open(os.path.join(REFS, e["raw_gz"]), "rb") as f:
+                want_raw = gzip.decompress(f.read())
+            raw_name = "raw_rows.tsv" if e["entry"] == "decompose_reads" else tsvs[0]
+            if hashlib.sha256(want_raw).hexdigest() != e["outputs"][raw_name]["sha256"]:
+                raise AssertionError(f"jax_refs {name}: {e['raw_gz']} is not the entry's raw TSV")
+            reads, monos = ref_input(e, DATA)
+            opts = e["options"]
+            kind = "raw" if e["entry"] == "decompose_reads" else "tsvs"
+            key = run_key(reads, monos, opts, kind)
+            how = f"the {made[key]['phase']} phase's run" if key in made else "its own run"
+            if key not in made:
+                d = os.path.join(work.name, f"jax_refs_{name}")
+                os.makedirs(d)
+                read_fa_, mono_fa = os.path.join(d, "reads.fa"), os.path.join(d, "monomers.fa")
+                write_fasta(read_fa_, reads)
+                write_fasta(mono_fa, monos)
+                res = {}
+
+                def ref_run(e=e, d=d, read_fa_=read_fa_, mono_fa=mono_fa, reads=reads,
+                            monos=monos, opts=opts):
+                    t0 = time.perf_counter()
+                    out = os.path.join(d, "out")
+                    if e["entry"] == "cli":
+                        rc = cli.main([read_fa_, mono_fa, "-o", out, *e["argv"]])
+                        if rc != 0:
+                            raise AssertionError(f"jax_refs {name}: CLI exit code {rc}")
+                    elif e["entry"] == "run":
+                        pipeline.run(read_fa_, mono_fa, out_dir=out, device="cuda", **opts)
+                    else:
+                        cfg = pipeline.PipelineConfig(part_size=opts["batch_size"],
+                                                      overlap=opts["overlap"], ed_thr=opts["ed_thr"])
+                        got = pipeline.decompose_reads(reads, monos, cfg, "cuda")
+                        names = [m.name for m in monos]
+                        out = "".join(r + "\n" for rn, b in got
+                                      for r in format_raw_rows(rn, b, names))
+                    torch.cuda.synchronize()
+                    res.update(out=out, secs=time.perf_counter() - t0)
+
+                got = drive(f"jax_refs {name} ({e['entry']}, kernel route)", ref_run)
+                made[key] = dict(out=res["out"], got=got, secs=res["secs"], phase="jax_refs")
+            run = made[key]
+            body = k1_name(e["body"], e["L"], 4)
+            got = run["got"]
+            need = [body] + (["nw_identity_cross"] if opts["second_best"] else []) + (
+                ["hw_filter"] if opts["ed_thr"] > -1 else [])
+            other = [k for k in K1_BODY_NAMES if k != body and got[k]]
+            if any(got[k] <= 0 for k in need) or other:
+                counts = {k: got[k] for k in need}
+                raise AssertionError(f"jax_refs {name}: {need} must launch and no other K1 body: "
+                                     f"{counts}, others {other}")
+            files = {raw_name: run["out"].encode()} if kind == "raw" else {
+                f: pathlib.Path(run["out"], f).read_bytes() for f in e["outputs"]}
+            differ = [f for f, data in files.items()
+                      if hashlib.sha256(data).hexdigest() != e["outputs"][f]["sha256"]]
+            if differ:
+                bad.append(name)
+                g_rows = files[raw_name].decode().splitlines()
+                w_rows = want_raw.decode().splitlines()
+                i = next((i for i, (a, b) in enumerate(zip(g_rows, w_rows)) if a != b),
+                         min(len(g_rows), len(w_rows)))
+                print(f"jax_refs {name}: {differ} differ from the JAX package's; raw rows "
+                      f"{len(g_rows)} (JAX {len(w_rows)}), first difference at row {i}:\n"
+                      f"  port {g_rows[i] if i < len(g_rows) else '(none)'}\n"
+                      f"  JAX  {w_rows[i] if i < len(w_rows) else '(none)'}")
+                continue
+            windows = len(make_windows(e["read_bp"], opts["batch_size"], opts["overlap"]))
+            M = e["M_dp"]
+            plan = (plan_at(M, e["L"], 4, min(windows, 24)) if e["body"] in ("cluster",
+                                                                            "cluster_tiled")
+                    else k1.grid_plan(M, e["L"], 4, min(windows, 24),
+                                      lambda p: k1.grid_occupancy(M, e["L"], 4, p))
+                    if e["body"] in k1.GRID_BODIES else None)
+            rows = files[raw_name].count(b"\n")
+            filtered = f" ({M} after the filter)" if M != e["M"] else ""
+            print(f"jax_refs {name}: M={e['M']}{filtered}, L={e['L']}, {body}"
+                  f"{f' plan {plan[:3]}' if plan else ''}, {e['read_bp']} bp in {windows} windows, "
+                  f"{rows} rows: {', '.join(files)} equal to the JAX package's bytes; kernel route "
+                  f"{run['secs']:.3f} s ({how}; JAX on the CPU {e['jax']['seconds']} s)")
+        if bad:
+            raise AssertionError(f"jax_refs: {bad} differ from the JAX package's bytes")
+        print(f"jax_refs: {len(index)} cases equal to the JAX package's bytes")
 
     def library_run():
         fa = assembly_fa()
@@ -2354,7 +2483,7 @@ def main(only: list[str]) -> int:
         asm_codes = encode(load_fasta(assembly_fa())[0].seq)
         wb64, wl64 = k1_plain.build_window_batch(
             [asm_codes[o : o + n] for o, n in make_windows(len(asm_codes), 5000, 500)][:64], 5500)
-        wreads, wmonos = wide_case()
+        wreads, wmonos = units[100]
         wcodes = encode(wreads[0].seq)
         wbw, wlw = k1_plain.build_window_batch(
             [wcodes[o : o + n] for o, n in make_windows(len(wcodes), 5000, 500)], 5500)
@@ -3187,7 +3316,8 @@ def main(only: list[str]) -> int:
         ("setup", setup), ("k1", k1_checks), ("k2", k2_checks), ("golden", golden_run),
         ("joined", joined_runs), ("chunked", chunked_run), ("scale", scale_run),
         ("k3", k3_checks), ("stress", stress_run), ("ed_thr", ed_thr_run), ("ed_thr_long", ed_thr_long),
-        ("library", library_run), ("modes", modes_run), ("parallel", parallel_run),
+        ("jax_refs", jax_refs_run), ("library", library_run), ("modes", modes_run),
+        ("parallel", parallel_run),
         ("k4", k4_checks), ("k5", k5_checks),
         ("k6", k6_checks), ("align_wide", align_wide), ("align", align_checks),
         ("align_scale", align_scale), ("p_probe", probe_checks), ("k1_int16", k1_int16_run),

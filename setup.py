@@ -31,6 +31,9 @@ setup(
             "csrc/*.cuh",
             "models/*.txt",
             "runtime/native/*.cpp",
+            "test_data/*.fa",
+            "test_data/*.tsv",
+            "test_data/jax_refs/*",
         ],
     },
     python_requires=">=3.10",

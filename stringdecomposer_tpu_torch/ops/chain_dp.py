@@ -80,11 +80,24 @@ def pair_scan(t: torch.Tensor, payloads: list[torch.Tensor], later_wins,
               steps: int | None = None) -> tuple:
     """Inclusive scan along the last axis of (t, *payloads) where a later
     element replaces the running one only if `later_wins(t_later, t_run)`
-    (a strict comparison, so ties keep the EARLIEST payload). Log-step
-    (Hillis-Steele) form: torch.cummax/cummin keep the LAST index on ties,
-    so their indices cannot carry the payload. `steps` stops after that
-    many doubling steps (the ladder ablations' cut scan over lane totals)."""
+    (a strict comparison, so ties keep the EARLIEST payload); payloads have
+    t's shape. torch.cummax/cummin keep the LAST index on ties, so their
+    indices cannot carry the payload. For torch.gt (torch.lt) the running
+    value is the running max (min), and an element takes over exactly
+    where it beats the running value before it: the payload is the one at
+    the last such index, a running max of their indices (a few launches a
+    call). Other comparisons, and `steps` (the ladder ablations' cut scan
+    over lane totals: that many doubling steps), take the log-step
+    (Hillis-Steele) form."""
     n = t.shape[-1]
+    running = _RUNNING.get(later_wins) if steps is None else None
+    if running is not None and n > 1:
+        best = running(t, dim=-1).values
+        takes = torch.ones(t.shape, dtype=torch.bool, device=t.device)
+        takes[..., 1:] = later_wins(t[..., 1:], best[..., :-1])
+        idx = torch.arange(n, device=t.device).expand(t.shape)
+        at = torch.cummax(torch.where(takes, idx, 0), dim=-1).values
+        return best, [torch.gather(p, -1, at) for p in payloads]
     s, done = 1, 0
     while s < n and (steps is None or done < steps):
         ta, tb = t[..., :-s], t[..., s:]
@@ -97,6 +110,10 @@ def pair_scan(t: torch.Tensor, payloads: list[torch.Tensor], later_wins,
         s *= 2
         done += 1
     return t, payloads
+
+
+# pair_scan's running value for a strict comparison
+_RUNNING = {torch.gt: torch.cummax, torch.lt: torch.cummin}
 
 
 def init_column(windows, mono_b, lens_b, dele, mismatch, match, dtype=torch.int32):

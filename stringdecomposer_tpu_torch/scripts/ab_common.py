@@ -16,7 +16,7 @@ import tempfile
 import time
 from pathlib import Path
 
-DATA = Path(__file__).resolve().parents[2] / "stringdecomposer_tpu" / "test_data"
+DATA = Path(__file__).resolve().parents[1] / "test_data"
 ENTRY = re.compile(r"Compiling entry function '_ZN\w*?_cu_\w{8}\d+([a-z_0-9]+)(I\w*?EE)?")
 
 

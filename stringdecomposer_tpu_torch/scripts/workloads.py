@@ -1,13 +1,18 @@
 """Seeded synthetic workloads of chip_smoke.py and the A/B scripts beside
 this file: a HOR-scale monomer library, monomer sets of joined units
-(dimers, trimers, the whole HOR) and their variants, a centromere-like assembly and the
-alignment API's pairs (those of its wide routes too), all drawn from a numpy.random.default_rng. The
-import below is absolute, so that the A/B scripts can load this file beside
-another checkout's package."""
+(dimers, trimers, the whole HOR) and their variants, a unit of many
+monomers against a read of two copies of it, a centromere-like assembly
+and the alignment API's pairs (those of its wide routes too), all drawn
+from a numpy.random.default_rng; and the inputs of the JAX package's
+reference outputs (`ref_input`: the cases of test_data/jax_refs/index.json).
+The import below is absolute, so that the A/B scripts can load this file
+beside another checkout's package."""
 
 from __future__ import annotations
 
-from stringdecomposer_tpu_torch.io.fasta import Record
+import os
+
+from stringdecomposer_tpu_torch.io.fasta import Record, add_reverse_complement, load_fasta
 
 
 def hor_library(records, rng):
@@ -77,6 +82,64 @@ def joined_variants(records, k: int, n: int, rng):
             seq[p] = "ACGT".replace(seq[p], "")[int(rng.integers(3))]
         out.append(Record(f"v{k}_{j}", "".join(seq)))
     return out
+
+
+def unit_pair(records, n: int, rng):
+    """A macrosatellite-like workload: one unit of the first n monomers
+    joined (`joined_set(records, n)[0]`; from the DXZ1 monomers, n = 100:
+    17,129 bp, past K3's warp route; n = 200: 34,241 bp, a row past one
+    block for K1) and a read of two copies of it with 1 % of its bases
+    substituted at distinct positions. Returns ([the read, `read_x2`], the
+    unit `dxz1_x<n>` with its reverse complement), as decompose_reads takes
+    them; chip_smoke draws it from numpy.random.default_rng(0)."""
+    import numpy as np
+
+    unit = joined_set(records, n)[0]
+    seq = np.array(list(unit.seq * 2))
+    hit = rng.choice(len(seq), len(seq) // 100, replace=False)
+    seq[hit] = [("ACGT".replace(c, ""))[int(rng.integers(3))] for c in seq[hit]]
+    return [Record("read_x2", "".join(seq))], add_reverse_complement([Record(f"dxz1_x{n}",
+                                                                             unit.seq)])
+
+
+# the monomer sets a reference case may name ("set": {"call": ...}), each
+# drawn from the set file's records and the case's own arguments
+SET_CALLS = {
+    None: lambda recs, st, rng: recs,
+    "joined_set": lambda recs, st, rng: joined_set(recs, st["k"]),
+    "joined_variants": lambda recs, st, rng: joined_variants(recs, st["k"], st["n"], rng),
+    "hor_unit": lambda recs, st, rng: hor_unit(recs),
+    "hor_library": lambda recs, st, rng: hor_library(recs, rng),
+}
+
+
+def ref_input(case: dict, data_dir: str):
+    """The reads and monomer set of one case of
+    test_data/jax_refs/index.json, rebuilt from the case's own fields, as
+    its entry point takes them. `case["set"]`: the monomer file under
+    `data_dir` (`file`), the workload drawn from its records (`call`, one
+    of SET_CALLS or "unit_pair") with its arguments and its numpy seed
+    (`seed`). `case["read"]`: the file's first read (`file`), or the read
+    of the set's `unit_pair` draw (`call`), cut to its first `cut` bp (null:
+    whole). A "cli" or "run" case gets its set forward (the pipeline adds
+    the reverse complements, as it does for a FASTA file); a
+    "decompose_reads" case gets it with them (`add_reverse_complement`, as
+    chip_smoke adds them)."""
+    import numpy as np
+
+    st, rd = case["set"], case["read"]
+    records = load_fasta(os.path.join(data_dir, st["file"]))
+    rng = np.random.default_rng(st["seed"]) if st.get("seed") is not None else None
+    if st["call"] == "unit_pair":
+        if rd.get("call") != "unit_pair" or case["entry"] != "decompose_reads":
+            raise ValueError(f"a unit_pair set takes its own read through decompose_reads: {case}")
+        reads, monos = unit_pair(records, st["n"], rng)
+    else:
+        monos = SET_CALLS[st["call"]](records, st, rng)
+        reads = load_fasta(os.path.join(data_dir, rd["file"]))[:1]
+        if case["entry"] == "decompose_reads":
+            monos = add_reverse_complement(monos)
+    return [Record(r.name, r.seq[:rd["cut"]]) for r in reads], monos
 
 
 def synthesize(n_bp: int, monomers, rng) -> str:

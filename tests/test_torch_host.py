@@ -15,6 +15,7 @@ import filecmp
 import logging
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -42,7 +43,8 @@ from stringdecomposer_tpu_torch.utils import stagetimer as t_stage
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "stringdecomposer_tpu_torch"
-ENV = {**os.environ, "PYTHONPATH": str(REPO)}
+# one torch thread a subprocess: the suite's other workers share the cores
+ENV = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
 TSVS = ("final_decomposition_raw.tsv", "final_decomposition.tsv", "final_decomposition_alt.tsv")
 
 
@@ -319,6 +321,102 @@ def test_chip_smoke_synthesize_matches_scale_smoke(seed, test_data_dir):
     a = ours(20_000, monomers, np.random.default_rng(seed))
     assert len(a) == 20_000
     assert a == theirs(20_000, monomers, np.random.default_rng(seed))
+
+
+JAX_DATA = ("read.fa", "DXZ1_star_monomers.fa", "final_decomposition_fc89af8.tsv",
+            "raw_decomposition_oracle.tsv")
+
+
+@pytest.mark.parametrize("name", JAX_DATA)
+def test_the_ports_test_data_is_a_copy_of_the_jax_packages(name, test_data_dir):
+    """The golden read, the DXZ1 monomers and both golden TSVs the port
+    reads from its own test_data/ are byte-equal to the JAX package's."""
+    assert (PORT / "test_data" / name).read_bytes() == (test_data_dir / name).read_bytes()
+
+
+# a string that names a TPU kernel by file and line (chip_smoke's `replaces`),
+# which opens nothing
+KERNEL_AT = re.compile(r"stringdecomposer_tpu/[\w/]+\.py:\d+")
+
+
+def _jax_package_paths(source: str, where: str) -> list[str]:
+    """The string constants of a module's code (not its docstrings or other
+    bare strings) that reach a file of the JAX package: the directory name
+    as a path component ("stringdecomposer_tpu", as a path join or a Path's
+    `/` takes it) or a path under it, but for KERNEL_AT's names."""
+    tree = ast.parse(source, where)
+    bare = {id(n.value) for n in ast.walk(tree) if isinstance(n, ast.Expr)}
+    out = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Constant) or not isinstance(node.value, str) \
+                or id(node) in bare:
+            continue
+        v = node.value
+        if v.strip("/\\") == "stringdecomposer_tpu" or (
+                re.search(r"stringdecomposer_tpu[/\\]", v) and not KERNEL_AT.fullmatch(v)):
+            out.append(f"{where}:{node.lineno}: {v!r}")
+    return out
+
+
+def test_no_module_of_the_port_opens_a_file_of_the_jax_package():
+    """No module of the port and not chip_smoke.py names a path under
+    stringdecomposer_tpu/ (its test_data or any other file there): the port
+    reads its own copies. The scan finds the forms such a path took before
+    (a path join, a Path's `/`, a string)."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = [b for f in files for b in _jax_package_paths(f.read_text(), str(f.relative_to(REPO)))]
+    assert not bad, bad
+    for old in ('DATA = os.path.join(HERE, "stringdecomposer_tpu", "test_data")',
+                'DATA = Path(__file__).resolve().parents[2] / "stringdecomposer_tpu" / "test_data"',
+                'open("stringdecomposer_tpu/test_data/read.fa")',
+                'f = f"{HERE}/stringdecomposer_tpu/models/ont_logreg_model.txt"'):
+        assert _jax_package_paths(old, "old"), old
+    assert not _jax_package_paths('"""Reads stringdecomposer_tpu/test_data."""\n'
+                                  'r = ("k1", "stringdecomposer_tpu/ops/chain_dp_pallas.py:131")',
+                                  "ok")
+
+
+OPEN_HOOK = """
+import os, sys
+
+opened = []
+
+def refuse(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes)):
+        path = os.path.realpath(os.fsdecode(args[0]))
+        opened.append(path)
+        if path.startswith(sys.argv[1] + os.sep):
+            raise PermissionError(f"opened a file of the JAX package: {path}")
+
+sys.addaudithook(refuse)
+from stringdecomposer_tpu_torch import cli
+rc = cli.main(sys.argv[3:])
+assert any(p.startswith(sys.argv[2] + os.sep) for p in opened), "no file of the port's data opened"
+sys.exit(rc)
+"""
+
+
+def test_cpu_cli_opens_no_file_of_the_jax_package(tmp_path):
+    """The port's CLI (--device cpu --second-best) on the golden read's first
+    3 kbp from the port's test_data, under an audit hook that refuses to open
+    any file under stringdecomposer_tpu/ (and which does refuse one)."""
+    read = t_fasta.load_fasta(str(PORT / "test_data" / "read.fa"))[0]
+    fa = tmp_path / "read3k.fa"
+    t_fasta.write_fasta(str(fa), [t_fasta.Record(read.name, read.seq[:3000])])
+    jax_dir, data = str(REPO / "stringdecomposer_tpu"), str(PORT / "test_data")
+    mono = str(PORT / "test_data" / "DXZ1_star_monomers.fa")
+    res = subprocess.run(
+        [sys.executable, "-c", OPEN_HOOK, jax_dir, data, str(fa), mono, "-o", str(tmp_path / "o"),
+         "--device", "cpu", "--second-best"],
+        capture_output=True, text=True, env=ENV, cwd=tmp_path, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert (tmp_path / "o" / TSVS[0]).read_text().splitlines()
+    res = subprocess.run(
+        [sys.executable, "-c", OPEN_HOOK, jax_dir, data,
+         str(REPO / "stringdecomposer_tpu" / "test_data" / "read.fa"), mono,
+         "-o", str(tmp_path / "o2"), "--device", "cpu"],
+        capture_output=True, text=True, env=ENV, cwd=tmp_path, timeout=600)
+    assert res.returncode != 0 and "opened a file of the JAX package" in res.stderr
 
 
 HOOK = """

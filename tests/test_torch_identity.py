@@ -120,6 +120,25 @@ def test_packed_both_split_into_pieces(monkeypatch, pair_cells):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32, torch.int64])
+def test_pair_scan_running_form_equals_the_log_step_form(dtype):
+    """pair_scan's running-max form (torch.gt / torch.lt, no steps) gives
+    the values and payloads of its log-step form (steps past log2 n) on
+    random ties-heavy inputs of 1-3 leading axes and 1-69 elements."""
+    g = torch.Generator().manual_seed(3)
+    for _ in range(60):
+        lead = torch.randint(1, 5, (int(torch.randint(1, 4, (1,), generator=g)),), generator=g)
+        shape = [*lead.tolist(), int(torch.randint(1, 70, (1,), generator=g))]
+        t = torch.randint(-4, 4, shape, generator=g).to(dtype)
+        pays = [torch.randint(-99, 99, shape, generator=g).to(dtype),
+                torch.arange(shape[-1]).expand(shape).contiguous()]
+        for later_wins in (torch.gt, torch.lt):
+            got = pair_scan(t, pays, later_wins)
+            want = pair_scan(t, pays, later_wins, steps=64)
+            for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_earliest_tie_scan_and_first_max_argmax():
     """The tie rules the twins rest on: the pair scans keep the EARLIEST
     payload on ties (torch.cummax keeps the last), and argmax returns the
