@@ -184,11 +184,14 @@ def _execute(args) -> int:
     if args.profile_dir:
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
+        from .utils import stagetimer
+
         activities = [ProfilerActivity.CPU]
         if args.device == "cuda":
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities,
                            on_trace_ready=tensorboard_trace_handler(args.profile_dir))
+        stagetimer.enable()  # the program's stages as sd.* ranges in the trace
     try:
         with profiler:
             if multihost_mode:
@@ -204,8 +207,25 @@ def _execute(args) -> int:
     except InvalidSymbolError as e:
         logger.error("ERROR: %s", e)
         return 255  # reference binary exit(-1) semantics (main.cpp:336)
+    finally:
+        if args.profile_dir:
+            _log_stages(logger)
     logger.info("Thank you for using StringDecomposer!")
     return 0
+
+
+def _log_stages(logger) -> None:
+    """Stop the tracer and log what it recorded: a line a stage, one of
+    counters."""
+    from .utils import stagetimer
+
+    stagetimer.disable()
+    total, self_s, calls = stagetimer.snapshot(), stagetimer.self_snapshot(), stagetimer.counts()
+    for name in sorted(total, key=lambda n: -total[n]):
+        logger.info("stage %s: %.4f s in %d calls, self %.4f s", name, total[name], calls[name],
+                    self_s[name])
+    logger.info("counters: %s", " ".join(f"{k}={v}" for k, v in sorted(
+        stagetimer.counters().items())))
 
 
 if __name__ == "__main__":

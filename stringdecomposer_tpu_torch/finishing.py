@@ -32,6 +32,7 @@ from .convert import (
 from .io.fasta import Record, encode
 from .models.reliability import classify
 from .ops.identity_cuda import nw_identity_batch_cuda, nw_identity_packed_both
+from .utils import stagetimer
 from .utils.stagetimer import stage
 
 # blocks (packed route) or pairs (light mode) per K2 call
@@ -437,6 +438,10 @@ class AsyncFinisher:
             group = [_entry(e) for e in group]
             n = sum(len(blocks) for _, blocks, _ in group)
             pg = {"group": group, "n": n, "second_best": self.second_best}
+            if n:
+                stagetimer.count("fin.groups")
+                stagetimer.count("fin.blocks", n)
+                stagetimer.dispatching(self.device.type == "cuda")
             if self.second_best:
                 pg["pend_packed"] = _dispatch_group_packed(
                     group, self.codes, self.ctx, self.packed_fn)
@@ -450,13 +455,15 @@ class AsyncFinisher:
                 pg["pend_light"] = _dispatch_pairs(subs, pairs_t, self.identity_fn, self.device)
             # the results' copies to host memory are queued; gather waits on this
             pg["done"] = done_event(self.device)
+            stagetimer.hold(pg["done"])
             return pg
 
     def submit_group(self, group: list[tuple]):
         """Queue one group's scoring; returns the groups that became ready
         (in submission order) once the in-flight bound is exceeded."""
-        self._q.append(self.pool.submit(self._dispatch, group) if self.pool
+        self._q.append(self.pool.submit(stagetimer.bind(self._dispatch), group) if self.pool
                        else self._dispatch(group))
+        stagetimer.peak("fin.depth_max", len(self._q))
         out = []
         while len(self._q) > self.MAX_INFLIGHT:
             out.extend(self._gather_one())

@@ -38,6 +38,7 @@ from .ops.hw_filter_cuda import hw_distance_batch_cuda
 from .ops.identity_cuda import nw_identity_batch_cuda, nw_identity_packed_both
 from .ops.oracle import Block, PostprocessStream, Scoring, make_windows
 from .ops.traceback import blocks_from_device
+from .utils import stagetimer
 from .utils.stagetimer import stage
 
 logger = logging.getLogger("SD-TPU")
@@ -131,28 +132,29 @@ def decompose_stream(
     --ed_thr the host waits for the kept count on that stream alone, not on
     the K1 batches queued before it. On the CPU the events are no-ops and
     the same code runs the plain twins."""
-    dev = resolve_device(device)
-    if state is None:
-        mono_np, lens_np = numpy_state(monomers, [])[:2]
-        mono = torch.from_numpy(mono_np).to(dev)
-        mono_lens = torch.from_numpy(lens_np).to(dev)
-    else:
-        mono, mono_lens = state.mono, state.mono_lens
-    tasks: list[WindowTask] = []
-    read_codes = [encode(r.seq) for r in reads]
-    for ridx, r in enumerate(reads):
-        for off, ln in make_windows(len(r.seq), cfg.part_size, cfg.overlap):
-            tasks.append(WindowTask(ridx, off, ln))
-    W = cfg.part_size + cfg.overlap
-    logger.info("Prepared %d windows from %d reads", len(tasks), len(reads))
-    sc = cfg.scoring
-    kw = dict(ins=sc.ins, dele=sc.dele, mismatch=sc.mismatch, match=sc.match)
-    per_window: list = [None] * len(tasks)
-    done = [False] * len(tasks)
-    cuda = dev.type == "cuda"
-    main = torch.cuda.current_stream(dev) if cuda else None
-    side = torch.cuda.Stream(dev) if cuda else None
-    inflight: deque[_Batch] = deque()
+    with stage("dp.setup"):
+        dev = resolve_device(device)
+        if state is None:
+            mono_np, lens_np = numpy_state(monomers, [])[:2]
+            mono = torch.from_numpy(mono_np).to(dev)
+            mono_lens = torch.from_numpy(lens_np).to(dev)
+        else:
+            mono, mono_lens = state.mono, state.mono_lens
+        tasks: list[WindowTask] = []
+        read_codes = [encode(r.seq) for r in reads]
+        for ridx, r in enumerate(reads):
+            for off, ln in make_windows(len(r.seq), cfg.part_size, cfg.overlap):
+                tasks.append(WindowTask(ridx, off, ln))
+        W = cfg.part_size + cfg.overlap
+        logger.info("Prepared %d windows from %d reads", len(tasks), len(reads))
+        sc = cfg.scoring
+        kw = dict(ins=sc.ins, dele=sc.dele, mismatch=sc.mismatch, match=sc.match)
+        per_window: list = [None] * len(tasks)
+        done = [False] * len(tasks)
+        cuda = dev.type == "cuda"
+        main = torch.cuda.current_stream(dev) if cuda else None
+        side = torch.cuda.Stream(dev) if cuda else None
+        inflight: deque[_Batch] = deque()
 
     def dispatch(tidxs: list[int], W_b: int) -> None:
         with stage("dp.prep"):
@@ -189,13 +191,16 @@ def decompose_stream(
         cap = min(W_b, max(256, W_b // 8))
         with stage("dp.dispatch"):
             fwd = tuple(t.contiguous() for t in fwd)
+            stagetimer.dispatching(cuda)
             blocks, counts = forward_fn(*fwd, max_blocks=cap, **kw)
             inflight.append(_Batch(tidxs, fwd, to_host(blocks), to_host(counts), perm,
                                    done_event(dev)))
+            stagetimer.hold(inflight[-1].done)
 
     def drain(every: bool) -> None:
         """Replay the oldest batches: all of them, or down to one under the
         bound."""
+        nonlocal n_redo
         while inflight and (every or len(inflight) >= MAX_INFLIGHT):
             b = inflight.popleft()
             with stage("dp.gather"):
@@ -204,6 +209,7 @@ def decompose_stream(
                 if counts_np.max() > blocks_np.shape[1]:
                     # a window past the cap (the walk counts past it):
                     # recompute this batch uncapped from its own inputs
+                    n_redo += 1
                     blocks, counts = forward_fn(*b.inputs, **kw)
                     blocks, counts = to_host(blocks), to_host(counts)
                     wait_done(done_event(dev))
@@ -248,7 +254,7 @@ def decompose_stream(
     levels = _levels(W)
     B = cfg.device_batch
     S = max(4 * B, 96)  # tasks per slab
-    n_batches = depth = 0
+    n_batches = n_windows = n_redo = depth = 0
     for s0 in range(0, len(tasks), S):
         buckets: dict[int, list[int]] = {}
         for t in range(s0, min(s0 + S, len(tasks))):
@@ -264,6 +270,7 @@ def decompose_stream(
                 tidxs = order[s : s + min(size, B)]
                 s += len(tidxs)
                 n_batches += 1
+                n_windows += len(tidxs)
                 dispatch(tidxs, W_b)
                 depth = max(depth, len(inflight))
                 drain(every=False)
@@ -274,6 +281,10 @@ def decompose_stream(
         yield (next_final, [], True)
         next_final += 1
     logger.info("DP stream: %d batches, at most %d in flight", n_batches, depth)
+    stagetimer.count("dp.batches", n_batches)
+    stagetimer.count("dp.windows", n_windows)
+    stagetimer.count("dp.redo", n_redo)
+    stagetimer.peak("dp.depth_max", depth)
 
 
 def decompose_reads(
@@ -381,73 +392,81 @@ def run(
     from .io.fasta import add_rc_interleaved, add_reverse_complement, load_fasta, validate_acgtn
     from .report import parse_raw_tsv
 
-    dev = resolve_device(device)
-    pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
-    fin_kw = dict(second_best=second_best, identity_fn=identity_fn, packed_fn=packed_fn,
-                  threads=threads)
-    if stream_reads > 0:
-        return _run_streaming(sequences_path, monomers_path, out_dir, out_file, min_identity,
-                              scoring, batch_size, overlap, device_batch, dev, ed_thr,
-                              stream_reads, forward_fn, hw_fn, fin_kw)
-    reads = load_fasta(sequences_path)
-    monomers_fwd = load_fasta(monomers_path)
-    validate_acgtn(reads, sequences_path)
-    validate_acgtn(monomers_fwd, monomers_path)
-    cfg = _config(scoring, batch_size, overlap, device_batch, ed_thr)
-    monomers_dp = add_reverse_complement(monomers_fwd)  # DP stage order
-    monomers_fin = add_rc_interleaved(load_fasta(monomers_path, upper=True))
-    raw_path, final_path, alt_path = _out_paths(out_dir, out_file)
-    stamp_path = raw_path + ".stamp"
-    fp = stage_fingerprint(sequences_path, monomers_path, scoring, batch_size, overlap, ed_thr)
-    stamp_ok = False
-    if resume and os.path.exists(raw_path) and os.path.exists(stamp_path):
-        with open(stamp_path) as f:
-            stamp_ok = f.read().strip() == fp
-        if not stamp_ok:
-            logger.warning("--resume: %s was produced from different inputs; recomputing",
-                           raw_path)
-    if stamp_ok:
-        # the raw TSV is the resumable stage boundary: finishing re-runs
-        # from the parsed TSV alone, with reads keyed by name
-        logger.info("Resuming from existing raw decomposition %s", raw_path)
-        with open(raw_path) as f:
-            per_read_raw = parse_raw_tsv(f.read())
-        reads_by_name = {r.name: r.seq for r in load_fasta(sequences_path, upper=True)}
-        t0 = time.perf_counter()
-        finished = finish_reads(per_read_raw, reads_by_name, monomers_fin, dev, **fin_kw)
-        logger.info("Rescoring stage finished in %.2fs", time.perf_counter() - t0)
-        with _published(final_path, alt_path) as (fout, falt):
-            write_final_rows(fout, falt, finished, identity_th=min_identity)
+    with stagetimer.job():
+        dev = resolve_device(device)
+        pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
+        fin_kw = dict(second_best=second_best, identity_fn=identity_fn, packed_fn=packed_fn,
+                      threads=threads)
+        if stream_reads > 0:
+            return _run_streaming(sequences_path, monomers_path, out_dir, out_file,
+                                  min_identity, scoring, batch_size, overlap, device_batch, dev,
+                                  ed_thr, stream_reads, forward_fn, hw_fn, fin_kw)
+        with stage("run.setup"):
+            reads = load_fasta(sequences_path)
+            monomers_fwd = load_fasta(monomers_path)
+            validate_acgtn(reads, sequences_path)
+            validate_acgtn(monomers_fwd, monomers_path)
+            cfg = _config(scoring, batch_size, overlap, device_batch, ed_thr)
+            monomers_dp = add_reverse_complement(monomers_fwd)  # DP stage order
+            monomers_fin = add_rc_interleaved(load_fasta(monomers_path, upper=True))
+            raw_path, final_path, alt_path = _out_paths(out_dir, out_file)
+            stamp_path = raw_path + ".stamp"
+            fp = stage_fingerprint(sequences_path, monomers_path, scoring, batch_size, overlap,
+                                   ed_thr)
+            stamp_ok = False
+            if resume and os.path.exists(raw_path) and os.path.exists(stamp_path):
+                with open(stamp_path) as f:
+                    stamp_ok = f.read().strip() == fp
+                if not stamp_ok:
+                    logger.warning("--resume: %s was produced from different inputs; "
+                                   "recomputing", raw_path)
+            if not stamp_ok:
+                state = state_from_numpy(*numpy_state(monomers_dp, monomers_fin), dev)
+                # drop any old stamp before touching the raw TSV: a crash
+                # mid-write must not leave a truncated TSV beside a matching stamp
+                try:
+                    os.remove(stamp_path)
+                except FileNotFoundError:
+                    pass
+                t0 = time.perf_counter()
+                dp_names = [m.name for m in monomers_dp]
+                # positional keys: duplicate read names each score their own sequence
+                reads_by_key = {i: r.seq.upper() for i, r in enumerate(reads)}
+                finisher = AsyncFinisher(reads_by_key, monomers_fin, state, dev, **fin_kw)
+        if stamp_ok:
+            # the raw TSV is the resumable stage boundary: finishing re-runs
+            # from the parsed TSV alone, with reads keyed by name
+            logger.info("Resuming from existing raw decomposition %s", raw_path)
+            with open(raw_path) as f:
+                per_read_raw = parse_raw_tsv(f.read())
+            reads_by_name = {r.name: r.seq for r in load_fasta(sequences_path, upper=True)}
+            t0 = time.perf_counter()
+            finished = finish_reads(per_read_raw, reads_by_name, monomers_fin, dev, **fin_kw)
+            logger.info("Rescoring stage finished in %.2fs", time.perf_counter() - t0)
+            with stage("run.close"), _published(final_path, alt_path) as (fout, falt):
+                write_final_rows(fout, falt, finished, identity_th=min_identity)
+            logger.info("Transformation finished. Results can be found in %s", final_path)
+            return final_path
+        with ExitStack() as closing:
+            try:
+                with _published(raw_path, final_path, alt_path) as (fraw, fout, falt):
+                    n_blocks = _pump_reads(reads, monomers_dp, cfg, dev, forward_fn, hw_fn,
+                                           state, finisher, fraw, fout, falt, dp_names,
+                                           min_identity)
+                    # run.close: the drain, the tail's rows, the renames, the stamp
+                    closing.enter_context(stage("run.close"))
+                    tail = finisher.drain()
+                    with stage("fin.write"):
+                        write_final_rows(fout, falt, tail, identity_th=min_identity)
+            finally:
+                finisher.close()
+            with open(stamp_path, "w") as f:
+                f.write(fp + "\n")
+        dt = time.perf_counter() - t0
+        logger.info("Saved raw decomposition to %s (%d assignments in %.2fs, %.0f/s)",
+                    raw_path, n_blocks, dt, n_blocks / dt if dt > 0 else 0.0)
         logger.info("Transformation finished. Results can be found in %s", final_path)
         return final_path
-    state = state_from_numpy(*numpy_state(monomers_dp, monomers_fin), dev)
-    # drop any old stamp before touching the raw TSV: a crash mid-write must
-    # not leave a truncated TSV beside a matching stamp
-    try:
-        os.remove(stamp_path)
-    except FileNotFoundError:
-        pass
-    t0 = time.perf_counter()
-    dp_names = [m.name for m in monomers_dp]
-    # positional keys: duplicate read names each score their own sequence
-    reads_by_key = {i: r.seq.upper() for i, r in enumerate(reads)}
-    finisher = AsyncFinisher(reads_by_key, monomers_fin, state, dev, **fin_kw)
-    try:
-        with _published(raw_path, final_path, alt_path) as (fraw, fout, falt):
-            n_blocks = _pump_reads(reads, monomers_dp, cfg, dev, forward_fn, hw_fn, state,
-                                   finisher, fraw, fout, falt, dp_names, min_identity)
-            tail = finisher.drain()
-            with stage("fin.write"):
-                write_final_rows(fout, falt, tail, identity_th=min_identity)
-    finally:
-        finisher.close()
-    with open(stamp_path, "w") as f:
-        f.write(fp + "\n")
-    dt = time.perf_counter() - t0
-    logger.info("Saved raw decomposition to %s (%d assignments in %.2fs, %.0f/s)",
-                raw_path, n_blocks, dt, n_blocks / dt if dt > 0 else 0.0)
-    logger.info("Transformation finished. Results can be found in %s", final_path)
-    return final_path
 
 
 def _config(scoring: str, batch_size: int, overlap: int, device_batch: int,
@@ -488,15 +507,16 @@ def _run_streaming(sequences_path, monomers_path, out_dir, out_file, min_identit
     )
     from .report import format_raw_rows
 
-    monomers_fwd = load_fasta(monomers_path)
-    validate_acgtn(monomers_fwd, monomers_path)
-    monomers_dp = add_reverse_complement(monomers_fwd)
-    monomers_fin = add_rc_interleaved(load_fasta(monomers_path, upper=True))
-    dp_names = [m.name for m in monomers_dp]
-    cfg = _config(scoring, batch_size, overlap, device_batch, ed_thr)
+    with stage("run.setup"):
+        monomers_fwd = load_fasta(monomers_path)
+        validate_acgtn(monomers_fwd, monomers_path)
+        monomers_dp = add_reverse_complement(monomers_fwd)
+        monomers_fin = add_rc_interleaved(load_fasta(monomers_path, upper=True))
+        dp_names = [m.name for m in monomers_dp]
+        cfg = _config(scoring, batch_size, overlap, device_batch, ed_thr)
     t0 = time.perf_counter()
     n_blocks = n_reads = 0
-    with _published(*_out_paths(out_dir, out_file)) as (fraw, fout, falt):
+    with ExitStack() as closing, _published(*_out_paths(out_dir, out_file)) as (fraw, fout, falt):
         group: list[Record] = []
 
         def flush_group() -> None:
@@ -528,6 +548,7 @@ def _run_streaming(sequences_path, monomers_path, out_dir, out_file, min_identit
             if len(group) >= stream_reads:
                 flush_group()
         flush_group()
+        closing.enter_context(stage("run.close"))  # the renames
     logger.info("Streaming run finished: %d reads, %d assignments in %.2fs",
                 n_reads, n_blocks, time.perf_counter() - t0)
     final_path = _out_paths(out_dir, out_file)[1]
