@@ -163,13 +163,41 @@ class _CodesCache:
         return c
 
 
-def _entry(e) -> tuple[str, list, object]:
-    """(name, blocks) or (name, blocks, key) -> (name, blocks, key); the key
-    defaults to the display name."""
-    if len(e) == 3:
-        return e
-    name, blocks = e
-    return name, blocks, name
+class BlockColumns:
+    """A read chunk's blocks at the finisher's intake, as columns: `idx`
+    (int32) the block's monomer in the finisher's interleaved order (a
+    duplicated name: its last row, as `name_to_idx` maps it), `starts` and
+    `ends` (int64, inclusive)."""
+
+    __slots__ = ("idx", "starts", "ends")
+
+    def __init__(self, idx: np.ndarray, starts: np.ndarray, ends: np.ndarray):
+        self.idx = idx
+        self.starts = starts
+        self.ends = ends
+
+    def __len__(self) -> int:
+        return len(self.starts)
+
+    def __getitem__(self, s: slice) -> "BlockColumns":
+        return BlockColumns(self.idx[s], self.starts[s], self.ends[s])
+
+    @staticmethod
+    def of_dicts(blocks: list[dict], name_to_idx: dict) -> "BlockColumns":
+        """[{"m", "start", "end"}] (a parsed raw TSV, decompose_reads'
+        callers) -> columns."""
+        n = len(blocks)
+        return BlockColumns(
+            np.fromiter((name_to_idx[d["m"]] for d in blocks), dtype=np.int32, count=n),
+            np.fromiter((d["start"] for d in blocks), dtype=np.int64, count=n),
+            np.fromiter((d["end"] for d in blocks), dtype=np.int64, count=n),
+        )
+
+
+def _column(group, attr: str, dtype) -> np.ndarray:
+    """One column of a group's chunks, concatenated."""
+    parts = [getattr(cols, attr) for _, cols, _ in group]
+    return np.concatenate(parts).astype(dtype, copy=False) if parts else np.zeros(0, dtype)
 
 
 def _homo_codes(c: np.ndarray) -> np.ndarray:
@@ -206,17 +234,10 @@ class _DeviceFinishCtx:
 def _dispatch_group_packed(per_read_blocks, codes_cache, ctx, packed_fn):
     """Packed route: one scorer call and one [2, n * M, 2] result per block
     chunk, covering both variants."""
-    n_names = sum(len(blocks) for _, blocks, _ in per_read_blocks)
-    starts = np.fromiter(
-        (d["start"] for _, blocks, _ in per_read_blocks for d in blocks),
-        dtype=np.int64, count=n_names,
-    )
-    lens = np.fromiter(
-        (d["end"] - d["start"] + 1 for _, blocks, _ in per_read_blocks for d in blocks),
-        dtype=np.int32, count=n_names,
-    )
-    if n_names == 0:
+    starts = _column(per_read_blocks, "starts", np.int64)
+    if len(starts) == 0:
         return []
+    lens = (_column(per_read_blocks, "ends", np.int64) - starts + 1).astype(np.int32)
     uniq_keys = list(dict.fromkeys(key for _, blocks, key in per_read_blocks if blocks))
     if len(uniq_keys) == 1:
         read_dev = ctx.read_dev(uniq_keys[0], codes_cache.get(uniq_keys[0]))
@@ -230,9 +251,9 @@ def _dispatch_group_packed(per_read_blocks, codes_cache, ctx, packed_fn):
             off += len(c)
         read_np = np.concatenate(parts) if parts else np.zeros(1, dtype=np.int8)
         read_dev = upload(read_np, ctx.device)
-        starts = starts + np.fromiter(
-            (offs[key] for _, blocks, key in per_read_blocks for _ in blocks),
-            dtype=np.int64, count=n_names,
+        starts = starts + np.repeat(
+            np.array([offs.get(key, 0) for _, _, key in per_read_blocks], dtype=np.int64),
+            [len(blocks) for _, blocks, _ in per_read_blocks],
         )
     st = ctx.state
     pending = []
@@ -260,7 +281,7 @@ def _dispatch_pairs(pairs_q, pairs_t, identity_fn, device):
     return pending
 
 
-def _gather_finish_group(pg: dict, mono_names, name_to_idx, coef):
+def _gather_finish_group(pg: dict, mono_names, coef):
     """Wait for a dispatched group's results in host memory and run the
     vectorized per-block logic (main.py:107-150)."""
     per_read_blocks = pg["group"]
@@ -289,13 +310,13 @@ def _gather_finish_group(pg: dict, mono_names, name_to_idx, coef):
                 totals[s : s + cn] = ln.numpy()[:cn]
     with stage("fin.assemble"):
         return _assemble_group(
-            per_read_blocks, second_best, mono_names, name_to_idx, coef,
+            per_read_blocks, second_best, mono_names, coef,
             mt_raw, ln_raw, mt_homo, ln_homo, matches, totals,
         )
 
 
 def _assemble_group(
-    per_read_blocks, second_best, mono_names, name_to_idx, coef,
+    per_read_blocks, second_best, mono_names, coef,
     mt_raw, ln_raw, mt_homo, ln_homo, matches, totals,
 ) -> list[tuple[str, Rows]]:
     # Per-block host logic (main.py:107-150), vectorized over the group.
@@ -315,19 +336,14 @@ def _assemble_group(
             upos[nm] = len(uniq_names)
             uniq_names.append(nm)
     U = len(uniq_names)
+    best_idx_all = _column(per_read_blocks, "idx", np.int32)
     if second_best:
         Nb = mt_raw.shape[0]
         with np.errstate(invalid="ignore"):
             sc_all = np.where(ln_raw == 0, 0.0, (mt_raw.astype(np.float64) / ln_raw) * 100.0)
             hsc_all = np.where(ln_homo == 0, 0.0, (mt_homo.astype(np.float64) / ln_homo) * 100.0)
-        best_idx_all = np.fromiter(
-            (name_to_idx[d["m"]] for _, blocks, _ in per_read_blocks for d in blocks),
-            dtype=np.int32, count=Nb,
-        )
-        best_upos_all = np.fromiter(
-            (upos[d["m"]] for _, blocks, _ in per_read_blocks for d in blocks),
-            dtype=np.int32, count=Nb,
-        )
+        upos_of_idx = np.array([upos[nm] for nm in mono_names], dtype=np.int32)
+        best_upos_all = upos_of_idx[best_idx_all]
         rows = np.arange(Nb)
         best_score_all = sc_all[rows, best_idx_all] if Nb else np.zeros(0)
         last_col = np.zeros(U, dtype=np.int64)
@@ -361,22 +377,12 @@ def _assemble_group(
             best_score_all = np.where(
                 totals == 0, 0.0, (matches.astype(np.float64) / totals) * 100.0
             )
-        best_idx_all = np.fromiter(
-            (name_to_idx[d["m"]] for _, blocks, _ in per_read_blocks for d in blocks),
-            dtype=np.int32, count=Nb,
-        )
         best_upos_all = np.full(Nb, -1, dtype=np.int32)
         sb_idx_all = hb_idx_all = hs_idx_all = np.full(Nb, -1, dtype=np.int32)
         sb_score_all = hb_score_all = hs_score_all = np.full(Nb, -1.0)
         alt_all = None
-    starts_all = np.fromiter(
-        (d["start"] for _, blocks, _ in per_read_blocks for d in blocks),
-        dtype=np.int64, count=Nb,
-    )
-    ends_all = np.fromiter(
-        (d["end"] for _, blocks, _ in per_read_blocks for d in blocks),
-        dtype=np.int64, count=Nb,
-    )
+    starts_all = _column(per_read_blocks, "starts", np.int64)
+    ends_all = _column(per_read_blocks, "ends", np.int64)
     reliable_all = classify(best_score_all, sb_score_all, coef)  # main.py:149
     bi = 0
     for read_name, blocks, _ in per_read_blocks:
@@ -433,9 +439,18 @@ class AsyncFinisher:
             self.pool = ThreadPoolExecutor(max_workers=threads)
         self._q: deque = deque()
 
+    def entry(self, e) -> tuple[str, BlockColumns, object]:
+        """(name, blocks) or (name, blocks, key) -> (name, BlockColumns,
+        key); the key defaults to the display name, and a list of
+        {"m", "start", "end"} dicts becomes columns."""
+        name, blocks, key = e if len(e) == 3 else (*e, e[0])
+        if not isinstance(blocks, BlockColumns):
+            blocks = BlockColumns.of_dicts(blocks, self.name_to_idx)
+        return name, blocks, key
+
     def _dispatch(self, group):
         with stage("fin.dispatch"):
-            group = [_entry(e) for e in group]
+            group = [self.entry(e) for e in group]
             n = sum(len(blocks) for _, blocks, _ in group)
             pg = {"group": group, "n": n, "second_best": self.second_best}
             if n:
@@ -449,9 +464,9 @@ class AsyncFinisher:
                 subs, pairs_t = [], []
                 for _, blocks, key in group:
                     codes = self.codes.get(key)
-                    for d in blocks:
-                        subs.append(codes[d["start"] : d["end"] + 1])
-                        pairs_t.append(self.mono_codes[self.name_to_idx[d["m"]]])
+                    for s, e in zip(blocks.starts.tolist(), blocks.ends.tolist()):
+                        subs.append(codes[s : e + 1])
+                    pairs_t.extend(self.mono_codes[j] for j in blocks.idx.tolist())
                 pg["pend_light"] = _dispatch_pairs(subs, pairs_t, self.identity_fn, self.device)
             # the results' copies to host memory are queued; gather waits on this
             pg["done"] = done_event(self.device)
@@ -469,7 +484,7 @@ class AsyncFinisher:
             out.extend(self._gather_one())
         return out
 
-    def submit(self, read_name: str, blocks: list[dict], key=None):
+    def submit(self, read_name: str, blocks: BlockColumns | list[dict], key=None):
         """`key` selects the sequence in reads_by_key when it is not the
         display name (positional keys make duplicate read names safe)."""
         return self.submit_group([(read_name, blocks, read_name if key is None else key)])
@@ -478,7 +493,7 @@ class AsyncFinisher:
         pg = self._q.popleft()
         if self.pool is not None:
             pg = pg.result()
-        return _gather_finish_group(pg, self.mono_names, self.name_to_idx, self.coef)
+        return _gather_finish_group(pg, self.mono_names, self.coef)
 
     def drain(self):
         """Gather every remaining group, in order; retires the pool."""
@@ -521,9 +536,10 @@ def finish_reads(
     fin_ = AsyncFinisher(reads_by_key, monomers_interleaved, state, torch.device(device),
                          second_best=second_best, identity_fn=identity_fn, packed_fn=packed_fn,
                          threads=threads)
+    entries = []
     try:
-        for e in per_read_blocks:
-            read_name, blocks, key = _entry(e)
+        entries = [fin_.entry(e) for e in per_read_blocks]
+        for read_name, blocks, key in entries:
             for s in range(0, max(len(blocks), 1), max_blocks):
                 chunk = blocks[s : s + max_blocks]
                 group.append((read_name, chunk, key))
@@ -538,8 +554,7 @@ def finish_reads(
         fin_.close()
     merged = []
     gi = 0
-    for e in per_read_blocks:
-        read_name, blocks, _ = _entry(e)
+    for read_name, blocks, _ in entries:
         need = max(1, -(-max(len(blocks), 1) // max_blocks))
         merged.append((read_name, Rows.concat([out[gi + k][1] for k in range(need)])))
         gi += need

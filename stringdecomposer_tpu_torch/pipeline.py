@@ -6,6 +6,7 @@ Stages:
   3. with --ed_thr: per-window monomer pre-filter      (ops/hw_filter_cuda.py, K3)
      batched chain DP + block walk on the device       (ops/chain_dp_cuda.py, K1)
   4. host replay of block records, merge to global coordinates, halo dedup
+     (int32 records throughout: ops/records.py)
   5. raw TSV                                           (report.py)
   6. rescoring (--second-best or light)                (finishing.py, K2)
   7. final + alt TSVs
@@ -25,6 +26,7 @@ from collections import deque
 from contextlib import ExitStack, contextmanager, nullcontext
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from .convert import (
@@ -36,8 +38,8 @@ from .ops.chain_dp_cuda import chain_dp_forward_cuda
 from .ops.hw_filter import filter_monomers_device
 from .ops.hw_filter_cuda import hw_distance_batch_cuda
 from .ops.identity_cuda import nw_identity_batch_cuda, nw_identity_packed_both
-from .ops.oracle import Block, PostprocessStream, Scoring, make_windows
-from .ops.traceback import blocks_from_device
+from .ops.oracle import Block, Scoring, make_windows
+from .ops.records import EMPTY, DedupStream, replay_batch, to_blocks
 from .utils import stagetimer
 from .utils.stagetimer import stage
 
@@ -117,12 +119,15 @@ def decompose_stream(
 ):
     """Generator over finalized block chunks in strict (read, window) order.
 
-    Yields (read_idx, blocks, final): `blocks` are postprocessed blocks in
-    global coordinates that will not change (the halo-dedup lookahead is
-    carried in a PostprocessStream); `final` marks a read's last chunk.
+    Yields (read_idx, blocks, final): `blocks` [n, 4] int32 records
+    (monomer, start, end, identity) of postprocessed blocks in read
+    coordinates that will not change (the halo-dedup lookahead is carried
+    in an ops/records.DedupStream); `final` marks a read's last chunk.
     Every read yields exactly one final chunk (possibly empty), in input
-    order. Windows are bucketed by width within slabs of consecutive tasks,
-    so emission tracks input order.
+    order, and each window the blocks it made final, as
+    oracle.PostprocessStream would a window at a time. Windows are bucketed
+    by width within slabs of consecutive tasks, so emission tracks input
+    order.
 
     Up to MAX_INFLIGHT batches are queued on the device at once, each
     copying its block records to pinned host memory as soon as K1 and the
@@ -215,40 +220,45 @@ def decompose_stream(
                     wait_done(done_event(dev))
                     blocks_np, counts_np = blocks.numpy(), counts.numpy()
             with stage("dp.replay"):
-                perm_np = None if b.perm is None else b.perm.numpy()
+                offsets = [tasks[t].offset for t in b.tidxs]
+                recs, bounds = replay_batch(blocks_np, counts_np, offsets,
+                                            None if b.perm is None else b.perm.numpy())
                 for i, t in enumerate(b.tidxs):
-                    per_window[t] = blocks_from_device(blocks_np[i], int(counts_np[i]))
-                    if perm_np is not None:  # filtered DP row -> input monomer index
-                        for blk in per_window[t]:
-                            blk.monomer = int(perm_np[i][blk.monomer])
+                    per_window[t] = recs[bounds[i] : bounds[i + 1]]
                     done[t] = True
 
     cursor = 0
-    pp: PostprocessStream | None = None
+    dedup: DedupStream | None = None
     next_final = 0
 
-    def emit_ready() -> list[tuple[int, list[Block], bool]]:
-        nonlocal cursor, pp, next_final
-        out: list[tuple[int, list[Block], bool]] = []
+    def emit_ready() -> list[tuple[int, np.ndarray, bool]]:
+        """Push each run of done windows of one read through the read's
+        dedup at once; a chunk a window that made blocks final, and the
+        read's final chunk."""
+        nonlocal cursor, dedup, next_final
+        out: list[tuple[int, np.ndarray, bool]] = []
         with stage("dp.postprocess"):
             while cursor < len(tasks) and done[cursor]:
-                t = tasks[cursor]
-                while next_final < t.read_idx:  # reads without windows
-                    out.append((next_final, [], True))
+                ridx = tasks[cursor].read_idx
+                while next_final < ridx:  # reads without windows
+                    out.append((next_final, EMPTY, True))
                     next_final += 1
-                if pp is None:
-                    pp = PostprocessStream()
-                shifted = [Block(b.monomer, b.start + t.offset, b.end + t.offset, b.identity)
-                           for b in per_window[cursor]]
-                per_window[cursor] = None
-                ready = pp.push(shifted)
-                if cursor + 1 == len(tasks) or tasks[cursor + 1].read_idx != t.read_idx:
-                    out.append((t.read_idx, ready + pp.finish(), True))
-                    next_final = t.read_idx + 1
-                    pp = None
-                elif ready:
-                    out.append((t.read_idx, ready, False))
-                cursor += 1
+                end = cursor + 1
+                while end < len(tasks) and done[end] and tasks[end].read_idx == ridx:
+                    end += 1
+                last = end == len(tasks) or tasks[end].read_idx != ridx
+                if dedup is None:
+                    dedup = DedupStream()
+                chunks = dedup.push(per_window[cursor:end], final=last)
+                per_window[cursor:end] = [None] * (end - cursor)
+                out.extend((ridx, c, False) for c in chunks[:-1] if len(c))
+                if last:
+                    out.append((ridx, chunks[-1], True))
+                    next_final = ridx + 1
+                    dedup = None
+                elif len(chunks[-1]):
+                    out.append((ridx, chunks[-1], False))
+                cursor = end
         return out
 
     levels = _levels(W)
@@ -278,12 +288,13 @@ def decompose_stream(
     drain(every=True)
     yield from emit_ready()
     while next_final < len(reads):  # trailing reads without windows
-        yield (next_final, [], True)
+        yield (next_final, EMPTY, True)
         next_final += 1
     logger.info("DP stream: %d batches, at most %d in flight", n_batches, depth)
     stagetimer.count("dp.batches", n_batches)
     stagetimer.count("dp.windows", n_windows)
     stagetimer.count("dp.redo", n_redo)
+    stagetimer.count("host.native_fallback", 0)  # in the counter line at 0 too
     stagetimer.peak("dp.depth_max", depth)
 
 
@@ -297,48 +308,64 @@ def decompose_reads(
 ) -> list[tuple[str, list[Block]]]:
     """Raw decomposition of all reads: [(read_name, blocks)] in input order,
     blocks in global coordinates, halo-deduplicated."""
-    acc: list[list[Block]] = [[] for _ in reads]
+    acc: list[list[np.ndarray]] = [[] for _ in reads]
     for ridx, blocks, final in decompose_stream(reads, monomers, cfg, device, forward_fn,
                                                 hw_fn=hw_fn):
-        acc[ridx].extend(blocks)
+        acc[ridx].append(blocks)
         if final:
             logger.info("%d%%: Aligned %s", (ridx + 1) * 100 // len(reads), reads[ridx].name)
-    return [(r.name, acc[i]) for i, r in enumerate(reads)]
+    # every read has its final chunk, empty or not
+    return [(r.name, to_blocks(np.concatenate(acc[i]))) for i, r in enumerate(reads)]
 
 
 def _pump_reads(reads, monomers_dp, cfg, device, forward_fn, hw_fn, state, finisher,
                 fraw, fout, falt, dp_names, min_identity) -> int:
-    """DP and finishing interleaved over one read list: raw rows stream out
-    as window chunks finalize, finishing groups are submitted as they fill
-    and final/alt rows are written as groups complete. Returns the number of
+    """DP and finishing interleaved over one read list: window chunks
+    gather into a finishing group, which closes at the first chunk that
+    brings it to FIN_CHUNK blocks and at a read's end; a closed group's raw
+    rows are written (`fraw` is binary), the group is submitted and
+    final/alt rows are written as groups complete. Returns the number of
     raw blocks written."""
-    from .finishing import write_final_rows
+    from .finishing import BlockColumns, write_final_rows
     from .report import format_raw_rows
+    from .runtime.native import NameTable, format_raw_native
 
+    # DP row -> the finisher's monomer index (a duplicated name: its last)
+    fin_idx = np.array([finisher.name_to_idx[n] for n in dp_names], dtype=np.int32)
+    names = NameTable(dp_names)
     n_blocks = 0
     cur_ridx = -1
     prev_end = 0
-    pend: list[dict] = []
+    pend: list[np.ndarray] = []
+    n_pend = 0
     for ridx, blocks, final in decompose_stream(reads, monomers_dp, cfg, device,
                                                 forward_fn, state, hw_fn):
         if ridx != cur_ridx:
             cur_ridx, prev_end = ridx, 0
         name = reads[ridx].name
-        if blocks:
-            with stage("host.raw_rows"):
-                rows = format_raw_rows(name, blocks, dp_names, prev_end=prev_end)
-                fraw.write("\n".join(rows) + "\n")
-            prev_end = blocks[-1].end
-            n_blocks += len(blocks)
+        if len(blocks):
+            pend.append(blocks)
+            n_pend += len(blocks)
+        if final or n_pend >= FIN_CHUNK:
+            recs = np.concatenate(pend or [EMPTY])
+            if len(recs):
+                with stage("host.raw_rows"):
+                    raw = format_raw_native(recs, name, names, prev_end)
+                    if raw is None:
+                        stagetimer.count("host.native_fallback")
+                        raw = "".join(r + "\n" for r in format_raw_rows(
+                            name, to_blocks(recs), dp_names, prev_end)).encode()
+                    fraw.write(raw)
+                prev_end = int(recs[-1, 2])
+                n_blocks += len(recs)
             with stage("host.pend"):
-                pend.extend({"m": dp_names[b.monomer].split()[0], "start": b.start, "end": b.end}
-                            for b in blocks)
-        if final or len(pend) >= FIN_CHUNK:
+                cols = BlockColumns(fin_idx[recs[:, 0]], recs[:, 1].astype(np.int64),
+                                    recs[:, 2].astype(np.int64))
             # key by read INDEX: duplicate read names score their own sequence
-            ready = finisher.submit(name, pend, key=ridx)
+            ready = finisher.submit(name, cols, key=ridx)
             with stage("fin.write"):
                 write_final_rows(fout, falt, ready, identity_th=min_identity)
-            pend = []
+            pend, n_pend = [], 0
         if final:
             logger.info("%d%%: Aligned %s", (ridx + 1) * 100 // max(1, len(reads)), name)
     return n_blocks
@@ -449,7 +476,8 @@ def run(
             return final_path
         with ExitStack() as closing:
             try:
-                with _published(raw_path, final_path, alt_path) as (fraw, fout, falt):
+                with _published(raw_path, final_path, alt_path,
+                                binary=(raw_path,)) as (fraw, fout, falt):
                     n_blocks = _pump_reads(reads, monomers_dp, cfg, dev, forward_fn, hw_fn,
                                            state, finisher, fraw, fout, falt, dp_names,
                                            min_identity)
@@ -483,12 +511,13 @@ def _out_paths(out_dir: str, out_file: str) -> tuple[str, str, str]:
 
 
 @contextmanager
-def _published(*paths: str):
-    """Open each path's `.tmp` for writing and, when the block completes,
-    publish them all by rename: a killed run never leaves a truncated file
-    under the real name."""
+def _published(*paths: str, binary: tuple[str, ...] = ()):
+    """Open each path's `.tmp` for writing (in binary mode those in
+    `binary`) and, when the block completes, publish them all by rename: a
+    killed run never leaves a truncated file under the real name."""
     with ExitStack() as files:
-        yield tuple(files.enter_context(open(p + ".tmp", "w")) for p in paths)
+        yield tuple(files.enter_context(open(p + ".tmp", "wb" if p in binary else "w"))
+                    for p in paths)
     for p in paths:
         os.replace(p + ".tmp", p)
 

@@ -81,12 +81,18 @@ def load_native(build: bool = True):
     lib.sd_postprocess.argtypes = [
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
     ]
+    lib.sd_postprocess_stream.restype = ctypes.c_int64
+    lib.sd_postprocess_stream.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+    ]
     lib.sd_format_raw.restype = ctypes.c_int64
     lib.sd_format_raw.argtypes = [
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
         ctypes.c_char_p, ctypes.c_int64,
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ]
     if hasattr(lib, "sd_format_final"):
         p_i32 = ctypes.POINTER(ctypes.c_int32)
@@ -220,29 +226,62 @@ def postprocess_native(blocks: np.ndarray) -> np.ndarray | None:
     return keep.astype(bool)
 
 
-def format_raw_native(
-    blocks: np.ndarray, read_name: str, monomer_names: list[str]
-) -> bytes | None:
-    """Raw TSV bytes for one read's postprocessed [n,4] int32 blocks."""
+def postprocess_stream_native(
+    blocks: np.ndarray, bounds: np.ndarray, final: bool, landing: bool
+) -> tuple[np.ndarray, np.ndarray, int, bool] | None:
+    """One push of ops/records.DedupStream: blocks [n, 4] int32 (the held
+    blocks, then a run of windows ending at `bounds`) -> (indices of the
+    emitted blocks, emitted count at each window's end, index of the first
+    block still held, landing flag), or None if unavailable."""
     lib = load_native()
     if lib is None:
         return None
     blocks = np.ascontiguousarray(blocks, dtype=np.int32)
-    names_buf = "".join(monomer_names).encode()
-    offs = np.zeros(len(monomer_names) + 1, dtype=np.int64)
-    np.cumsum([len(n.encode()) for n in monomer_names], out=offs[1:])
+    bounds = np.ascontiguousarray(bounds, dtype=np.int64)
+    emit = np.empty(len(blocks), dtype=np.int64)
+    cuts = np.empty(len(bounds), dtype=np.int64)
+    land = ctypes.c_int32(int(landing))
+    p_i64 = ctypes.POINTER(ctypes.c_int64)
+    held = lib.sd_postprocess_stream(
+        _as_i32_ptr(blocks), bounds.ctypes.data_as(p_i64), len(bounds), int(final),
+        ctypes.byref(land), emit.ctypes.data_as(p_i64), cuts.ctypes.data_as(p_i64),
+    )
+    return emit[: cuts[-1] if len(cuts) else 0], cuts, int(held), bool(land.value)
+
+
+class NameTable:
+    """Monomer names as the native formatters take them: the encoded names
+    concatenated, with [M + 1] offsets. Build it once for many calls."""
+
+    def __init__(self, names: list[str]):
+        self.buf, self.offs = _names_table(names)
+        self.max_len = int(np.diff(self.offs).max(initial=0))
+
+
+def format_raw_native(
+    blocks: np.ndarray, read_name: str, monomer_names: list[str] | NameTable,
+    prev_end: int = 0,
+) -> bytes | None:
+    """Raw TSV bytes for a read's postprocessed [n,4] int32 blocks, or a
+    chunk of them: `prev_end` is the last end of the read's chunk before,
+    as in report.format_raw_rows."""
+    lib = load_native()
+    if lib is None:
+        return None
+    blocks = np.ascontiguousarray(blocks, dtype=np.int32)
+    table = monomer_names if isinstance(monomer_names, NameTable) else NameTable(monomer_names)
     rn = read_name.encode()
-    cap = len(blocks) * (len(rn) + max((len(n) for n in monomer_names), default=0) + 96) + 64
-    out = ctypes.create_string_buffer(cap)
+    cap = len(blocks) * (len(rn) + table.max_len + 96) + 64
+    out = np.empty(cap, dtype=np.uint8)  # not zero-filled, unlike a ctypes buffer
     w = lib.sd_format_raw(
         _as_i32_ptr(blocks), len(blocks),
         rn, len(rn),
-        names_buf, offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        out, cap,
+        table.buf, table.offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        int(prev_end), out.ctypes.data, cap,
     )
     if w < 0:
         return None
-    return out.raw[:w]
+    return out[:w].tobytes()
 
 
 def homo_compress_native(codes: np.ndarray) -> np.ndarray | None:

@@ -23,10 +23,15 @@ each `pipeline.run()` call is one job with its own id and a root span:
   dp.dispatch    forward_fn call (queues device work)
   dp.gather      .cpu() on DP results == wait on device + transfer (and
                  an overflowed batch's uncapped redo)
-  dp.replay      block-record walk -> Block lists (host)
-  dp.postprocess halo dedup + emission bookkeeping (host)
-  host.raw_rows  raw TSV formatting + write (host)
-  host.pend      finishing work-list building (host)
+  dp.replay      a batch's int32 block records -> one array in reading
+                 order and read coordinates (one gather; under --ed_thr
+                 the monomer column through the filter's permutation)
+  dp.postprocess the halo dedup of each run of done windows of a read (one
+                 native call a run) and splitting it into window chunks
+  host.raw_rows  a finishing group's records -> raw TSV bytes (native,
+                 seeded with the read's last end) + write (host)
+  host.pend      a finishing group's records -> the finisher's columns
+                 (monomer index, starts, ends) (host)
   fin.dispatch   finishing encode + device-call queueing (host)
   fin.gather     .cpu() on identity results == wait on device + transfer
   fin.assemble   [Nb, M] score matrix -> Rows host logic
@@ -43,6 +48,9 @@ Counters, per thread and per job:
   fin.groups       finishing groups that queued device work
   fin.blocks       blocks in them
   fin.depth_max    most finishing groups queued at once (a maximum)
+  host.native_fallback  dedup pushes and raw-row groups that took the
+                   Python fallback because libsdnative was unavailable
+                   (0 wherever the library builds)
   dispatch.n       K1 batches and finishing groups about to be queued
   dispatch.starved those of them that found none of the job's earlier
                    device work still running (its done events all
